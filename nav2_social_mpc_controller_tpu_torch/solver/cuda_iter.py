@@ -1,0 +1,235 @@
+"""K3 / K4 — the non-evaluation half of one LM iteration: wrappers, plain
+versions and launch counts for ``csrc/tr_iter.cu``.
+
+Counterpart of the JAX package's ``solver/pallas_iter.py``:
+
+  propose  (u, g, jtj, radius, lower, upper) -> (u_new, delta, model_change)
+           = diagonal clamp + damped Cholesky solve + box projection +
+           model-cost contractions.
+  commit   (state..., trial results...) -> updated state
+           = rho, accept/reject, radius & decrease-factor updates, frozen
+           done lanes, the three tolerance stops, termination codes.
+
+Reference semantics: the Ceres trust-region update rules
+(levenberg_marquardt_strategy.cc / trust_region_minimizer.cc).
+
+The plain versions are the SAME unrolled arithmetic written as batched
+tensor operations, one (B,) tensor per matrix entry. A library Cholesky is
+not a stand-in: a non-positive pivot must flow on as NaN into a non-finite
+step that commit rejects, where ``torch.linalg.cholesky`` raises and
+``cholesky_ex`` returns garbage silently. CUDA tensors launch the kernels
+(float32 only); CPU tensors take the plain versions.
+"""
+
+import torch
+
+from nav2_social_mpc_controller_tpu_torch import _build
+
+TERM_NO_CONVERGENCE = 0  # hit max_num_iterations (still usable, like Ceres)
+TERM_FUNCTION_TOL = 1
+TERM_PARAMETER_TOL = 2
+TERM_GRADIENT_TOL = 3
+TERM_MIN_RADIUS = 4
+TERM_NUMERIC_FAILURE = 5  # NaN/inf encountered -> solution unusable
+
+_KERNEL_DIMS = (6, 12)  # D values csrc/tr_iter.cu is instantiated for
+
+
+def propose_plain(cfg, u, g, jtj, radius, lower, upper):
+    """Plain PyTorch version of kernel K3. u/g/lower/upper (B, D), jtj
+    (B, D, D), radius (B,) -> u_new, delta (B, D), model_change (B,)."""
+    d = u.shape[1]
+    inv_radius = 1.0 / radius
+
+    def a(i, j):
+        base = jtj[:, i, j]
+        if i != j:
+            return base
+        diag = torch.clamp(base, cfg.min_diagonal, cfg.max_diagonal)
+        return base + diag * inv_radius
+
+    # Unrolled Cholesky of the damped system, solving A x = -g.
+    el = {}
+    inv_diag = {}
+    for j in range(d):
+        s = a(j, j)
+        for k in range(j):
+            s = s - el[(j, k)] * el[(j, k)]
+        ljj = torch.sqrt(s)
+        el[(j, j)] = ljj
+        inv_diag[j] = 1.0 / ljj
+        for i in range(j + 1, d):
+            s = a(i, j)
+            for k in range(j):
+                s = s - el[(i, k)] * el[(j, k)]
+            el[(i, j)] = s * inv_diag[j]
+    y = {}
+    for i in range(d):
+        s = -g[:, i]
+        for k in range(i):
+            s = s - el[(i, k)] * y[k]
+        y[i] = s * inv_diag[i]
+    x = {}
+    for i in reversed(range(d)):
+        s = y[i]
+        for k in range(i + 1, d):
+            s = s - el[(k, i)] * x[k]
+        x[i] = s * inv_diag[i]
+
+    step = torch.stack([x[i] for i in range(d)], dim=1)
+    # max/min keep NaN, like the kernel's comparisons.
+    u_new = torch.minimum(torch.maximum(u + step, lower), upper)
+    delta = u_new - u
+
+    # model_change = -<delta, g> - 0.5 <delta, JtJ delta> (undamped JtJ)
+    dg = delta[:, 0] * g[:, 0]
+    for i in range(1, d):
+        dg = dg + delta[:, i] * g[:, i]
+    dad = torch.zeros_like(dg)
+    for i in range(d):
+        row = jtj[:, i, 0] * delta[:, 0]
+        for j in range(1, d):
+            row = row + jtj[:, i, j] * delta[:, j]
+        dad = dad + delta[:, i] * row
+    return u_new, delta, -dg - 0.5 * dad
+
+
+def commit_plain(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
+                 failed, u_new, delta, model_change, new_cost, g_new, jtj_new):
+    """Plain PyTorch version of kernel K4: the accept/reject + convergence
+    tail of one LM iteration. State and trial tensors carry a leading batch
+    axis; iters/term int32, done/failed bool. Returns the updated
+    (u, cost, g, jtj, radius, decrease_factor, iters, done, term, failed)."""
+    d = u.shape[1]
+    grad_ok = g.abs().max(dim=1).values <= cfg.gradient_tol
+    actual_change = cost - new_cost
+    rho = actual_change / model_change
+
+    step_sq = delta[:, 0] * delta[:, 0]
+    u_sq = u[:, 0] * u[:, 0]
+    for i in range(1, d):
+        step_sq = step_sq + delta[:, i] * delta[:, i]
+        u_sq = u_sq + u[:, i] * u[:, i]
+    step_valid = (
+        (model_change > 0.0) & torch.isfinite(new_cost) & torch.isfinite(delta).all(dim=1)
+    )
+    active = ~done
+    accept = active & step_valid & (rho > cfg.min_relative_decrease)
+
+    shrink = 2.0 * rho - 1.0
+    grow = torch.maximum(torch.full_like(rho, 1.0 / 3.0), 1.0 - shrink * shrink * shrink)
+    radius_acc = torch.minimum(radius / grow, torch.full_like(rho, cfg.max_radius))
+    radius_rej = radius / decrease_factor
+    radius_out = torch.where(active, torch.where(accept, radius_acc, radius_rej), radius)
+    decrease_out = torch.where(
+        active,
+        torch.where(accept, torch.full_like(rho, 2.0), decrease_factor * 2.0),
+        decrease_factor,
+    )
+
+    u_out = torch.where(accept[:, None], u_new, u)
+    g_out = torch.where(accept[:, None], g_new, g)
+    jtj_out = torch.where(accept[:, None, None], jtj_new, jtj)
+    cost_out = torch.where(accept, new_cost, cost)
+
+    fn_conv = accept & (actual_change.abs() <= cfg.fn_tol * cost)
+    step_norm = torch.sqrt(step_sq)
+    param_conv = accept & (step_norm <= cfg.param_tol * (torch.sqrt(u_sq) + cfg.param_tol))
+    radius_dead = active & (radius_out < cfg.min_radius)
+    numeric_failed = active & (~torch.isfinite(cost_out) | ~torch.isfinite(u_out).all(dim=1))
+    grad_ok = active & grad_ok
+
+    def code(c):
+        return torch.full_like(term, c)
+
+    term_new = torch.where(
+        numeric_failed, code(TERM_NUMERIC_FAILURE),
+        torch.where(
+            grad_ok, code(TERM_GRADIENT_TOL),
+            torch.where(
+                fn_conv, code(TERM_FUNCTION_TOL),
+                torch.where(
+                    param_conv, code(TERM_PARAMETER_TOL),
+                    torch.where(radius_dead, code(TERM_MIN_RADIUS), code(TERM_NO_CONVERGENCE)),
+                ),
+            ),
+        ),
+    )
+    newly_done = numeric_failed | grad_ok | fn_conv | param_conv | radius_dead
+    return (
+        u_out,
+        cost_out,
+        g_out,
+        jtj_out,
+        radius_out,
+        decrease_out,
+        iters + active.to(iters.dtype),
+        done | newly_done,
+        torch.where(done, term, term_new),
+        failed | numeric_failed,
+    )
+
+
+def propose(cfg, u, g, jtj, radius, lower, upper):
+    """Trial step of one LM iteration (see module docstring)."""
+    if not u.is_cuda:
+        return propose_plain(cfg, u, g, jtj, radius, lower, upper)
+    b, d = u.shape
+    if d not in _KERNEL_DIMS:
+        raise ValueError(f"propose: kernel is built for D in {_KERNEL_DIMS}, got {d}")
+    f32 = torch.float32
+    for name, t, shape in (
+        ("u", u, (b, d)), ("g", g, (b, d)), ("jtj", jtj, (b, d, d)),
+        ("radius", radius, (b,)), ("lower", lower, (b, d)), ("upper", upper, (b, d)),
+    ):
+        _build.check_tensor("propose", name, t, f32, shape, u.device)
+    u_new = torch.empty_like(u)
+    delta = torch.empty_like(u)
+    model_change = torch.empty_like(radius)
+    lib = _build.load()
+    with torch.cuda.device(u.device):
+        err = lib.social_mpc_propose_f32(
+            u.data_ptr(), g.data_ptr(), jtj.data_ptr(), radius.data_ptr(),
+            lower.data_ptr(), upper.data_ptr(),
+            u_new.data_ptr(), delta.data_ptr(), model_change.data_ptr(),
+            b, d, cfg.min_diagonal, cfg.max_diagonal,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "propose")
+    _build.launch_counts["propose"] += 1
+    return u_new, delta, model_change
+
+
+def commit(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
+           failed, u_new, delta, model_change, new_cost, g_new, jtj_new):
+    """Accept/reject and convergence tail of one LM iteration (see module
+    docstring). Returns new tensors; the inputs are left untouched."""
+    args = (u, cost, g, jtj, radius, decrease_factor, iters, done, term, failed,
+            u_new, delta, model_change, new_cost, g_new, jtj_new)
+    if not u.is_cuda:
+        return commit_plain(cfg, *args)
+    b, d = u.shape
+    if d not in _KERNEL_DIMS:
+        raise ValueError(f"commit: kernel is built for D in {_KERNEL_DIMS}, got {d}")
+    f32, i32, bl = torch.float32, torch.int32, torch.bool
+    spec = (
+        ("u", f32, (b, d)), ("cost", f32, (b,)), ("g", f32, (b, d)), ("jtj", f32, (b, d, d)),
+        ("radius", f32, (b,)), ("decrease_factor", f32, (b,)), ("iters", i32, (b,)),
+        ("done", bl, (b,)), ("term", i32, (b,)), ("failed", bl, (b,)),
+        ("u_new", f32, (b, d)), ("delta", f32, (b, d)), ("model_change", f32, (b,)),
+        ("new_cost", f32, (b,)), ("g_new", f32, (b, d)), ("jtj_new", f32, (b, d, d)),
+    )
+    for (name, dtype, shape), t in zip(spec, args):
+        _build.check_tensor("commit", name, t, dtype, shape, u.device)
+    outs = tuple(torch.empty_like(t) for t in args[:10])
+    lib = _build.load()
+    with torch.cuda.device(u.device):
+        err = lib.social_mpc_commit_f32(
+            *(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
+            b, d, cfg.gradient_tol, cfg.fn_tol, cfg.param_tol,
+            cfg.min_relative_decrease, cfg.max_radius, cfg.min_radius, 1.0 / 3.0,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "commit")
+    _build.launch_counts["commit"] += 1
+    return outs

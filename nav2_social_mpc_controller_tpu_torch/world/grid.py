@@ -1,0 +1,95 @@
+"""Grid sampling: Catmull-Rom bicubic costmap interpolation and the
+rolling-window crop, batched over scenarios.
+
+Reference parity target: ceres::BiCubicInterpolator<ceres::Grid2D<u_char>>
+built per tick over the costmap (optimizer.cpp:167-170) and queried by
+ObstacleCost at grid coords (p - origin)/resolution with NO cell-centre
+offset (obstacle_cost_function.hpp:160-163). Grid2D clamps out-of-range
+rows/cols to the border; the interpolator is a cubic Hermite (Catmull-Rom)
+spline in each axis.
+
+The ESDF nearest-obstacle lookup lives with its only caller, the SFM people
+projection (models/sfm.py).
+"""
+
+import torch
+
+from nav2_social_mpc_controller_tpu_torch.ops.bicubic_cuda import bicubic_linearize
+
+
+def _cubic_hermite(p0, p1, p2, p3, x):
+    """Catmull-Rom cubic through 4 samples, evaluated at x in [0, 1] (the
+    polynomial used by ceres::CubicHermiteSpline)."""
+    a = 0.5 * (-p0 + 3.0 * p1 - 3.0 * p2 + p3)
+    b = 0.5 * (2.0 * p0 - 5.0 * p1 + 4.0 * p2 - p3)
+    c = 0.5 * (-p0 + p2)
+    return p1 + x * (c + x * (b + x * a))
+
+
+def bicubic_interpolate_gather(grid, row, col):
+    """Gather-stencil bicubic value (the textbook Hermite formulation), kept
+    as the cross-check of the tap-weight form in ops/bicubic_cuda.py.
+    grid (B, H, W); row/col (B, S) -> (B, S)."""
+    b, h, w = grid.shape
+    r0 = torch.floor(row)
+    c0 = torch.floor(col)
+    fr = row - r0
+    fc = col - c0
+    r0 = r0.long()
+    c0 = c0.long()
+    flat = grid.reshape(b, h * w)
+
+    def at(dr, dc):
+        # Border clamp == ceres::Grid2D's index clamping.
+        rr = (r0 + dr).clamp(0, h - 1)
+        cc = (c0 + dc).clamp(0, w - 1)
+        return torch.gather(flat, 1, rr * w + cc)
+
+    rows_interp = [
+        _cubic_hermite(at(dr, -1), at(dr, 0), at(dr, 1), at(dr, 2), fc)
+        for dr in (-1, 0, 1, 2)
+    ]
+    return _cubic_hermite(*rows_interp, fr)
+
+
+def crop_grid_window(data, origin, resolution, center_xy, window: int):
+    """Extract an (n, n) window of each scenario's grid centred (cell-wise)
+    on the world point center_xy, clamped inside the grid; returns
+    (window_data (B, n, n), window_origin (B, 2)). One indexed copy per tick,
+    so the per-LM-iteration samples read n*n cells instead of the full grid.
+
+    Bit-identical to sampling the full grid (including border clamping)
+    whenever every query stays >= 2 cells inside the window — see
+    OptimizerConfig.obstacle_window_cells for the sizing rule.
+
+    data (B, H, W); origin (B, 2); resolution (B,); center_xy (B, 2)."""
+    b, h, w = data.shape
+    if window <= 0 or window >= min(h, w):
+        return data, origin
+    cell = torch.floor((center_xy - origin) / resolution[:, None]).long()  # (col, row)
+    half = window // 2
+    start_col = (cell[:, 0] - half).clamp(0, w - window)
+    start_row = (cell[:, 1] - half).clamp(0, h - window)
+    iwin = torch.arange(window, device=data.device)
+    rows = (start_row[:, None] + iwin)[:, :, None]  # (B, n, 1)
+    cols = (start_col[:, None] + iwin)[:, None, :]  # (B, 1, n)
+    bidx = torch.arange(b, device=data.device)[:, None, None]
+    win = data[bidx, rows, cols].contiguous()
+    shift = torch.stack([start_col, start_row], dim=-1).to(origin.dtype) * resolution[:, None]
+    return win, origin + shift
+
+
+def costmap_world_to_grid(point_xy, origin, resolution):
+    """World -> continuous grid coords, reference convention (no centre
+    offset): (p - origin) / resolution. point_xy (B, S, 2); origin (B, 2);
+    resolution (B,). Returns (col = x_grid, row = y_grid), each (B, S)."""
+    g = (point_xy - origin[:, None, :]) / resolution[:, None, None]
+    return g[..., 0], g[..., 1]
+
+
+def sample_costmap(costmap_data, origin, resolution, point_xy):
+    """Bicubic costmap value at world points, ObstacleCost convention:
+    Evaluate(row = y_grid, col = x_grid)."""
+    col, row = costmap_world_to_grid(point_xy, origin, resolution)
+    val, _, _ = bicubic_linearize(costmap_data, row.contiguous(), col.contiguous())
+    return val
