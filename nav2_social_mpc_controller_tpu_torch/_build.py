@@ -32,7 +32,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-launch_counts = {"sfm_scan": 0, "bicubic": 0, "fused_iter": 0, "propose": 0, "commit": 0}
+launch_counts = {
+    "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "fused_iter": 0, "propose": 0, "commit": 0,
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -47,11 +49,16 @@ _SIGNATURES = {
     # win, row, col, val, drow, dcol, B, S, H, W, stream
     "social_mpc_bicubic_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # u, px, py, pth, v, dxdv, dydv, dxdw, dydw, (4 batch strides), dth, eb,
-    # val, drow, dcol, m_step, m_vel, refx, refy, scal, vfm,
-    # cost, g, jtj, B, S, NB, n_vf, 8 floats (weights..., desired, front), stream
+    # val, drow, dcol, agents, (3 agent strides), m_step, m_vel, m_social,
+    # active, steer, refx, refy, scal, vfm, cost, g, jtj, B, S, NB, n_vf, N,
+    # 11 floats (9 weights, desired, front), stream
     "social_mpc_fused_iter_f32": (
-        [_P] * 9 + [_I] * 4 + [_P] * 11 + [_P] * 3 + [_I] * 4 + [_F] * 8 + [_P]
+        [_P] * 9 + [_I] * 4 + [_P] * 6 + [_I] * 3 + [_P] * 9 + [_P] * 3 + [_I] * 5
+        + [_F] * 11 + [_P]
     ),
+    # u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, NB,
+    # dt, front, stream
+    "social_mpc_rollout_prep_f32": [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
     # u, g, jtj, radius, lower, upper, u_new, delta, model_change, B, D,
     # min_diagonal, max_diagonal, stream
     "social_mpc_propose_f32": [_P] * 9 + [_I, _I, _F, _F, _P],

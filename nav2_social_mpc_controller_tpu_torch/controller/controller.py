@@ -207,13 +207,14 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
     Scenario and carry tensors must already live on `device` with float
     dtype `dtype` (core.types.scenario_from_numpy / make_carry).
 
-    Configurations and batches this slice of the port does not implement —
-    latent critics, debug_optimizer, warm_start_mode="previous_solution", a
-    batch with a valid person — are refused with NotImplementedError. The
-    batch checks (no people, obstacle- and ESDF-window exactness against the
-    ACTUAL grid resolutions) run once per distinct input buffer
-    (identity-cached), so steady-state ticks that reuse scenario buffers pay
-    no host synchronisation."""
+    Scenarios may carry valid people (`AgentsState`, t != -1): the three
+    people critics are on per scenario, for those that keep a valid person
+    after the FOV filter. Configurations the port does not implement yet —
+    latent critics, debug_optimizer, warm_start_mode="previous_solution" —
+    are refused with NotImplementedError. The batch checks (obstacle- and
+    ESDF-window exactness against the ACTUAL grid resolutions) run once per
+    distinct input buffer (identity-cached), so steady-state ticks that reuse
+    scenario buffers pay no host synchronisation."""
     dev = resolve_device(device)
     check_supported_config(cfg)
     check = make_window_validator(cfg)

@@ -3,12 +3,11 @@ assembly, batched LM solve, and command/path extraction.
 
 Reference parity target: Optimizer::optimize (optimizer.cpp:148-452) and its
 helpers format_to_optimize (:484-551) and the post-solve extraction
-(:390-446). Counterpart of the JAX package's ``controller/optimize.py`` for
-the people-free problem: the SFM people projection runs every tick (kernel
-K5, models/sfm.py) and, with no valid person, emits its padding rows; the
-three people critics are then masked to exactly zero and are not evaluated
-here (a batch with a valid person is refused at the call boundary,
-core/validate.py).
+(:390-446). Counterpart of the JAX package's ``controller/optimize.py``: the
+SFM people projection runs every tick (kernel K5, models/sfm.py) and, for a
+scenario with no valid person, emits its padding rows; the three people
+critics read the projection and are masked per scenario by
+``people_present``.
 
 Shape notes:
   * maxsize = round(max_time/time_step) (optimizer.cpp:492) is static; the
@@ -146,6 +145,7 @@ class PreparedProblem(NamedTuple):
     rows: torch.Tensor  # (B, maxsize, 6)
     n_rows: torch.Tensor  # (B,) int32
     people_proj: torch.Tensor  # (B, maxsize, N, 6)
+    people_present: torch.Tensor  # (B,) bool — a valid person after the FOV filter
     costmap: Costmap
     u0: torch.Tensor  # (B, D) clipped warm start
     lower: torch.Tensor  # (B, D)
@@ -219,6 +219,7 @@ def optimize_prepare(
         rows=rows,
         n_rows=n_rows,
         people_proj=people_proj,
+        people_present=people.valid.any(dim=1),
         costmap=costmap,
         u0=u0_clipped.contiguous(),
         lower=lower.contiguous(),
@@ -230,7 +231,9 @@ def solve_prepared(cfg: SocialMPCConfig, prep: PreparedProblem):
     """Batched LM solve of a PreparedProblem (the ceres::Solve call,
     optimizer.cpp:381). Returns (u (B, D), SolveStats)."""
     dims = ProblemDims.from_config(cfg)
-    value_grad = fused_iter.build_value_grad(cfg, dims, prep.rows, prep.n_rows, prep.costmap)
+    value_grad = fused_iter.build_value_grad(
+        cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present, prep.costmap
+    )
     return lm_solve(value_grad, prep.u0, prep.lower, prep.upper, make_lm_config(cfg.optimizer))
 
 

@@ -1,5 +1,5 @@
 """Checks at the call boundary of the batched step: window exactness, and
-the guard that refuses what this slice of the port does not implement yet.
+the guard that refuses the configurations the port does not implement yet.
 
 `OptimizerConfig.obstacle_window_cells` and
 `SocialMPCConfig.esdf_window_cells` are EXACT-output optimisations only when
@@ -91,22 +91,9 @@ def check_supported_config(cfg) -> None:
         )
 
 
-def check_no_people(scenario) -> None:
-    """This slice solves the people-free problem only. The SFM projection
-    would carry a valid person, but the three people critics that read it
-    are slice 2 of the port, so such a batch is refused."""
-    if bool(scenario.people.valid.any()):
-        raise NotImplementedError(
-            "the scenario batch contains a valid person: the social-work / "
-            "proxemics / agent-angle critics arrive with slice 2 of the port "
-            "(the people path)"
-        )
-
-
 def make_window_validator(cfg):
     """Identity-cached boundary check: returns check(scenario) that runs the
-    window checks and the no-people guard once per distinct set of
-    input buffers, so steady-state ticks that reuse scenario buffers pay no
+    window checks once per distinct set of input buffers, so steady-state ticks that reuse scenario buffers pay no
     host synchronisation. The cache HOLDS the keyed tensors (not just their
     ids), so a freed buffer's id cannot be recycled by a new, never-checked
     tensor. Tensors are mutable: a caller that overwrites a checked buffer
@@ -114,13 +101,12 @@ def make_window_validator(cfg):
     cache = {}
 
     def check(scenario) -> None:
-        held = (scenario.costmap.resolution, scenario.esdf.resolution, scenario.people.state)
+        held = (scenario.costmap.resolution, scenario.esdf.resolution)
         key = tuple(id(t) for t in held)
         if key in cache:
             return
         check_obstacle_window(cfg, float(scenario.costmap.resolution.min()))
         check_esdf_window(cfg, float(scenario.esdf.resolution.min()))
-        check_no_people(scenario)
         if len(cache) >= 1024:  # bound the cache for long campaigns
             cache.clear()
         cache[key] = held

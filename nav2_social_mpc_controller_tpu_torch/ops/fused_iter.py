@@ -3,9 +3,9 @@ autodiff, with CUDA kernel K2 (``csrc/fused_iter.cu``) on the card.
 
 Counterpart of the JAX package's ``ops/fused_iter.py``. One evaluation is
 
-  1. rollout + analytic sensitivities as stacked prefix sums (the unicycle
-     rollout is linear in the per-step integrands, so d(poses)/du is itself
-     a pair of cumsums) — plain PyTorch, ``torch.cumsum`` along the step axis;
+  1. kernel K6 (ops/rollout_cuda.py): rollout + analytic sensitivities (the
+     unicycle rollout is linear in the per-step integrands, so d(poses)/du is
+     itself a set of prefix sums) and the front-point sample coordinates;
   2. kernel K1 (ops/bicubic_cuda.py) for the costmap value + row/col
      derivatives at the rollout front points;
   3. kernel K2 evaluating every critic's residual AND per-step gradient
@@ -14,14 +14,14 @@ Counterpart of the JAX package's ``ops/fused_iter.py``. One evaluation is
      never materialised.
 
 Residual semantics are those of the JAX package's
-``controller.optimize.build_residual_fn`` (same masks, same ordering) for
-the people-free critic set: velocity, goal-align, path-follow, path-align,
-obstacle, plus the velocity-feasibility rows. The social-work, agent-angle
-and proxemics stages arrive with the people path.
+``controller.optimize.build_residual_fn`` (same masks, same ordering):
+social work, agent angle, proxemics, velocity, goal-align, path-follow,
+path-align, obstacle, plus the velocity-feasibility rows. The three people
+stages are masked per scenario by ``present`` (a valid person after the FOV
+filter) and read the projected agents where the SFM scan wrote them.
 
 Layout: batch-major with the step axis innermost — (B, S) per-step arrays and
-(B, NB, S) per-block sensitivities — so the prefix sums run along the last
-axis and a warp of K2 reads contiguous memory.
+(B, NB, S) per-block sensitivities — so a warp of K2 reads contiguous memory.
 """
 
 from typing import NamedTuple
@@ -34,8 +34,10 @@ from nav2_social_mpc_controller_tpu_torch.costs import critics
 from nav2_social_mpc_controller_tpu_torch.models.motion import (
     block_index_sequence_dynamic,
     dynamic_horizon,
+    expand_blocks,
 )
 from nav2_social_mpc_controller_tpu_torch.ops.bicubic_cuda import bicubic_linearize
+from nav2_social_mpc_controller_tpu_torch.ops.rollout_cuda import rollout_prep, rollout_prep_plain
 from nav2_social_mpc_controller_tpu_torch.world.grid import crop_grid_window
 
 _KERNEL_BLOCKS = (3, 6)  # NB values csrc/fused_iter.cu is instantiated for
@@ -52,6 +54,10 @@ class FusedStatics(NamedTuple):
     """The configuration constants of one fused evaluation."""
 
     n_vf: int
+    n_agents: int
+    social_weight: float
+    agent_angle_weight: float
+    proxemics_weight: float
     distance_weight: float
     angle_weight: float
     velocity_weight: float
@@ -66,6 +72,10 @@ class FusedStatics(NamedTuple):
         w = cfg.optimizer.weights
         return FusedStatics(
             n_vf=dims.n_vf,
+            n_agents=cfg.n_agents,
+            social_weight=w.social_weight,
+            agent_angle_weight=w.agent_angle_weight,
+            proxemics_weight=w.proxemics_weight,
             distance_weight=w.distance_weight,
             angle_weight=w.angle_weight,
             velocity_weight=w.velocity_weight,
@@ -77,8 +87,16 @@ class FusedStatics(NamedTuple):
         )
 
 
+# The u-independent head of the agent-angle critic (closest-moving-agent
+# selection, branch resolution, steering target), computed once per solve:
+# agent_angle_precompute(pose0 (B, 3), agents_steps (B, S, N, 6)) ->
+# (steer (B, S), active (B, S) bool).
+agent_angle_precompute = critics.agent_angle_select
+
+
 def rollout_with_sensitivities(u, pose0, dt: float, block_idx, n_blocks: int):
-    """Unicycle prefix-sum rollout AND its analytic Jacobian wrt u, batched.
+    """Unicycle prefix-sum rollout AND its analytic Jacobian wrt u, batched
+    (the plain rollout prep, in the JAX function's output layout).
 
       theta_s        = theta0 + dt * cum(w)
       dtheta_s/dw_b  = dt * cum(E_b)
@@ -95,11 +113,14 @@ def rollout_with_sensitivities(u, pose0, dt: float, block_idx, n_blocks: int):
     b, s = block_idx.shape
     eb = (block_idx[:, None, :] == torch.arange(n_blocks, device=u.device)[None, :, None]).to(u.dtype)
     dth = dt * torch.cumsum(eb, dim=2)
-    r = _rollout(u.reshape(b, -1), pose0, dt, block_idx, eb, dth, n_blocks)
+    r = rollout_prep_plain(
+        u.reshape(b, -1), pose0, block_idx, pose0.new_zeros((b, 2)), pose0.new_ones((b,)),
+        dt, 0.0, n_blocks,
+    )
     poses = torch.cat(
         [pose0[:, None, :], torch.stack([r["px"], r["py"], r["pth"]], dim=-1)], dim=1
     )
-    vw = torch.stack([r["v"], r["w"]], dim=-1)
+    vw = expand_blocks(u, block_idx)
 
     def interleave(dv, dw):  # (B, NB, S) x2 -> (B, S, 2*NB)
         return torch.stack([dv, dw], dim=-1).permute(0, 2, 1, 3).reshape(b, s, 2 * n_blocks)
@@ -110,59 +131,26 @@ def rollout_with_sensitivities(u, pose0, dt: float, block_idx, n_blocks: int):
     return poses, vw, tx, ty, tth, eb.permute(0, 2, 1)
 
 
-def _rollout(u, pose0, dt, block_idx, eb, dth, n_blocks):
-    """The u-dependent prep of one evaluation in (B, K, S) layout: expanded
-    controls, poses after each step and the four position sensitivities.
-    eb / dth (B, NB, S) are u-independent and passed in."""
-    b = u.shape[0]
-    nb = n_blocks
-    ub = u.reshape(b, nb, 2)
-    v_t = torch.gather(ub[:, :, 0], 1, block_idx)  # exact copies, (B, S)
-    w_t = torch.gather(ub[:, :, 1], 1, block_idx)
-
-    th0 = pose0[:, 2:3]
-    th = th0 + dt * torch.cumsum(w_t, dim=1)
-    th_prev = torch.cat([th0, th[:, :-1]], dim=1)
-    dth_prev = torch.cat([torch.zeros_like(dth[:, :, :1]), dth[:, :, :-1]], dim=2)
-
-    cosp = torch.cos(th_prev)
-    sinp = torch.sin(th_prev)
-    vc = v_t * cosp
-    vs = v_t * sinp
-    r2 = torch.cat(
-        [
-            vc[:, None],                  # x integrand
-            vs[:, None],                  # y integrand
-            eb * cosp[:, None],           # dx/dv_b
-            eb * sinp[:, None],           # dy/dv_b
-            (-vs)[:, None] * dth_prev,    # dx/dw_b
-            vc[:, None] * dth_prev,       # dy/dw_b
-        ],
-        dim=1,
-    )  # (B, 2 + 4NB, S)
-    c2 = dt * torch.cumsum(r2, dim=2)
-    return {
-        "v": v_t, "w": w_t, "pth": th,
-        "px": pose0[:, 0:1] + c2[:, 0],
-        "py": pose0[:, 1:2] + c2[:, 1],
-        # Views into c2: inner (NB, S) blocks contiguous, batch stride
-        # (2 + 4NB) * S — the kernel wrapper takes the stride as given.
-        "dxdv": c2[:, 2 : 2 + nb],
-        "dydv": c2[:, 2 + nb : 2 + 2 * nb],
-        "dxdw": c2[:, 2 + 2 * nb : 2 + 3 * nb],
-        "dydw": c2[:, 2 + 3 * nb : 2 + 4 * nb],
-    }
-
-
 # ---------------------------------------------------------------------------
 # K2: the fused critic + contraction function, plain and on the card.
 # ---------------------------------------------------------------------------
 
 
+def _agent_list(agents):
+    """(B, S, N, 6) projected agents -> the per-agent field tuples
+    (ax, ay, ayaw, alv, avalid) costs/critic_grads.py takes."""
+    return [
+        (agents[:, :, k, 0], agents[:, :, k, 1], agents[:, :, k, 2], agents[:, :, k, 4],
+         agents[:, :, k, 3] != -1.0)
+        for k in range(agents.shape[2])
+    ]
+
+
 def fused_cost_g_jtj_plain(
     statics: FusedStatics,
     u, px, py, pth, v, dxdv, dydv, dxdw, dydw, dth, eb,
-    val, drow, dcol, m_step, m_vel, refx, refy, scal, vfm,
+    val, drow, dcol, agents,
+    m_step, m_vel, m_social, active, steer, refx, refy, scal, vfm,
 ):
     """Plain PyTorch version of kernel K2 (same arguments as
     ``fused_cost_g_jtj``): builds every residual row and its J row, then
@@ -196,6 +184,11 @@ def fused_cost_g_jtj_plain(
         rows_j.append(torch.stack([cv, cw], dim=-1).permute(0, 2, 1, 3).reshape(b, s, d))
 
     # Residual order mirrors build_residual_fn of the JAX package.
+    agent_list = _agent_list(agents)
+    add(*cg.social_work_grad(st.social_weight, px, py, pth, v, agent_list), m_social)
+    # `active` is prefolded with the social mask
+    add(*cg.agent_angle_grad(st.agent_angle_weight, pth, steer, active), None)
+    add(*cg.proxemics_grad(st.proxemics_weight, px, py, agent_list), m_social)
     add(*cg.velocity_grad(st.velocity_weight, st.desired_linear_vel, v, m_vel), None)
     add(*cg.goal_align_grad(st.goal_align_weight, goal_yaw, pth), m_step)
     add(*cg.distance_grad(st.distance_weight, px, py, final_x, final_y), m_step)
@@ -247,22 +240,42 @@ def _batch_stride(name, t, nb, s, device):
     return t.stride(0)
 
 
+def _agent_strides(agents, b, s, n, device):
+    """(batch, step, agent) strides of the (B, S, N, 6) float32 agents tensor
+    on `device`, whose 6 fields must be adjacent; any other stride is taken
+    as given (a view into the SFM scan's (B, S+1, N, 6) output is fine)."""
+    if (
+        agents.device != device or agents.dtype != torch.float32
+        or tuple(agents.shape) != (b, s, n, 6) or agents.stride(3) != 1
+    ):
+        raise ValueError(
+            f"fused_cost_g_jtj: agents must be float32 CUDA ({b}, {s}, {n}, 6) with "
+            f"adjacent fields, got {tuple(agents.shape)} strides {agents.stride()} "
+            f"{agents.dtype} on {agents.device}"
+        )
+    return agents.stride(0), agents.stride(1), agents.stride(2)
+
+
 def fused_cost_g_jtj(
     statics: FusedStatics,
     u, px, py, pth, v, dxdv, dydv, dxdw, dydw, dth, eb,
-    val, drow, dcol, m_step, m_vel, refx, refy, scal, vfm,
+    val, drow, dcol, agents,
+    m_step, m_vel, m_social, active, steer, refx, refy, scal, vfm,
 ):
-    """cost, g = J^T r and JtJ = J^T J of the people-free critic stack.
+    """cost, g = J^T r and JtJ = J^T J of the whole critic stack.
 
-    u (B, D); px, py, pth, v, val, drow, dcol, refx, refy (B, S) float;
-    dxdv, dydv, dxdw, dydw, dth, eb (B, NB, S); m_step, m_vel (B, S) bool;
-    scal (B, 4) [final_x, final_y, goal_yaw, 1/resolution]; vfm (B, n_vf)
-    bool. Returns (cost (B,), g (B, D), jtj (B, D, D)).
+    u (B, D); px, py, pth, v, val, drow, dcol, steer, refx, refy (B, S)
+    float; dxdv, dydv, dxdw, dydw, dth, eb (B, NB, S); agents (B, S, N, 6),
+    the projected people at step i+1; m_step, m_vel, m_social, active (B, S)
+    bool (m_vel and active prefolded with the step / social mask); scal
+    (B, 4) [final_x, final_y, goal_yaw, 1/resolution]; vfm (B, n_vf) bool.
+    Returns (cost (B,), g (B, D), jtj (B, D, D)).
 
     CUDA tensors launch kernel K2 (float32 only); CPU tensors take the plain
     version."""
     args = (u, px, py, pth, v, dxdv, dydv, dxdw, dydw, dth, eb,
-            val, drow, dcol, m_step, m_vel, refx, refy, scal, vfm)
+            val, drow, dcol, agents,
+            m_step, m_vel, m_social, active, steer, refx, refy, scal, vfm)
     if not u.is_cuda:
         return fused_cost_g_jtj_plain(statics, *args)
     b, nb, s = dth.shape
@@ -272,17 +285,19 @@ def fused_cost_g_jtj(
     f32 = torch.float32
     spec = [("u", u, f32, (b, d)), ("scal", scal, f32, (b, 4)),
             ("dth", dth, f32, (b, nb, s)), ("eb", eb, f32, (b, nb, s)),
-            ("m_step", m_step, torch.bool, (b, s)), ("m_vel", m_vel, torch.bool, (b, s)),
             ("vfm", vfm, torch.bool, (b, statics.n_vf))]
+    spec += [(n, t, torch.bool, (b, s)) for n, t in (
+        ("m_step", m_step), ("m_vel", m_vel), ("m_social", m_social), ("active", active))]
     spec += [(n, t, f32, (b, s)) for n, t in (
         ("px", px), ("py", py), ("pth", pth), ("v", v), ("val", val), ("drow", drow),
-        ("dcol", dcol), ("refx", refx), ("refy", refy))]
+        ("dcol", dcol), ("steer", steer), ("refx", refx), ("refy", refy))]
     for name, t, dtype, shape in spec:
         _build.check_tensor("fused_cost_g_jtj", name, t, dtype, shape, u.device)
     strides = [
         _batch_stride(n, t, nb, s, u.device)
         for n, t in (("dxdv", dxdv), ("dydv", dydv), ("dxdw", dxdw), ("dydw", dydw))
     ]
+    agent_strides = _agent_strides(agents, b, s, statics.n_agents, u.device)
 
     cost = torch.empty((b,), device=u.device, dtype=u.dtype)
     g = torch.empty((b, d), device=u.device, dtype=u.dtype)
@@ -295,10 +310,13 @@ def fused_cost_g_jtj(
             dxdv.data_ptr(), dydv.data_ptr(), dxdw.data_ptr(), dydw.data_ptr(),
             *strides,
             dth.data_ptr(), eb.data_ptr(), val.data_ptr(), drow.data_ptr(), dcol.data_ptr(),
-            m_step.data_ptr(), m_vel.data_ptr(), refx.data_ptr(), refy.data_ptr(),
+            agents.data_ptr(), *agent_strides,
+            m_step.data_ptr(), m_vel.data_ptr(), m_social.data_ptr(), active.data_ptr(),
+            steer.data_ptr(), refx.data_ptr(), refy.data_ptr(),
             scal.data_ptr(), vfm.data_ptr(),
             cost.data_ptr(), g.data_ptr(), jtj.data_ptr(),
-            b, s, nb, st.n_vf,
+            b, s, nb, st.n_vf, st.n_agents,
+            st.social_weight, st.agent_angle_weight, st.proxemics_weight,
             st.distance_weight, st.angle_weight, st.velocity_weight,
             st.goal_align_weight, st.obstacle_weight, st.velocity_feasibility_weight,
             st.desired_linear_vel, st.front_offset,
@@ -320,14 +338,16 @@ class ValueGrad:
     The constructor does the u-INDEPENDENT prep once per tick, outside the LM
     loop: masks, the per-scenario dynamic horizon block map (h_dyn / bl_dyn
     shrink near the goal, optimizer.cpp:248-249), block one-hots and theta
-    sensitivities, targets, and the obstacle-window crop around pose_0. A
-    call does the u-dependent part: rollout + sensitivities (plain PyTorch),
-    K1, K2.
+    sensitivities, targets, the agent-angle selection, and the
+    obstacle-window crop around pose_0. A call does the u-dependent part: K6
+    (rollout + sensitivities + sample coordinates), K1, K2.
 
-    rows (B, maxsize, 6), n_rows (B,), costmap: core.types.Costmap.
+    rows (B, maxsize, 6); n_rows (B,); people_proj (B, maxsize, N, 6), the
+    SFM projection; present (B,) bool, whether the scenario has a valid
+    person; costmap: core.types.Costmap.
     """
 
-    def __init__(self, cfg, dims, rows, n_rows, costmap):
+    def __init__(self, cfg, dims, rows, n_rows, people_proj, present, costmap):
         opt = cfg.optimizer
         self.dt = cfg.trajectorizer.time_step
         self.nb = dims.n_blocks
@@ -336,17 +356,26 @@ class ValueGrad:
         dtype = rows.dtype
         dev = rows.device
 
-        self.pose0 = rows[:, 0, 0:3]
+        self.pose0 = rows[:, 0, 0:3].contiguous()
         n_vel, h_dyn, bl_dyn = dynamic_horizon(n_rows, dims.horizon, dims.block_length)
         j = torch.arange(s, device=dev)
-        self.block_idx = block_index_sequence_dynamic(s, h_dyn, bl_dyn)
+        block_idx = block_index_sequence_dynamic(s, h_dyn, bl_dyn)
+        self.block_idx = block_idx.to(torch.int32).contiguous()
         self.m_step = (j[None, :] < n_vel[:, None]).contiguous()
         self.m_vel = ((j[None, :] < h_dyn[:, None]) & self.m_step).contiguous()
+        self.m_social = (self.m_step & present[:, None]).contiguous()
 
         last = (n_rows.long() - 1).clamp(0, dims.maxsize - 1)
         last_row = torch.gather(rows, 1, last[:, None, None].expand(-1, 1, rows.shape[-1]))[:, 0]
         self.refx = rows[:, 1:, 0].contiguous()
         self.refy = rows[:, 1:, 1].contiguous()
+
+        # The projected people at step i+1: a view into the scan's output,
+        # never copied (K2 takes its strides).
+        self.agents = people_proj[:, 1:]
+        steer, active = agent_angle_precompute(self.pose0, self.agents)
+        self.steer = steer.contiguous()
+        self.active = (active & self.m_social).contiguous()
 
         # Obstacle-window crop (exactness is checked at the call boundary,
         # core/validate.py).
@@ -355,13 +384,14 @@ class ValueGrad:
             opt.obstacle_window_cells,
         )
         self.win = self.win.contiguous()
-        self.res = costmap.resolution[:, None]
+        self.win_origin = self.win_origin.contiguous()
+        self.res = costmap.resolution.contiguous()
         self.scal = torch.stack(
             [last_row[:, 0], last_row[:, 1], last_row[:, 2], 1.0 / costmap.resolution], dim=1
         ).contiguous()
 
         self.eb = (
-            self.block_idx[:, None, :] == torch.arange(self.nb, device=dev)[None, :, None]
+            block_idx[:, None, :] == torch.arange(self.nb, device=dev)[None, :, None]
         ).to(dtype).contiguous()  # (B, NB, S)
         self.dth = (self.dt * torch.cumsum(self.eb, dim=2)).contiguous()
 
@@ -370,31 +400,33 @@ class ValueGrad:
             (vf_step[None, :] < (h_dyn // bl_dyn)[:, None]) & (vf_step[None, :] < n_vel[:, None])
         ).contiguous()
 
+    def prep_inputs(self, u):
+        """K6's argument tuple at decision vector u."""
+        return (u, self.pose0, self.block_idx, self.win_origin, self.res, self.dt,
+                critics.FRONT_OFFSET, self.nb)
+
     def bicubic_inputs(self, u):
-        """(rollout dict, win, row, col): K1's inputs at decision vector u."""
-        r = _rollout(u, self.pose0, self.dt, self.block_idx, self.eb, self.dth, self.nb)
-        fxp = r["px"] + critics.FRONT_OFFSET * torch.cos(r["pth"])
-        fyp = r["py"] + critics.FRONT_OFFSET * torch.sin(r["pth"])
-        col = (fxp - self.win_origin[:, 0:1]) / self.res
-        row = (fyp - self.win_origin[:, 1:2]) / self.res
-        return r, self.win, row, col
+        """(rollout dict, win, row, col): K1's inputs at u (runs K6)."""
+        r = rollout_prep(*self.prep_inputs(u))
+        return r, self.win, r["row"], r["col"]
 
     def fused_inputs(self, u):
-        """K2's full argument tuple at u (runs the rollout and K1)."""
+        """K2's full argument tuple at u (runs K6 and K1)."""
         r, win, row, col = self.bicubic_inputs(u)
         val, drow, dcol = bicubic_linearize(win, row, col)
         return (
             self.statics, u, r["px"], r["py"], r["pth"], r["v"],
             r["dxdv"], r["dydv"], r["dxdw"], r["dydw"], self.dth, self.eb,
-            val, drow, dcol, self.m_step, self.m_vel, self.refx, self.refy,
-            self.scal, self.vfm,
+            val, drow, dcol, self.agents,
+            self.m_step, self.m_vel, self.m_social, self.active, self.steer,
+            self.refx, self.refy, self.scal, self.vfm,
         )
 
     def __call__(self, u):
         return fused_cost_g_jtj(*self.fused_inputs(u))
 
 
-def build_value_grad(cfg, dims, rows, n_rows, costmap) -> ValueGrad:
+def build_value_grad(cfg, dims, rows, n_rows, people_proj, present, costmap) -> ValueGrad:
     """value_grad(u (B, D)) -> (cost, g, jtj) for lm_solve, closing over one
     tick's scenario data."""
-    return ValueGrad(cfg, dims, rows, n_rows, costmap)
+    return ValueGrad(cfg, dims, rows, n_rows, people_proj, present, costmap)

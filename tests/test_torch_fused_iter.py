@@ -1,7 +1,8 @@
 """The fused LM iteration of the PyTorch port (rollout sensitivities, the
 batched prep and kernel K2's plain version) against the JAX package's
 reference value_grad (jax.linearize over the production residual closure) on
-identical NumPy problems."""
+identical people-free NumPy problems. The same with valid people is in
+``tests/test_torch_fused_people_{f64,f32}.py``."""
 
 import functools
 
@@ -11,17 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from nav2_social_mpc_controller_tpu.controller import optimize as jopt
-from nav2_social_mpc_controller_tpu.controller.trajectorizer import trajectorize as jax_trajectorize
+from test_torch_common import fused_problems, fused_value_grad
+
 from nav2_social_mpc_controller_tpu.core import config as jcfg_mod
-from nav2_social_mpc_controller_tpu.core.types import ControllerCarry as JaxCarry
 from nav2_social_mpc_controller_tpu.models import motion as jmotion
 from nav2_social_mpc_controller_tpu.ops import fused_iter as jfused
-from nav2_social_mpc_controller_tpu.utils.scenarios import make_scenario as jax_make_scenario
 from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.controller import optimize as topt
 from nav2_social_mpc_controller_tpu_torch.core import config as tcfg_mod
-from nav2_social_mpc_controller_tpu_torch.core.types import Costmap
 from nav2_social_mpc_controller_tpu_torch.models import motion as tmotion
 from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as tfused
 
@@ -71,44 +69,6 @@ def test_rollout_with_sensitivities(h_dyn, bl_dyn):
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _problems(name, dtype, near_goal=True):
-    """(jcfg, jdims, NumPy batch) of people-free problems straight from the
-    JAX package's pipeline; with `near_goal` some robots start a few poses
-    before the end of the plan, so n_rows is small and h_dyn/bl_dyn shrink,
-    and the others run the full horizon."""
-    jcfg = getattr(jcfg_mod, name)()
-    jdims = jopt.ProblemDims.from_config(jcfg)
-    keys = ("u", "rows", "n_rows", "proj", "present", "cmd", "cmo", "cmr")
-    batch = {k: [] for k in keys}
-    for seed in range(5):
-        sc = jax_make_scenario(jcfg, seed=seed, n_valid_people=0, dtype=dtype)
-        pose = np.asarray(sc.robot.pose)
-        if near_goal and seed >= 2:
-            i = int(sc.path.n) - seed  # 2..4 poses before the goal
-            pose = np.array([sc.path.points[i, 0], sc.path.points[i, 1], sc.path.yaw[i]], dtype)
-        res = jax_trajectorize(jcfg.trajectorizer, sc.path, jnp.asarray(pose))
-        carry = JaxCarry(
-            prev_path=jnp.zeros((jdims.maxsize, 3), dtype),
-            prev_cmds=jnp.zeros((jdims.maxsize, 2), dtype),
-            prev_n=jnp.zeros((), jnp.int32),
-        )
-        rows, n_rows = jopt.format_to_optimize(
-            jcfg, jdims, res.poses, res.cmds, res.n_steps, jnp.asarray(sc.robot.speed), carry
-        )
-        proj = np.zeros((jdims.maxsize, jcfg.n_agents, 6), dtype)
-        proj[..., 3] = -1.0
-        batch["u"].append(np.clip(np.asarray(rows[: jdims.n_blocks, 4:6]).reshape(-1), -0.6, 0.6))
-        batch["rows"].append(np.asarray(rows))
-        batch["n_rows"].append(np.asarray(n_rows))
-        batch["proj"].append(proj)
-        batch["present"].append(np.asarray(False))
-        batch["cmd"].append(np.asarray(sc.costmap.data, dtype))
-        batch["cmo"].append(np.asarray(sc.costmap.origin, dtype))
-        batch["cmr"].append(np.asarray(sc.costmap.resolution, dtype))
-    return jcfg, jdims, {k: np.stack(v) for k, v in batch.items()}
-
-
 @pytest.mark.parametrize(
     "name", ["benchmark_obstacle_only_config", "benchmark_stress_h36_config"], ids=["D6", "D12"]
 )
@@ -119,7 +79,7 @@ def test_value_grad_matches_reference(name, dtype):
     with near-goal ones (shrunk h_dyn / bl_dyn). f64: rtol 1e-9. f32: 3e-5 scale-normalised, the
     tolerance of tests/test_fused_iter.py (analytic chain vs autodiff replay
     round differently)."""
-    jcfg, jdims, bt = _problems(name, dtype)
+    jcfg, jdims, bt = fused_problems(name, dtype)
     tcfg = getattr(tcfg_mod, name)()
     tdims = topt.ProblemDims.from_config(tcfg)
     assert bt["n_rows"].min() <= 8 and bt["n_rows"].max() >= 29
@@ -134,11 +94,7 @@ def test_value_grad_matches_reference(name, dtype):
         )
     )
     _build.reset_launch_counts()
-    vg = tfused.build_value_grad(
-        tcfg, tdims, _t(bt["rows"]), _t(bt["n_rows"]).to(torch.int32),
-        Costmap(_t(bt["cmd"]), _t(bt["cmo"]), _t(bt["cmr"])),
-    )
-    cost, g, jtj = (x.numpy() for x in vg(_t(u)))
+    cost, g, jtj = (x.numpy() for x in fused_value_grad(tcfg, tdims, bt)(_t(u)))
     assert not any(_build.launch_counts.values())
     assert cost.dtype == dtype and g.shape == (5, 2 * tdims.n_blocks)
     np.testing.assert_array_equal(jtj, np.swapaxes(jtj, 1, 2))
@@ -158,14 +114,10 @@ def test_value_grad_matches_reference(name, dtype):
 def test_masked_steps_and_unused_blocks_get_no_gradient():
     """Near the goal the horizon shrinks: blocks beyond h_dyn/bl_dyn receive
     exactly zero gradient and zero JtJ rows, as in the JAX package."""
-    jcfg, jdims, bt = _problems("benchmark_obstacle_only_config", np.float64)
+    jcfg, jdims, bt = fused_problems("benchmark_obstacle_only_config", np.float64)
     tcfg = tcfg_mod.benchmark_obstacle_only_config()
     tdims = topt.ProblemDims.from_config(tcfg)
-    vg = tfused.build_value_grad(
-        tcfg, tdims, _t(bt["rows"]), _t(bt["n_rows"]).to(torch.int32),
-        Costmap(_t(bt["cmd"]), _t(bt["cmo"]), _t(bt["cmr"])),
-    )
-    _, g, jtj = vg(_t(bt["u"]))
+    _, g, jtj = fused_value_grad(tcfg, tdims, bt)(_t(bt["u"]))
     short = bt["n_rows"] - 1 <= 6  # one block only
     assert short.any()
     assert (g[short][:, 2:] == 0).all() and (jtj[short][:, 2:, :] == 0).all()

@@ -1,6 +1,7 @@
-"""The port's four CUDA kernels against their plain PyTorch versions ON THE
+"""The port's six CUDA kernels against their plain PyTorch versions ON THE
 CARD, at small shapes chosen for their corner cases (border-clamped and NaN
-coordinates, masked steps and shrunk horizons, a system that is not positive
+coordinates, masked steps and shrunk horizons, scenarios with and without
+valid people, an agent exactly on the robot, a system that is not positive
 definite, frozen done lanes, every termination code).
 
 These tests need an NVIDIA GPU and nvcc and skip where there is none. They
@@ -11,7 +12,11 @@ without the JAX package's test harness:
 
 Tolerances: nvcc contracts a*b+c into FMA in K1/K2 and K2 reduces across a
 warp in another order than the plain version, so those agree to float32
-rounding of their sums (1e-5 / 1e-4, scale-normalised); K3/K4 are written
+rounding of their sums (1e-5 / 1e-4, scale-normalised; with the people
+stages' exp/atan2 chains 3e-5, the JAX package's figure for its fused
+kernel); K6 sums in the plain version's order and is held to the JAX
+package's figures for its rollout kernel (rtol 2e-5, atol 1e-5; 2e-4 on
+row/col, which reach 64 cells), its copied controls exact; K3/K4 are written
 with round-to-nearest intrinsics and repeat the plain version operation for
 operation, so they are held to 1e-6 and their discrete outputs to equality.
 K5 (the SFM scan) carries float32 rounding through every step of the
@@ -33,6 +38,7 @@ from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
 from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
 from nav2_social_mpc_controller_tpu_torch.ops import bicubic_cuda as K1
 from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
+from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
 from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
 from nav2_social_mpc_controller_tpu_torch.solver import lm
 from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
@@ -120,11 +126,11 @@ def test_sfm_scan_kernel_matches_plain(card, name, n_valid, esdf_ok):
     assert int(prep.n_rows.min()) < prep.rows.shape[1] - 1
 
 
-def _problem(cfg, card, batch=8, n_iters=2):
+def _problem(cfg, card, batch=8, n_iters=2, n_valid_people=0):
     """A real tick's problem on the card, advanced a few LM iterations; every
     second robot starts 2-5 poses before its goal, which shrinks h_dyn /
     bl_dyn and masks the trailing steps."""
-    sc_np = make_scenario_batch(cfg, batch, base_seed=0)
+    sc_np = make_scenario_batch(cfg, batch, base_seed=0, n_valid_people=n_valid_people)
     pose = np.array(sc_np.robot.pose)
     for k in range(1, batch, 2):
         i = int(sc_np.path.n[k]) - 2 - (k // 2) % 4
@@ -132,7 +138,8 @@ def _problem(cfg, card, batch=8, n_iters=2):
     sc = scenario_from_numpy(sc_np._replace(robot=sc_np.robot._replace(pose=pose)), device=card)
     dims = ProblemDims.from_config(cfg)
     prep = step_pre(cfg, sc, make_carry(cfg, batch, device=card)).prep
-    vg = K2.build_value_grad(cfg, dims, prep.rows, prep.n_rows, prep.costmap)
+    vg = K2.build_value_grad(
+        cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present, prep.costmap)
     cost, g, jtj = vg(prep.u0)
     st = lm.LMState(
         u=prep.u0, cost=cost, g=g, jtj=jtj,
@@ -155,6 +162,7 @@ def test_fused_kernel_matches_plain(card, name):
     prep, vg, st, _ = _problem(cfg, card)
     args = vg.fused_inputs(st.u)
     assert not bool(vg.m_step.all()), "some steps must be masked (near-goal plans)"
+    assert not bool(vg.m_social.any())
     before = _build.launch_counts["fused_iter"]
     got = K2.fused_cost_g_jtj(*args)
     torch.cuda.synchronize()
@@ -162,6 +170,81 @@ def test_fused_kernel_matches_plain(card, name):
     for g, r in zip(got, K2.fused_cost_g_jtj_plain(*args)):
         assert _norm_err(g, r) <= 1e-4
     assert torch.equal(got[2], got[2].transpose(1, 2)), "JtJ is written in both triangles"
+
+
+@pytest.mark.parametrize(
+    "name", ["benchmark_social_config", "benchmark_omni_6agents_config", "benchmark_stress_h36_config"])
+def test_fused_kernel_with_people_matches_plain(card, name):
+    """The three people stages: a batch in which the FOV filter leaves some
+    scenarios without a person (their stages must not run), padded agent
+    slots, near-goal plans, and one scenario with an agent exactly on the
+    rolled-out robot (the `tiny` branch of the social force)."""
+    cfg = getattr(C, name)()
+    prep, vg, st, _ = _problem(cfg, card, batch=24, n_valid_people=cfg.n_agents - 1)
+    present = vg.m_social.any(dim=1)
+    assert bool(present.any()) and not bool(present.all())
+    args = list(vg.fused_inputs(st.u))
+    k = int(torch.nonzero(present)[0])
+    agents = args[15].clone()  # (B, S, N, 6)
+    agents[k, 3, 0, 0], agents[k, 3, 0, 1] = args[2][k, 3], args[3][k, 3]
+    agents[k, 3, 0, 3] = 0.0
+    args[15] = agents
+    got = K2.fused_cost_g_jtj(*args)
+    torch.cuda.synchronize()
+    ref = K2.fused_cost_g_jtj_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(r).all()
+        assert _norm_err(g, r) <= 3e-5
+    # the people stages are really on: switching them off changes the cost
+    off = list(args)
+    off[18], off[19] = torch.zeros_like(args[18]), torch.zeros_like(args[19])
+    cost_off = K2.fused_cost_g_jtj(*off)[0]
+    assert bool((cost_off[present] < got[0][present]).any())
+    assert torch.equal(cost_off[~present], got[0][~present])
+    # and the view of the scan's output is taken as it is (no copy)
+    assert vg.agents.data_ptr() == prep.people_proj[:, 1:].data_ptr()
+    got_view = K2.fused_cost_g_jtj(*vg.fused_inputs(st.u))
+    ref_view = K2.fused_cost_g_jtj_plain(*vg.fused_inputs(st.u))
+    for g, r in zip(got_view, ref_view):
+        assert _norm_err(g, r) <= 3e-5
+
+
+@pytest.mark.parametrize("nb,s", [(3, 29), (6, 39)])
+def test_rollout_prep_kernel_matches_plain(card, nb, s):
+    """K6 against its plain version with a different block map in every
+    scenario (h_dyn / bl_dyn shrink near the goal); batch 45 leaves the last
+    block partly empty."""
+    from nav2_social_mpc_controller_tpu_torch.models.motion import block_index_sequence_dynamic
+
+    rng = np.random.default_rng(nb)
+    b = 45
+    h_dyn = rng.integers(1, 6 * nb + 1, b)
+    h_dyn[0] = 6 * nb
+    bl_dyn = np.minimum(6, h_dyn)
+    block_idx = block_index_sequence_dynamic(
+        s, torch.tensor(h_dyn, device=card), torch.tensor(bl_dyn, device=card)).to(torch.int32)
+    assert len({tuple(r) for r in block_idx.tolist()}) >= 3
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=card)
+
+    u = t(rng.uniform(-0.8, 0.8, (b, 2 * nb)))
+    pose0 = t(np.concatenate([rng.uniform(-5, 5, (b, 2)), rng.uniform(-np.pi, np.pi, (b, 1))], 1))
+    origin = t(rng.uniform(-10, 0, (b, 2)))
+    res = t(np.full((b,), 0.05))
+    args = (u, pose0, block_idx.contiguous(), origin, res, 0.05, 0.25, nb)
+    before = _build.launch_counts["rollout_prep"]
+    got = K6.rollout_prep(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["rollout_prep"] == before + 1
+    ref = K6.rollout_prep_plain(*args)
+    assert set(got) == set(ref)
+    assert torch.equal(got["v"], ref["v"]), "the expanded control is a copy"
+    for name in ref:
+        atol = 2e-4 if name in ("row", "col") else 1e-5
+        torch.testing.assert_close(got[name], ref[name], rtol=2e-5, atol=atol, msg=name)
+    with pytest.raises(ValueError):
+        K6.rollout_prep(u, pose0, block_idx.long(), origin, res, 0.05, 0.25, nb)
 
 
 @pytest.mark.parametrize("d", [6, 12])
@@ -222,9 +305,9 @@ def test_propose_and_commit_kernels_match_plain(card, d):
 def test_step_on_the_card_launches_every_kernel(card):
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_step_batch
 
-    cfg = C.benchmark_obstacle_only_config()
+    cfg = C.benchmark_social_config()
     cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, max_iterations=5))
-    sc = scenario_from_numpy(make_scenario_batch(cfg, 4, base_seed=3), device=card)
+    sc = scenario_from_numpy(make_scenario_batch(cfg, 4, base_seed=3, n_valid_people=3), device=card)
     _build.reset_launch_counts()
     cmd, aux, _ = make_step_batch(cfg, device=card)(sc, make_carry(cfg, 4, device=card))
     torch.cuda.synchronize()

@@ -1,35 +1,27 @@
-"""The first slice of the PyTorch port as a whole: the port's batched step on
-the CPU (its kernels' plain versions) against the JAX package's
-``make_step_batch`` on the obstacle-only benchmark configuration, on
-identical NumPy inputs; plus the guards at the port's call boundary."""
+"""The PyTorch port's batched step as a whole on the obstacle-only benchmark
+configuration: the port on the CPU (its kernels' plain versions) against the
+JAX package's ``make_step_batch`` on identical NumPy inputs; plus the guards
+at the port's call boundary. The configurations with people have a file
+each (``tests/test_torch_step_{social,omni6,stress36}.py``)."""
 
 import dataclasses
 import os
 import re
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from nav2_social_mpc_controller_tpu.controller.controller import (
-    make_carry as jax_make_carry,
-    make_step_batch as jax_make_step_batch,
-)
+from test_torch_common import assert_step_parity_f64, run_both
+
 from nav2_social_mpc_controller_tpu.core.config import (
     benchmark_obstacle_only_config as jax_obstacle_config,
 )
-from nav2_social_mpc_controller_tpu.utils.scenarios import (
-    make_scenario as jax_make_scenario,
-    stack_scenarios as jax_stack_scenarios,
-)
+from nav2_social_mpc_controller_tpu.utils.scenarios import make_scenario as jax_make_scenario
 from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step_batch
 from nav2_social_mpc_controller_tpu_torch.core import types as T
-from nav2_social_mpc_controller_tpu_torch.core.config import (
-    benchmark_obstacle_only_config,
-    config_from_dict,
-)
+from nav2_social_mpc_controller_tpu_torch.core.config import benchmark_obstacle_only_config
 
 torch.set_num_threads(1)
 
@@ -38,55 +30,11 @@ N_TICKS = 3
 _CACHE = {}
 
 
-def _scripted_poses(sc, n_ticks, stride=4):
-    """(n_ticks, B, 3) robot poses riding each plan: tick t sits on plan
-    point t*stride with the local path yaw (tests/test_parity_step.py)."""
-    pts = np.asarray(sc.path.points)
-    yaw = np.asarray(sc.path.yaw)
-    n = np.asarray(sc.path.n)
-    out = []
-    for t in range(n_ticks):
-        i = np.minimum(t * stride, n - 1)
-        b = np.arange(len(n))
-        out.append(np.concatenate([pts[b, i], yaw[b, i, None]], axis=1))
-    return out
-
-
 def _run_both(np_dtype):
-    """Run both packages over N_SEEDS scenarios x N_TICKS ticks with the
-    carry fed back; returns per-tick NumPy results of each side."""
-    if np_dtype in _CACHE:
-        return _CACHE[np_dtype]
-    jcfg = jax_obstacle_config()
-    cfg = config_from_dict(dataclasses.asdict(jcfg))
-    sc_np = jax_stack_scenarios(
-        [jax_make_scenario(jcfg, seed=s, n_valid_people=0, dtype=np_dtype) for s in range(N_SEEDS)]
-    )
-    poses = _scripted_poses(sc_np, N_TICKS)
-    tdtype = torch.float64 if np_dtype == np.float64 else torch.float32
-
-    jstep = jax_make_step_batch(jcfg)
-    jcarry = jax.tree.map(
-        lambda x: jnp.broadcast_to(x, (N_SEEDS,) + x.shape),
-        jax_make_carry(jcfg, dtype=jnp.float64 if np_dtype == np.float64 else jnp.float32),
-    )
-    tstep = make_step_batch(cfg, device="cpu", dtype=tdtype)
-    tcarry = make_carry(cfg, N_SEEDS, device="cpu", dtype=tdtype)
-
-    out = []
-    for pose in poses:
-        sc_t = sc_np._replace(robot=sc_np.robot._replace(pose=pose.astype(np_dtype)))
-        jcmd, jaux, jcarry = jstep(sc_t, jcarry)
-        tsc = T.scenario_from_numpy(sc_t, device="cpu", dtype=tdtype)
-        tcmd, taux, tcarry = tstep(tsc, tcarry)
-        out.append(
-            (
-                jax.tree.map(np.asarray, (jcmd, jaux._replace(lm_trace=None), jcarry)),
-                T.to_numpy((tcmd, taux, tcarry)),
-            )
-        )
-    _CACHE[np_dtype] = out
-    return out
+    """Both packages over N_SEEDS people-free scenarios x N_TICKS ticks."""
+    if np_dtype not in _CACHE:
+        _CACHE[np_dtype] = run_both(jax_obstacle_config(), (0,) * N_SEEDS, N_TICKS, np_dtype)
+    return _CACHE[np_dtype]
 
 
 @pytest.mark.parametrize("tick", range(N_TICKS))
@@ -94,28 +42,9 @@ def test_step_parity_f64(tick):
     """f64 on the CPU: commands and paths within 1e-6; status, plan cursor,
     LM iteration counts, termination codes and the carry equal. Ticks 2-3
     run with the carry fed back, so the warm-start blend fires."""
-    (jcmd, jaux, jcarry), (tcmd, taux, tcarry) = _run_both(np.float64)[tick]
-    np.testing.assert_allclose(tcmd.linear_x, jcmd.linear_x, atol=1e-6)
-    np.testing.assert_allclose(tcmd.angular_z, jcmd.angular_z, atol=1e-6)
-    np.testing.assert_array_equal(tcmd.linear_y, 0.0)
-    np.testing.assert_array_equal(taux.status, jaux.status)
-    np.testing.assert_array_equal(taux.status, T.STATUS_OK)
-    np.testing.assert_array_equal(taux.plan_start_index, jaux.plan_start_index)
-    np.testing.assert_array_equal(taux.solve.iterations, jaux.solve.iterations)
-    np.testing.assert_array_equal(taux.solve.termination, jaux.solve.termination)
-    np.testing.assert_array_equal(taux.solve.usable, jaux.solve.usable)
-    np.testing.assert_allclose(taux.solve.initial_cost, jaux.solve.initial_cost, rtol=1e-9)
-    np.testing.assert_allclose(taux.solve.final_cost, jaux.solve.final_cost, rtol=1e-6)
-    np.testing.assert_allclose(taux.local_path, jaux.local_path, atol=1e-6)
-    np.testing.assert_allclose(taux.ref_path, jaux.ref_path, atol=1e-9)
-    np.testing.assert_allclose(taux.cmds, jaux.cmds, atol=1e-6)
-    np.testing.assert_array_equal(taux.people_proj, jaux.people_proj)
-    np.testing.assert_allclose(tcarry.prev_path, jcarry.prev_path, atol=1e-6)
-    np.testing.assert_allclose(tcarry.prev_cmds, jcarry.prev_cmds, atol=1e-6)
-    np.testing.assert_array_equal(tcarry.prev_n, jcarry.prev_n)
-    np.testing.assert_array_equal(tcarry.plan_start, jcarry.plan_start)
-    if tick > 0:
-        assert (tcarry.plan_start > 0).all(), "the plan cursor must advance"
+    jax_side, torch_side = _run_both(np.float64)[tick]
+    assert_step_parity_f64(jax_side, torch_side, tick)
+    np.testing.assert_array_equal(torch_side[1].people_proj, jax_side[1].people_proj)
 
 
 @pytest.mark.parametrize("tick", range(N_TICKS))
@@ -148,7 +77,8 @@ def test_result_does_not_depend_on_when_the_loop_stops():
     carry0 = make_carry(cfg, 4, device="cpu")
     ctx = ctl.step_pre(cfg, sc, carry0)
     prep = ctx.prep
-    vg = build_value_grad(cfg, ProblemDims.from_config(cfg), prep.rows, prep.n_rows, prep.costmap)
+    vg = build_value_grad(cfg, ProblemDims.from_config(cfg), prep.rows, prep.n_rows,
+                          prep.people_proj, prep.people_present, prep.costmap)
     outs = []
     for k in (0, 1, 4):
         u, stats = lm_solve(vg, prep.u0, prep.lower, prep.upper, make_lm_config(cfg.optimizer),
@@ -159,16 +89,6 @@ def test_result_does_not_depend_on_when_the_loop_stops():
     for other in outs[1:]:
         for a, b in zip(jax.tree.leaves(outs[0]), jax.tree.leaves(other)):
             np.testing.assert_array_equal(a, b)
-
-
-def test_people_present_is_refused():
-    cfg = benchmark_obstacle_only_config()
-    jcfg = jax_obstacle_config()
-    sc_np = jax_make_scenario(jcfg, seed=0, n_valid_people=2)
-    sc = T.scenario_from_numpy(sc_np, device="cpu")
-    step = make_step_batch(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        step(sc, make_carry(cfg, 1, device="cpu"))
 
 
 @pytest.mark.parametrize(
