@@ -7,8 +7,11 @@ drives the port's main paths — ``make_step_batch`` on the social benchmark
 configuration (three valid people per scenario) and on the obstacle-only one,
 B = 4096 scenarios with 120x120 grids, three ticks with the warm-start carry
 fed back, then one tick each of the six-agent and the stress-horizon
-configurations at B = 1024 — through the six hand-written CUDA kernels, and
-checks them. Phases, each printing one JSON line:
+configurations at B = 1024 — and the general paths: the debug-trace tick
+(the general LM iteration, kernel K7), a Jacobi-scaled solve, a latent-critic
+tick (the autodiff residual path) and the compacted warm-start tick — through
+the seven hand-written CUDA kernels, and checks them. Phases, each printing
+one JSON line:
 
   device     the card (torch + nvidia-smi name and power limit)
   build      nvcc build of csrc/*.cu into the package's build/ directory
@@ -21,9 +24,20 @@ checks them. Phases, each printing one JSON line:
   main_path  one line per path: launch counts, status, bounds, cursor, the
              people projection; for the 3-tick paths agreement of 64
              scenarios with the port's plain path on the CPU in float32
+  debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks:
+             K7 launched once per LM iteration run, K3/K4 never; the trace's
+             invariants; every result equal to the plain tick's, bit for bit
+  jacobi     the same prepared problems through lm_solve with Jacobi scaling
+  latent_tick  social config with pure_angle_weight and curvature_weight,
+             B = 1024, one tick through the residual path (K1 launched by the
+             differentiable costmap sample, K2 never); and the residual
+             path's (cost, g, JtJ) against the fused path's
+  compacted_tick  warm_start_mode="previous_solution", B = 4096, 3 ticks:
+             make_step_batch_compacted equal to make_step_batch bit for bit;
+             iterations x width and ms/tick of both
   timing     ms/tick and solves/s at B = 1024 and B = 4096 for the obstacle
              and the social configuration, tick breakdown, launches, memory
-  kernels    K1-K6 at the social main path's shapes (inputs captured from a
+  kernels    K1-K7 at the social main path's shapes (inputs captured from a
              real tick): error vs the plain version against a stated
              tolerance, kernel / plain / library ms, the bound, launches
 
@@ -178,13 +192,13 @@ def near_goal_every(sc, pose, every=4):
 
 
 def capture_iteration(cfg, sc, carry, n_iters=3):
-    """Inputs of K1-K6 as a real tick hands them over: the problem of this
+    """Inputs of K1-K7 as a real tick hands them over: the problem of this
     scenario batch, advanced `n_iters` LM iterations, then one more
     iteration taken apart."""
     from nav2_social_mpc_controller_tpu_torch.controller.controller import fov_filter, step_pre
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims, make_lm_config
     from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import build_value_grad
-    from nav2_social_mpc_controller_tpu_torch.solver import lm
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter, lm
 
     dims = ProblemDims.from_config(cfg)
     lm_cfg = make_lm_config(cfg.optimizer)
@@ -216,6 +230,9 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
         "lm_cfg": lm_cfg, "dims": dims, "bicubic": (win, row.contiguous(), col.contiguous()),
         "sfm": sfm_inputs(sc, people.state, prep), "rollout_prep": prep_in,
         "fused": fused_in, "propose": propose_in, "commit": commit_in,
+        # the damped normal equations the general iteration hands to K7
+        "spd_solve": tuple(t.contiguous() for t in cuda_iter.damped_system(
+            lm_cfg, st.g, st.jtj, st.radius)),
     }
 
 
@@ -228,7 +245,8 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # sums in another order than the plain version, so they differ by float32
 # rounding of 16-term (K1) and ~150-term (K2) sums. K3/K4 are written with
 # round-to-nearest intrinsics that are never contracted and repeat the plain
-# version operation for operation: expected 0, gated at 1e-6. K5 (SFM scan)
+# version operation for operation: expected 0, gated at 1e-6; so is K7, which
+# shares K3's Cholesky solve (csrc/chol.cuh). K5 (SFM scan)
 # carries FMA contraction and CUDA's own atan2f/expf/sinf/cosf through up to
 # 39 steps of the pedestrian dynamics, and the angular velocity divides a yaw
 # difference by the time step; its t column (validity) must be exact. K2 with
@@ -241,7 +259,7 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # its error is reported as a share of that allowance (tolerance 1.0), and its
 # expanded controls, being copies, must be equal.
 TOL = {"sfm_scan": 1e-4, "rollout_prep": 1.0, "bicubic": 1e-5, "fused_iter": 1e-5,
-       "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6}
+       "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 1e-6}
 K6_RTOL, K6_ATOL, K6_ATOL_ROWCOL = 2e-5, 1e-5, 2e-4
 
 
@@ -454,6 +472,34 @@ def check_commit(lm_cfg, args, reps):
     }
 
 
+def check_spd_solve(a, b, reps):
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
+
+    got = K7.spd_solve(a, b)
+    ref = K7.spd_solve_plain(a, b)
+    torch.cuda.synchronize()
+    err = norm_err(got, ref)  # inf unless NaN sits in the same places on both sides
+    n, d = b.shape
+    # Bytes: a and b read once, x written once ((D*D + 2*D) * 4 per system).
+    # Operations: D^3/3 for the factorisation, 2*D^2 for the substitutions.
+    bnd, by = bound(nbytes(a, b, got), n * (d**3 / 3.0 + 2.0 * d * d))
+
+    def library():
+        # One library factorisation + solve of the same systems; timed as a
+        # yardstick only, the port never calls it.
+        chol, _ = torch.linalg.cholesky_ex(a)
+        return torch.cholesky_solve(b[:, :, None], chol)
+
+    return {
+        "shape": f"N={n} D={d}", "non_finite_systems": int((~torch.isfinite(ref)).any(dim=1).sum()),
+        "max_err": err[0], "max_abs_err": err[1], "tol": TOL["spd_solve"],
+        "ms": time_cuda(lambda: K7.spd_solve(a, b), reps),
+        "host_ms": time_host(lambda: K7.spd_solve(a, b), reps),
+        "plain_ms": time_cuda(lambda: K7.spd_solve_plain(a, b), 3, warm=1),
+        "bound_ms": bnd, "bound_by": by, "library_ms": time_cuda(library, max(reps // 10, 3)),
+    }
+
+
 KERNEL_INFO = {
     "sfm_scan": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/sfm_scan.cu",
@@ -479,7 +525,16 @@ KERNEL_INFO = {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tr_iter.cu",
         "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:362",
     },
+    "spd_solve": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93",
+    },
 }
+
+# Kernels of the default tick (K3/K4 iteration) and of the debug tick (general
+# iteration: K7 in place of K3/K4).
+DEFAULT_PATH_KERNELS = ("sfm_scan", "rollout_prep", "bicubic", "fused_iter", "propose", "commit")
+DEBUG_PATH_KERNELS = ("sfm_scan", "rollout_prep", "bicubic", "fused_iter", "spd_solve")
 
 
 def check_all_kernels(cfg, cap, reps):
@@ -490,6 +545,7 @@ def check_all_kernels(cfg, cap, reps):
         "fused_iter": check_fused(cap["fused"], reps),
         "propose": check_propose(cap["lm_cfg"], cap["propose"], reps),
         "commit": check_commit(cap["lm_cfg"], cap["commit"], reps),
+        "spd_solve": check_spd_solve(*cap["spd_solve"], reps),
     }
     for name, r in out.items():
         if not r["max_err"] <= r["tol"]:
@@ -558,8 +614,20 @@ def phase_shapes(dev):
     s70 = check_bicubic(win, row, col, reps=50)
     if not s70["max_err"] <= s70["tol"]:
         fail(f"kernel bicubic disagrees at S=70: {s70['max_err']:.3e} > {s70['tol']:.1e}")
+    # K7 on random SPD systems with a few that are not positive definite: NaN
+    # in the same places on both sides (norm_err is inf otherwise).
+    mixed = []
+    for d in (6, 12):
+        m = torch.randn((B_MAIN, d, d), device=dev, generator=gen)
+        a = m @ m.transpose(1, 2) + 0.5 * torch.eye(d, device=dev)
+        a[::97] = -a[::97]
+        r = check_spd_solve(a.contiguous(), torch.randn((B_MAIN, d), device=dev, generator=gen), reps=50)
+        if not r["max_err"] <= r["tol"] or r["non_finite_systems"] != len(range(0, B_MAIN, 97)):
+            fail(f"kernel spd_solve on random systems at D={d}: error {r['max_err']:.3e}, "
+                 f"{r['non_finite_systems']} non-finite systems")
+        mixed.append({"name": "spd_solve", "systems": "random SPD, every 97th negated", **r})
     emit({"phase": "shapes", "kernels_wide": [{"name": k, **v} for k, v in res.items()]
-          + [{"name": "bicubic", **s70}] + phase_people_shapes(dev)})
+          + [{"name": "bicubic", **s70}] + mixed + phase_people_shapes(dev)})
 
 
 def phase_people_shapes(dev):
@@ -601,6 +669,23 @@ def phase_people_shapes(dev):
     return out
 
 
+def check_tick_outputs(where, cfg, cmd, aux):
+    """All lanes usable and STATUS_OK, outputs finite, commands in bounds."""
+    from nav2_social_mpc_controller_tpu_torch.core.types import STATUS_OK
+
+    opt = cfg.optimizer
+    if not bool(aux.solve.usable.all()):
+        fail(f"{where}: {int((~aux.solve.usable).sum())} lanes unusable")
+    if not bool((aux.status == STATUS_OK).all()):
+        fail(f"{where}: status not all STATUS_OK")
+    for x in (cmd.linear_x, cmd.angular_z, aux.local_path, aux.cmds, aux.people_proj):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{where}: non-finite output")
+    if not bool(((cmd.linear_x >= opt.v_min) & (cmd.linear_x <= opt.v_max)
+                 & (cmd.angular_z >= opt.w_min) & (cmd.angular_z <= opt.w_max)).all()):
+        fail(f"{where}: a published command left its bounds")
+
+
 def run_ticks(step, sc, poses, carry):
     outs = []
     for pose in poses:
@@ -615,6 +700,24 @@ def head(tree, n, to):
     return type(tree)(*(head(x, n, to) if isinstance(x, tuple) else x[:n].to(to) for x in tree))
 
 
+def check_launches(name, launches, expected):
+    """Every kernel of the path launched, every other kernel not at all."""
+    for kname, n in launches.items():
+        if kname in expected and n <= 0:
+            fail(f"{name}: kernel {kname} was never launched on this path")
+        if kname not in expected and n != 0:
+            fail(f"{name}: kernel {kname} is not on this path yet was launched {n} times")
+
+
+def loop_iterations(iterations, max_iterations):
+    """LM iterations the loop of lm_solve ran for a batch whose lanes ran
+    `iterations`: it stops at the first check (every DEFAULT_CHECK_EVERY-th
+    iteration) that finds every lane done, or at the cap."""
+    from nav2_social_mpc_controller_tpu_torch.solver.lm import DEFAULT_CHECK_EVERY as every
+
+    return min(max_iterations, -(-int(iterations.max()) // every) * every)
+
+
 def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, compare_cpu=True):
     """Drive one path: `n_ticks` ticks of make_step_batch(cfg) at `batch`
     scenarios with the carry fed back, the launch counts set to 0 just before
@@ -624,7 +727,6 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
         fov_filter, make_carry, make_step_batch, step_pre,
     )
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims
-    from nav2_social_mpc_controller_tpu_torch.core.types import STATUS_OK
     from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import build_value_grad
 
     sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid_people)
@@ -636,24 +738,13 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
     outs, carry = run_ticks(step, sc, poses, carry0)
     launches = dict(_build.launch_counts)
 
-    for kname, n in launches.items():
-        if n <= 0:
-            fail(f"{name}: kernel {kname} was never launched on the main path")
+    check_launches(name, launches, DEFAULT_PATH_KERNELS)
     opt = cfg.optimizer
     dims = ProblemDims.from_config(cfg)
     prev_cursor = torch.zeros_like(carry.plan_start)
     iters_mean, with_people = [], []
     for t, (cmd, aux) in enumerate(outs):
-        if not bool(aux.solve.usable.all()):
-            fail(f"{name} tick {t}: {int((~aux.solve.usable).sum())} lanes unusable")
-        if not bool((aux.status == STATUS_OK).all()):
-            fail(f"{name} tick {t}: status not all STATUS_OK")
-        for x in (cmd.linear_x, cmd.angular_z, aux.local_path, aux.cmds, aux.people_proj):
-            if not bool(torch.isfinite(x).all()):
-                fail(f"{name} tick {t}: non-finite output")
-        if not bool(((cmd.linear_x >= opt.v_min) & (cmd.linear_x <= opt.v_max)
-                     & (cmd.angular_z >= opt.w_min) & (cmd.angular_z <= opt.w_max)).all()):
-            fail(f"{name} tick {t}: a published command left its bounds")
+        check_tick_outputs(f"{name} tick {t}", cfg, cmd, aux)
         if not bool((aux.plan_start_index >= prev_cursor).all()):
             fail(f"{name} tick {t}: the plan cursor went backwards")
         prev_cursor = aux.plan_start_index
@@ -814,7 +905,7 @@ def phase_timing(configs, dev):
             for _ in range(5):  # the host clock spreads: keep the least of five
                 ms, ctx = sync_clock(lambda: step_pre(cfg, scen, carry_in))
                 stages["tick_head"].append(ms)
-                ms, (u, stats) = sync_clock(lambda: solve_prepared(cfg, ctx.prep))
+                ms, (u, stats, _) = sync_clock(lambda: solve_prepared(cfg, ctx.prep))
                 stages["solve"].append(ms)
                 ms, _ = sync_clock(lambda: step_post(cfg, ctx, carry_in, u, stats))
                 stages["tick_tail"].append(ms)
@@ -880,7 +971,342 @@ def phase_lm_sync_sweep(cfg, dev, policies=(0, 1, 4, 8)):
     emit({"phase": "lm_sync_sweep", "ticks_per_policy": 9, "cells": cells})
 
 
+def time_ticks(step, sc, poses, fresh_carry, rounds=2):
+    """Host-clock ms of each tick (synchronised) over `rounds` runs of the
+    tick sequence with the carry fed back, after the caller's warm-up."""
+    ms = []
+    for _ in range(rounds):
+        carry = fresh_carry()
+        for pose in poses:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, carry = step(with_pose(sc, pose), carry)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def profile_last_tick(step, sc, poses, fresh_carry):
+    """(device launches, device busy ms) of the last tick of the sequence,
+    from torch.profiler."""
+    carry = run_ticks(step, sc, poses[:-1], fresh_carry())[1]
+    scen = with_pose(sc, poses[-1])
+    n_dev, dev_ms, _ = count_device_launches(lambda: step(scen, carry))
+    return n_dev, dev_ms
+
+
+def replace_optimizer(cfg, weights=None, **changes):
+    import dataclasses
+
+    opt = cfg.optimizer
+    if weights:
+        opt = dataclasses.replace(opt, weights=dataclasses.replace(opt.weights, **weights))
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(opt, **changes))
+
+
+def same_results(where, a, b):
+    """Fail unless two (cmd, aux) pairs of a tick agree bit for bit in their
+    commands, command sequences, paths and solver statistics."""
+    (cmd_a, aux_a), (cmd_b, aux_b) = a, b
+    pairs = {
+        "linear_x": (cmd_a.linear_x, cmd_b.linear_x), "angular_z": (cmd_a.angular_z, cmd_b.angular_z),
+        "cmds": (aux_a.cmds, aux_b.cmds), "local_path": (aux_a.local_path, aux_b.local_path),
+        "iterations": (aux_a.solve.iterations, aux_b.solve.iterations),
+        "termination": (aux_a.solve.termination, aux_b.solve.termination),
+        "final_cost": (aux_a.solve.final_cost, aux_b.solve.final_cost),
+        "status": (aux_a.status, aux_b.status),
+    }
+    for name, (x, y) in pairs.items():
+        if not torch.equal(x, y):
+            fail(f"{where}: {name} differs in {int((x != y).reshape(x.shape[0], -1).any(dim=1).sum())} "
+                 f"of {x.shape[0]} lanes")
+
+
+def phase_debug_tick(cfg, dev, sc, poses):
+    """The debug-trace tick at full width: `cfg` with debug_optimizer=True on
+    the batch the main path solved, 3 ticks with the carry fed back. The
+    general LM iteration launches K7 once per iteration the loop runs and
+    K3/K4 never; it repeats the default iteration's arithmetic, so every
+    result must equal the plain tick's bit for bit (the gate ROADMAP.md
+    defines — lanes that stopped after the same number of iterations within
+    1e-3 — is implied and checked first). Returns the launch counts."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step_batch
+
+    batch = sc.robot.pose.shape[0]
+    dbg = replace_optimizer(cfg, debug_optimizer=True)
+    t_len = cfg.optimizer.max_iterations
+    plain_outs, plain_carry = run_ticks(
+        make_step_batch(cfg, device=dev), sc, poses, make_carry(cfg, batch, device=dev))
+    step = make_step_batch(dbg, device=dev)
+    carry0 = make_carry(cfg, batch, device=dev)
+    _build.reset_launch_counts()
+    outs, carry = run_ticks(step, sc, poses, carry0)
+    launches = dict(_build.launch_counts)
+    check_launches("debug_tick", launches, DEBUG_PATH_KERNELS)
+
+    ran = sum(loop_iterations(aux.solve.iterations, t_len) for _, aux in outs)
+    if launches["spd_solve"] != ran:
+        fail(f"debug_tick: spd_solve launched {launches['spd_solve']} times, the LM loops ran "
+             f"{ran} iterations")
+    apart_lanes, worst_same = 0, 0.0
+    for t, ((cmd, aux), (cmd_p, aux_p)) in enumerate(zip(outs, plain_outs)):
+        check_tick_outputs(f"debug_tick tick {t}", dbg, cmd, aux)
+        trace = aux.lm_trace
+        if trace is None or tuple(trace.cost.shape) != (batch, t_len):
+            fail(f"debug_tick tick {t}: no (B, {t_len}) trace")
+        iters = aux.solve.iterations.long()
+        col = torch.arange(t_len, device=dev)[None, :]
+        beyond = col >= iters[:, None]
+        for field, buf in zip(trace._fields, trace):
+            if bool(buf[beyond].any()):
+                fail(f"debug_tick tick {t}: trace.{field} is not zero beyond a lane's iteration count")
+        if not torch.equal(trace.cost[:, 0], aux.solve.initial_cost):
+            fail(f"debug_tick tick {t}: trace.cost[:, 0] is not the initial cost")
+        # The cost falls exactly on accepted rows and stays on rejected ones.
+        inside = (col[:, 1:] < iters[:, None])
+        fell = trace.cost[:, 1:] < trace.cost[:, :-1]
+        same = trace.cost[:, 1:] == trace.cost[:, :-1]
+        if not bool((torch.where(trace.accepted[:, :-1], fell, same) | ~inside).all()):
+            fail(f"debug_tick tick {t}: the traced cost does not fall exactly on accepted rows")
+        if not bool(trace.accepted.any(dim=1).all()):
+            fail(f"debug_tick tick {t}: a lane accepted no step")
+        delta = torch.maximum((cmd.linear_x - cmd_p.linear_x).abs(),
+                              (cmd.angular_z - cmd_p.angular_z).abs())
+        same_iters = aux.solve.iterations == aux_p.solve.iterations
+        apart_lanes += int((~same_iters).sum())
+        worst_same = max(worst_same, float(delta[same_iters].max()))
+        if not worst_same <= 1e-3:
+            fail(f"debug_tick tick {t}: a lane that stopped after the same number of iterations "
+                 f"as on the plain tick differs by {worst_same:.3e} > 1e-3")
+        same_results(f"debug_tick tick {t} vs the plain tick", (cmd, aux), (cmd_p, aux_p))
+    for x, y in zip(carry, plain_carry):
+        if not torch.equal(x, y):
+            fail("debug_tick: the carry differs from the plain ticks' carry")
+
+    def fresh():
+        return make_carry(cfg, batch, device=dev)
+
+    ms = time_ticks(step, sc, poses, fresh)
+    n_dev, dev_ms = profile_last_tick(step, sc, poses, fresh)
+    emit({
+        "phase": "debug_tick", "config": "social + debug_optimizer", "batch": batch,
+        "ticks": len(outs), "launches": launches, "lm_loop_iterations": ran,
+        "ms_per_tick": float(np.mean(ms)), "ms_per_tick_min": float(np.min(ms)),
+        "device_launches_per_tick": n_dev, "device_busy_ms_per_tick": dev_ms,
+        "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean()) for _, a in outs],
+        "vs_plain_tick": {"lanes_with_other_iteration_count": apart_lanes,
+                          "cmd_delta_max_same_iterations": worst_same, "bit_equal": True},
+    })
+    return launches
+
+
+def phase_jacobi(cfg, dev, sc, pose):
+    """A Jacobi-scaled solve of the prepared problems of one tick
+    (LMConfig(jacobi_scaling=True) through lm_solve: the general iteration on
+    the column-scaled system), beside the unscaled general solve. Gated: all
+    lanes usable, the solution inside its box. The share of lanes with the
+    unscaled solve's iteration count is printed, not gated (scaling is a
+    no-op only where the diagonal clamp binds in neither space, and
+    cap-bound lanes chatter at float32)."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
+        build_value_grad, make_lm_config,
+    )
+    from nav2_social_mpc_controller_tpu_torch.solver.lm import lm_solve
+
+    batch = pose.shape[0]
+    lm_cfg = make_lm_config(cfg.optimizer)
+    with torch.no_grad():
+        prep = step_pre(cfg, with_pose(sc, pose), make_carry(cfg, batch, device=dev)).prep
+        vg = build_value_grad(cfg, prep)
+        u_gen, s_gen, _ = lm_solve(vg, prep.u0, prep.lower, prep.upper, lm_cfg,
+                                   trace_len=lm_cfg.max_iterations)
+        _build.reset_launch_counts()
+        u_jac, s_jac = lm_solve(vg, prep.u0, prep.lower, prep.upper,
+                                lm_cfg._replace(jacobi_scaling=True))
+        torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches["spd_solve"] != loop_iterations(s_jac.iterations, lm_cfg.max_iterations):
+        fail(f"jacobi: spd_solve launched {launches['spd_solve']} times")
+    if launches["propose"] or launches["commit"]:
+        fail("jacobi: the scaled solve went through propose/commit")
+    if not bool(s_jac.usable.all()):
+        fail(f"jacobi: {int((~s_jac.usable).sum())} lanes unusable")
+    if not bool((torch.isfinite(u_jac) & (u_jac >= prep.lower) & (u_jac <= prep.upper)).all()):
+        fail("jacobi: a solution left its box")
+    delta = (u_jac - u_gen).abs().max(dim=1).values
+    emit({
+        "phase": "jacobi", "batch": batch, "launches_spd_solve": launches["spd_solve"],
+        "mean_lm_iterations": {"scaled": float(s_jac.iterations.float().mean()),
+                               "unscaled": float(s_gen.iterations.float().mean())},
+        "share_same_iteration_count": float((s_jac.iterations == s_gen.iterations).float().mean()),
+        "u_delta_p50": float(delta.quantile(0.5)), "u_delta_max": float(delta.max()),
+        "final_cost_rel_delta_p50": float(
+            ((s_jac.final_cost - s_gen.final_cost).abs() / s_gen.final_cost.abs().clamp(min=1.0))
+            .quantile(0.5)),
+    })
+
+
+# The residual path's (cost, g, JtJ) against the fused path's, scale-normalised
+# per scenario: two float32 evaluations of the same fourth-power costs that
+# sum in other orders (a (B, R, D) Jacobian contracted by a matrix product
+# against per-step accumulation in K2's warps) and, in the people stages,
+# torch's exp/atan2 against CUDA's.
+RESIDUAL_VS_FUSED_TOL = 1e-4
+
+
+def phase_latent_tick(cfg, dev):
+    """A latent-critic tick: `cfg` with pure_angle_weight and curvature_weight
+    non-zero, B = 1024, one tick. The config cannot take the fused
+    evaluation, so the solve differentiates the residual function (forward
+    mode): K1 is launched through the differentiable costmap sample, K6 and
+    K2 never, K3/K4 run the iteration. Then, on `cfg` itself (which can
+    fuse), the residual path's (cost, g, JtJ) against the fused path's."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step_batch, step_pre,
+    )
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
+        ProblemDims, ResidualValueGrad, build_residual_fn, build_value_grad,
+    )
+    from nav2_social_mpc_controller_tpu_torch.ops import fused_iter
+
+    batch = B_WIDE
+    lat = replace_optimizer(cfg, weights={"pure_angle_weight": 0.5, "curvature_weight": 0.3})
+    if fused_iter.can_fuse(lat) or not fused_iter.can_fuse(cfg):
+        fail("latent_tick: the configs do not sit on the two sides of can_fuse")
+    sc, poses = make_batch(lat, batch, dev, n_valid_people=lat.n_agents)
+    scen = with_pose(sc, poses[0])
+    step = make_step_batch(lat, device=dev)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cmd, aux, _ = step(scen, make_carry(lat, batch, device=dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    check_launches("latent_tick", launches, ("sfm_scan", "bicubic", "propose", "commit"))
+    check_tick_outputs("latent_tick", lat, cmd, aux)
+    if aux.lm_trace is not None:
+        fail("latent_tick: a trace without debug_optimizer")
+
+    dims = ProblemDims.from_config(cfg)
+    with torch.no_grad():
+        prep = step_pre(cfg, scen, make_carry(cfg, batch, device=dev)).prep
+        args = (cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present,
+                prep.costmap)
+        residual = ResidualValueGrad(build_residual_fn(*args), 2 * dims.n_blocks)(prep.u0)
+        fused = build_value_grad(cfg, prep)(prep.u0)
+        torch.cuda.synchronize()
+    # One evaluation of the residual path (D tangent passes) under the
+    # profiler; a tick makes one per LM iteration and one at the start.
+    with torch.no_grad():
+        prep_lat = step_pre(lat, scen, make_carry(lat, batch, device=dev)).prep
+        vg_lat = build_value_grad(lat, prep_lat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vg_lat(prep_lat.u0)
+        torch.cuda.synchronize()
+        ms_eval = (time.perf_counter() - t0) * 1e3
+        n_dev, dev_ms, _ = count_device_launches(lambda: vg_lat(prep_lat.u0))
+    errs = [norm_err(a, b_)[0] for a, b_ in zip(residual, fused)]
+    if not max(errs) <= RESIDUAL_VS_FUSED_TOL:
+        fail(f"latent_tick: residual path vs fused path (cost, g, JtJ) differ by {errs} > "
+             f"{RESIDUAL_VS_FUSED_TOL}")
+    emit({
+        "phase": "latent_tick", "config": "social + pure_angle_weight 0.5 + curvature_weight 0.3",
+        "batch": batch, "ticks": 1, "launches": launches, "seconds_per_tick": seconds,
+        "evaluations_per_tick": launches["bicubic"] // (2 * dims.n_blocks),
+        "one_evaluation": {"ms": ms_eval, "device_launches": n_dev, "device_busy_ms": dev_ms},
+        "mean_lm_iterations": float(aux.solve.iterations.float().mean()),
+        "termination_counts": torch.bincount(aux.solve.termination.long(), minlength=6).tolist(),
+        "share_with_a_person_in_view": float(prep.people_present.float().mean()),
+        "residual_vs_fused_norm_err": {"cost": errs[0], "g": errs[1], "jtj": errs[2],
+                                       "tol": RESIDUAL_VS_FUSED_TOL},
+    })
+    return launches
+
+
+def phase_compacted_tick(cfg, dev, sc, poses, capacity_frac=0.25):
+    """The compacted warm-start tick at full width: `cfg` with
+    warm_start_mode="previous_solution", 3 ticks, once through
+    make_step_batch and once through make_step_batch_compacted. Every kernel
+    works scenario by scenario, so compaction must change no lane: commands,
+    iteration counts, termination codes and the carry equal bit for bit.
+    Printed: mean iterations, iterations x width of both solvers, ms/tick of
+    both (host clock, in turns)."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step_batch, make_step_batch_compacted, step_pre,
+    )
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
+        build_value_grad, make_lm_config,
+    )
+    from nav2_social_mpc_controller_tpu_torch.solver.batched import lm_solve_batch_compacted
+
+    batch = sc.robot.pose.shape[0]
+    warm = replace_optimizer(cfg, warm_start_mode="previous_solution")
+    lm_cfg = make_lm_config(warm.optimizer)
+    plain = make_step_batch(warm, device=dev)
+    compacted = make_step_batch_compacted(warm, capacity_frac, device=dev)
+
+    def fresh():
+        return make_carry(warm, batch, device=dev)
+
+    outs_p, carry_p = run_ticks(plain, sc, poses, fresh())
+    _build.reset_launch_counts()
+    outs_c, carry_c = run_ticks(compacted, sc, poses, fresh())
+    launches = dict(_build.launch_counts)
+    check_launches("compacted_tick", launches, DEFAULT_PATH_KERNELS)
+    for t, (a, b_) in enumerate(zip(outs_c, outs_p)):
+        check_tick_outputs(f"compacted_tick tick {t}", warm, *a)
+        same_results(f"compacted_tick tick {t} vs the plain tick", a, b_)
+    for x, y in zip(carry_c, carry_p):
+        if not torch.equal(x, y):
+            fail("compacted_tick: the carry differs from the plain ticks' carry")
+
+    # Work done, in lane-iterations: the plain loop runs every lane for as
+    # many iterations as it runs at all; the compacted solver logs the width
+    # of each of its iterations (same solver call as make_step_batch_compacted).
+    work_plain, work_compacted, carry = [], [], fresh()
+    with torch.no_grad():
+        for t, pose in enumerate(poses):
+            prep = step_pre(warm, with_pose(sc, pose), carry).prep
+            widths = []
+            lm_solve_batch_compacted(
+                build_value_grad(warm, prep), prep.u0, prep.lower, prep.upper, lm_cfg,
+                max(1, int(batch * capacity_frac)), width_log=widths)
+            work_compacted.append(sum(widths))
+            work_plain.append(batch * loop_iterations(outs_p[t][1].solve.iterations,
+                                                      lm_cfg.max_iterations))
+            _, _, carry = plain(with_pose(sc, pose), carry)
+
+    ms = {"plain": [], "compacted": []}
+    for name, step in (("plain", plain), ("compacted", compacted), ("compacted", compacted),
+                       ("plain", plain)):
+        ms[name] += time_ticks(step, sc, poses, fresh, rounds=1)
+    profiles = {name: profile_last_tick(step, sc, poses, fresh)
+                for name, step in (("plain", plain), ("compacted", compacted))}
+    n = len(poses)
+    emit({
+        "phase": "compacted_tick", "config": "social + warm_start_mode=previous_solution",
+        "batch": batch, "ticks": n, "capacity_frac": capacity_frac, "launches": launches,
+        "bit_equal_to_plain": True,
+        "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean()) for _, a in outs_p],
+        "max_lm_iterations_per_tick": [int(a.solve.iterations.max()) for _, a in outs_p],
+        "iterations_x_width": {"plain": work_plain, "compacted": work_compacted},
+        "ms_per_tick_by_tick": {k: [float(np.mean(v[t::n])) for t in range(n)] for k, v in ms.items()},
+        "ms_per_tick_mean": {k: float(np.mean(v)) for k, v in ms.items()},
+        "device_launches_last_tick": {k: v[0] for k, v in profiles.items()},
+        "device_busy_ms_last_tick": {k: v[1] for k, v in profiles.items()},
+    })
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     dev_info, smi = phase_device()
     dev = "cuda"
     phase_build()
@@ -907,15 +1333,26 @@ def main():
     stress36 = benchmark_stress_h36_config()
     phase_main_path("stress36", stress36, dev, B_WIDE, stress36.n_agents, n_ticks=1,
                     compare_cpu=False)
+    launches_debug = phase_debug_tick(social, dev, sc, poses)
+    phase_jacobi(social, dev, sc, poses[0])
+    launches_latent = phase_latent_tick(social, dev)
+    launches_compacted = phase_compacted_tick(social, dev, sc, poses)
     phase_timing([("obstacle", obstacle, 0), ("social", social, social.n_agents)], dev)
 
-    # K1-K6 at the social main path's shapes, inputs captured from a real tick.
+    # K1-K7 at the social main path's shapes, inputs captured from a real tick.
+    # `launches` is the count on the kernel's own main path: three social
+    # ticks for K1-K6, three debug ticks for K7.
     cap = capture_iteration(social, with_pose(sc, poses[0]), make_carry(social, B_MAIN, device=dev))
     res = check_all_kernels(social, cap, reps=200)
     emit({"kernels": [
-        {"name": k, **KERNEL_INFO[k], "launches": launches[k],
-         "launches_obstacle_path": launches_obstacle[k], **v} for k, v in res.items()
+        {"name": k, **KERNEL_INFO[k],
+         "launches": (launches_debug if k == "spd_solve" else launches)[k],
+         "launches_by_path": {"social": launches[k], "obstacle": launches_obstacle[k],
+                              "debug": launches_debug[k], "latent": launches_latent[k],
+                              "compacted": launches_compacted[k]}, **v}
+        for k, v in res.items()
     ]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})
     return 0

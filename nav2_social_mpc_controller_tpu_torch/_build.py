@@ -1,7 +1,8 @@
 """Builds and loads the package's CUDA kernels.
 
 The sources under ``csrc/`` expose a plain C interface (no PyTorch headers),
-so each compiles in seconds. ``load()`` compiles every ``*.cu`` for Hopper
+so each compiles in seconds (``chol.cuh`` is the one shared header).
+``load()`` compiles every ``*.cu`` for Hopper
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
 opens it with ``ctypes`` and declares every entry point's ``argtypes``.
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
 
 launch_counts = {
     "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "fused_iter": 0, "propose": 0, "commit": 0,
+    "spd_solve": 0,
 }
 
 _lock = threading.Lock()
@@ -67,6 +69,8 @@ _SIGNATURES = {
     # people, rows, n_rows, indexes, origin, resolution, esdf_valid, out,
     # B, N, S+1, H, W, window, 14 floats (maxtime, dt, SFM parameters...), stream
     "social_mpc_sfm_scan_f32": [_P] * 8 + [_I] * 6 + [_F] * 14 + [_P],
+    # a, b, x, N, D, stream
+    "social_mpc_spd_solve_f32": [_P, _P, _P, _I, _I, _P],
 }
 
 

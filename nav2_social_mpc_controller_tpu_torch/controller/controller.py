@@ -19,6 +19,8 @@ import torch
 from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
     PreparedProblem,
     ProblemDims,
+    build_value_grad,
+    make_lm_config,
     optimize_finish,
     optimize_prepare,
     solve_prepared,
@@ -38,10 +40,8 @@ from nav2_social_mpc_controller_tpu_torch.core.types import (
     StepAux,
     resolve_device,
 )
-from nav2_social_mpc_controller_tpu_torch.core.validate import (
-    check_supported_config,
-    make_window_validator,
-)
+from nav2_social_mpc_controller_tpu_torch.core.validate import make_window_validator
+from nav2_social_mpc_controller_tpu_torch.solver.batched import lm_solve_batch_compacted
 from nav2_social_mpc_controller_tpu_torch.utils.angles import shortest_angular_distance
 
 CRAWL_LINEAR_VEL = 0.1  # fallback cmd (social_mpc_controller.cpp:183)
@@ -137,13 +137,14 @@ def step(cfg: SocialMPCConfig, scenario: Scenario, carry: ControllerCarry):
 
     Returns (ControlCommand, StepAux, ControllerCarry)."""
     ctx = step_pre(cfg, scenario, carry)
-    u_flat, stats = solve_prepared(cfg, ctx.prep)
-    return step_post(cfg, ctx, carry, u_flat, stats)
+    u_flat, stats, lm_trace = solve_prepared(cfg, ctx.prep)
+    return step_post(cfg, ctx, carry, u_flat, stats, lm_trace)
 
 
-def step_post(cfg: SocialMPCConfig, ctx: StepContext, carry: ControllerCarry, u_flat, stats):
+def step_post(cfg: SocialMPCConfig, ctx: StepContext, carry: ControllerCarry, u_flat, stats,
+              lm_trace=None):
     """Tick tail: extraction, degradation ladder, warm-start carry update."""
-    res = optimize_finish(cfg, ctx.prep, u_flat, stats)
+    res = optimize_finish(cfg, ctx.prep, u_flat, stats, lm_trace)
 
     # --- command selection / degradation ladder ---
     opt_v = res.cmds[:, 0, 0]
@@ -194,6 +195,7 @@ def step_post(cfg: SocialMPCConfig, ctx: StepContext, carry: ControllerCarry, u_
         status=status,
         solve=res.stats,
         plan_start_index=ctx.plan_start_index,
+        lm_trace=res.lm_trace,
     )
     return cmd, aux, new_carry
 
@@ -209,25 +211,59 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
 
     Scenarios may carry valid people (`AgentsState`, t != -1): the three
     people critics are on per scenario, for those that keep a valid person
-    after the FOV filter. Configurations the port does not implement yet —
-    latent critics, debug_optimizer, warm_start_mode="previous_solution" —
-    are refused with NotImplementedError. The batch checks (obstacle- and
+    after the FOV filter. Every OptimizerConfig is accepted: the benchmark
+    critic sets take the fused evaluation (kernels K6, K1, K2), a config with
+    latent critics (pure_angle_weight / curvature_weight) the autodiff
+    residual path; debug_optimizer returns the per-iteration LMTrace as
+    aux.lm_trace and runs the general LM iteration (kernel K7);
+    warm_start_mode="previous_solution" starts each block from the previous
+    tick's optimum. The batch checks (obstacle- and
     ESDF-window exactness against the ACTUAL grid resolutions) run once per
     distinct input buffer (identity-cached), so steady-state ticks that reuse
     scenario buffers pay no host synchronisation."""
+    return _checked(cfg, device, dtype, lambda scenario, carry: step(cfg, scenario, carry))
+
+
+def _checked(cfg: SocialMPCConfig, device, dtype, fn):
+    """fn(scenario, carry) behind the call-boundary checks (device, dtype,
+    window exactness), with autograd's reverse mode off."""
     dev = resolve_device(device)
-    check_supported_config(cfg)
     check = make_window_validator(cfg)
 
     def run(scenario: Scenario, carry: ControllerCarry):
         pose = scenario.robot.pose
         if pose.device.type != dev.type or pose.dtype != dtype:
             raise ValueError(
-                f"make_step_batch was built for {dev.type}/{dtype} but the scenario "
+                f"the step was built for {dev.type}/{dtype} but the scenario "
                 f"is on {pose.device}/{pose.dtype}"
             )
         check(scenario)
         with torch.no_grad():
-            return step(cfg, scenario, carry)
+            return fn(scenario, carry)
 
     return run
+
+
+def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
+                              device="cuda", dtype=torch.float32):
+    """Batched step with converged-lane compaction in the LM solve
+    (solver/batched.py): step_pre -> the width-ladder solver -> step_post.
+    Per-lane results are identical to make_step_batch's; the gain is that a
+    warm-started batch (warm_start_mode="previous_solution") stops paying
+    full-width iterations once the laggard set fits a narrower width, down to
+    capacity_frac * batch lanes. debug_optimizer is unsupported here (the
+    per-iteration trace belongs to the plain loop)."""
+    if cfg.optimizer.debug_optimizer:
+        raise ValueError("compaction does not support debug_optimizer")
+    lm_cfg = make_lm_config(cfg.optimizer)
+
+    def run(scenario: Scenario, carry: ControllerCarry):
+        ctx = step_pre(cfg, scenario, carry)
+        prep = ctx.prep
+        capacity = max(1, int(prep.u0.shape[0] * capacity_frac))
+        u_flat, stats = lm_solve_batch_compacted(
+            build_value_grad(cfg, prep), prep.u0, prep.lower, prep.upper, lm_cfg, capacity
+        )
+        return step_post(cfg, ctx, carry, u_flat, stats)
+
+    return _checked(cfg, device, dtype, run)

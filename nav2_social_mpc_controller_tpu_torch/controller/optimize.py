@@ -9,6 +9,13 @@ scenario with no valid person, emits its padding rows; the three people
 critics read the projection and are masked per scenario by
 ``people_present``.
 
+Two evaluations of the same residual stack feed the solver: the fused
+analytic one (ops/fused_iter.py: kernels K6, K1, K2), which covers exactly
+the benchmark critic set, and the autodiff one built here
+(``build_residual_fn`` + ``solver.lm.make_value_grad``), which the latent
+critics (AngleCost / CurvatureCost) need and which is the reference the fused
+path is pinned against.
+
 Shape notes:
   * maxsize = round(max_time/time_step) (optimizer.cpp:492) is static; the
     row buffer is (B, maxsize, 6) and the step axis S = maxsize - 1.
@@ -36,6 +43,8 @@ from nav2_social_mpc_controller_tpu_torch.core.types import (
     ObstacleDistanceGrid,
     SolveStats,
 )
+from nav2_social_mpc_controller_tpu_torch.costs import critic_grads as cg
+from nav2_social_mpc_controller_tpu_torch.costs import critics
 from nav2_social_mpc_controller_tpu_torch.models.motion import (
     block_index_sequence_dynamic,
     dynamic_horizon,
@@ -44,7 +53,8 @@ from nav2_social_mpc_controller_tpu_torch.models.motion import (
 )
 from nav2_social_mpc_controller_tpu_torch.models.sfm import project_people
 from nav2_social_mpc_controller_tpu_torch.ops import fused_iter
-from nav2_social_mpc_controller_tpu_torch.solver.lm import LMConfig, lm_solve
+from nav2_social_mpc_controller_tpu_torch.solver.lm import LMConfig, lm_solve, make_value_grad
+from nav2_social_mpc_controller_tpu_torch.world.grid import crop_grid_window
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +92,7 @@ class OptimizeResult(NamedTuple):
     people_proj: torch.Tensor  # (B, maxsize, N, 6)
     stats: SolveStats
     u: torch.Tensor  # (B, NB, 2) optimized decision blocks
+    lm_trace: object = None  # LMTrace when cfg.optimizer.debug_optimizer
 
 
 def format_to_optimize(
@@ -137,6 +148,157 @@ def format_to_optimize(
     last_row = torch.gather(rows, 1, last[:, None, None].expand(-1, 1, 6))
     rows = torch.where((i[None, :] < n_rows[:, None])[:, :, None], rows, last_row)
     return rows, n_rows.to(torch.int32)
+
+
+class ResidualFn:
+    """residual_fn(u (B, D)) -> r (B, R) for one tick's batch of problems,
+    differentiable in u (forward or reverse mode).
+
+    Residual layout, per scenario: [social_work, agent_angle, proxemics,
+    velocity, goal_align, path_follow, path_align, obstacle] x S steps, then
+    pure angle (S) and curvature (S - 1) when their weights are non-zero,
+    then the n_vf velocity-feasibility terms. The constructor does the
+    u-independent part once per tick: masks, the dynamic-horizon block map,
+    targets, the agent-angle selection and the obstacle-window crop around
+    pose_0 (exactness is checked at the call boundary, core/validate.py).
+
+    The three people critics take their exact per-step partials
+    (costs/critic_grads.py) as derivative rule; the costmap sample launches
+    kernel K1 on the card (world/grid.py); the rollout is the prefix-sum
+    rollout_poses.
+    """
+
+    def __init__(self, cfg, dims, rows, n_rows, people_proj, people_present, costmap):
+        self.cfg = cfg
+        self.dims = dims
+        s = dims.s
+        dev = rows.device
+        self.win, self.win_origin = crop_grid_window(
+            costmap.data, costmap.origin, costmap.resolution, rows[:, 0, 0:2],
+            cfg.optimizer.obstacle_window_cells,
+        )
+        self.resolution = costmap.resolution
+        self.pose0 = rows[:, 0, 0:3]
+        n_vel, h_dyn, bl_dyn = dynamic_horizon(n_rows, dims.horizon, dims.block_length)
+        j = torch.arange(s, device=dev)
+        self.block_idx = block_index_sequence_dynamic(s, h_dyn, bl_dyn)
+        self.in_horizon = j[None, :] < h_dyn[:, None]
+        self.step_mask = j[None, :] < n_vel[:, None]
+        self.social_mask = self.step_mask & people_present[:, None]
+        last = (n_rows.long() - 1).clamp(0, dims.maxsize - 1)
+        last_row = torch.gather(rows, 1, last[:, None, None].expand(-1, 1, rows.shape[-1]))
+        self.final_point = last_row[:, :, 0:2]  # (B, 1, 2)
+        self.goal_yaw = last_row[:, :, 2]  # (B, 1)
+        self.ref_points = rows[:, 1:, 0:2]  # (B, S, 2) path-align targets (point i+1)
+        self.agents_steps = people_proj[:, 1:]  # (B, S, N, 6)
+        self.steer, self.agent_active = critics.agent_angle_select(self.pose0, self.agents_steps)
+        # Pair q is step i = q + 1: added for 0 < i < control_horizon /
+        # block_length and i within the velocity count (optimizer.cpp:364-370).
+        vf_step = torch.arange(dims.n_vf, device=dev) + 1
+        self.vf_mask = (vf_step[None, :] < (h_dyn // bl_dyn)[:, None]) & (
+            vf_step[None, :] < n_vel[:, None]
+        )
+
+    def select(self, lanes):
+        """This residual function restricted to the scenarios `lanes` (an
+        int64 index tensor), every per-scenario tensor gathered."""
+        return fused_iter.select_lanes(self, lanes)
+
+    def __call__(self, u_flat):
+        cfg, dims = self.cfg, self.dims
+        w = cfg.optimizer.weights
+        s = dims.s
+        u = u_flat.reshape(-1, dims.n_blocks, 2)
+        poses = rollout_poses(self.pose0, u, cfg.trajectorizer.time_step, self.block_idx)
+        new_pos = poses[:, 1:, 0:2]
+        new_x, new_y, new_yaw = poses[:, 1:, 0], poses[:, 1:, 1], poses[:, 1:, 2]
+        vw_steps = expand_blocks(u, self.block_idx)  # (B, S, 2)
+        v_steps = vw_steps[..., 0]
+        agent_list = fused_iter.agent_list(self.agents_steps)
+
+        parts = []
+
+        def add(r, mask):
+            parts.append(torch.where(mask, r, torch.zeros_like(r)))
+
+        add(
+            cg.stepwise_critic(
+                lambda px, py, pth, v: cg.social_work_grad(
+                    w.social_weight, px, py, pth, v, agent_list),
+                new_x, new_y, new_yaw, v_steps,
+            ),
+            self.social_mask,
+        )
+        add(
+            cg.stepwise_critic(
+                lambda px, py, pth, v: cg.agent_angle_grad(
+                    w.agent_angle_weight, pth, self.steer, self.agent_active),
+                new_x, new_y, new_yaw, v_steps,
+            ),
+            self.social_mask,
+        )
+        add(
+            cg.stepwise_critic(
+                lambda px, py, pth, v: cg.proxemics_grad(w.proxemics_weight, px, py, agent_list),
+                new_x, new_y, new_yaw, v_steps,
+            ),
+            self.social_mask,
+        )
+        add(
+            critics.velocity_cost(
+                w.velocity_weight, cfg.optimizer.desired_linear_vel, v_steps, self.in_horizon),
+            self.step_mask,
+        )
+        add(critics.goal_align_cost(w.goal_align_weight, self.goal_yaw, new_yaw), self.step_mask)
+        add(critics.distance_cost(w.distance_weight, new_pos, self.final_point), self.step_mask)
+        add(critics.distance_cost(w.angle_weight, new_pos, self.ref_points), self.step_mask)
+        add(
+            critics.obstacle_cost(
+                w.obstacle_weight, poses[:, 1:], self.win, self.win_origin, self.resolution),
+            self.step_mask,
+        )
+        if w.pure_angle_weight != 0.0:
+            add(
+                critics.angle_cost(w.pure_angle_weight, new_pos, new_yaw, self.final_point),
+                self.step_mask,
+            )
+        if w.curvature_weight != 0.0 and s >= 2:
+            # Triplet i reads poses i, i+1, i+2: it is valid while step i+1 is.
+            add(
+                critics.curvature_cost(
+                    w.curvature_weight, w.curvature_max_angle,
+                    poses[:, :-2, 0:2], poses[:, 1:-1, 0:2], poses[:, 2:, 0:2],
+                ),
+                self.step_mask[:, 1:],
+            )
+
+        vf = critics.velocity_feasibility_cost(w.velocity_feasibility_weight, u, dims.n_vf)
+        parts.append(torch.where(self.vf_mask, vf, torch.zeros_like(vf)))
+        return torch.cat(parts, dim=1)
+
+
+def build_residual_fn(cfg, dims, rows, n_rows, people_proj, people_present, costmap) -> ResidualFn:
+    """residual_fn(u (B, D)) -> (B, R), closing over one tick's scenario
+    data: rows (B, maxsize, 6), n_rows (B,), people_proj (B, maxsize, N, 6),
+    people_present (B,) bool, costmap: core.types.Costmap."""
+    return ResidualFn(cfg, dims, rows, n_rows, people_proj, people_present, costmap)
+
+
+class ResidualValueGrad:
+    """value_grad(u) -> (cost, g, jtj) by forward-mode differentiation of a
+    ResidualFn (solver.lm.make_value_grad), restrictable to a set of lanes
+    like the fused ValueGrad."""
+
+    def __init__(self, residual_fn: ResidualFn, d: int):
+        self.residual_fn = residual_fn
+        self.d = d
+        self._value_grad = make_value_grad(residual_fn, d)
+
+    def select(self, lanes):
+        return ResidualValueGrad(self.residual_fn.select(lanes), self.d)
+
+    def __call__(self, u):
+        return self._value_grad(u)
 
 
 class PreparedProblem(NamedTuple):
@@ -198,6 +360,16 @@ def optimize_prepare(
     # Warm start: block b initializes from optimization ROW b's velocity
     # (optimizer.cpp:256-260), row 0 being the measured speed.
     u0 = rows[:, 0 : dims.n_blocks, 4:6]
+    if cfg.optimizer.warm_start_mode == "previous_solution":
+        # Framework extension (OptimizerConfig.warm_start_mode): start block
+        # b from the previous tick's own block-b optimum. prev_cmds holds the
+        # block-expanded commands, so the step at each block start carries
+        # that block's value.
+        starts = np.minimum(
+            np.arange(dims.n_blocks) * dims.block_length, carry.prev_cmds.shape[1] - 1
+        )
+        u_prev = carry.prev_cmds[:, torch.as_tensor(starts, device=rows.device)]  # (B, NB, 2)
+        u0 = torch.where((carry.prev_n > 0)[:, None, None], u_prev, u0)
 
     # Box bounds on the first control_horizon/block_length blocks
     # (optimizer.cpp:373-379, with the dynamic horizon shrink of :248-249);
@@ -227,17 +399,35 @@ def optimize_prepare(
     )
 
 
+def build_value_grad(cfg: SocialMPCConfig, prep: PreparedProblem):
+    """The value_grad of a PreparedProblem: the fused analytic evaluation
+    when the config's critic set allows it, else forward-mode autodiff over
+    the residual function."""
+    dims = ProblemDims.from_config(cfg)
+    args = (cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present,
+            prep.costmap)
+    if fused_iter.can_fuse(cfg):
+        return fused_iter.build_value_grad(*args)
+    return ResidualValueGrad(build_residual_fn(*args), 2 * dims.n_blocks)
+
+
 def solve_prepared(cfg: SocialMPCConfig, prep: PreparedProblem):
     """Batched LM solve of a PreparedProblem (the ceres::Solve call,
-    optimizer.cpp:381). Returns (u (B, D), SolveStats)."""
-    dims = ProblemDims.from_config(cfg)
-    value_grad = fused_iter.build_value_grad(
-        cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present, prep.costmap
-    )
-    return lm_solve(value_grad, prep.u0, prep.lower, prep.upper, make_lm_config(cfg.optimizer))
+    optimizer.cpp:381). Returns (u (B, D), SolveStats, lm_trace | None);
+    lm_trace is the per-iteration LMTrace (optimizer.cpp:122-130) when
+    cfg.optimizer.debug_optimizer."""
+    opt = cfg.optimizer
+    value_grad = build_value_grad(cfg, prep)
+    lm_cfg = make_lm_config(opt)
+    if opt.debug_optimizer:
+        return lm_solve(
+            value_grad, prep.u0, prep.lower, prep.upper, lm_cfg, trace_len=opt.max_iterations
+        )
+    return (*lm_solve(value_grad, prep.u0, prep.lower, prep.upper, lm_cfg), None)
 
 
-def optimize_finish(cfg: SocialMPCConfig, prep: PreparedProblem, u_flat, stats: SolveStats) -> OptimizeResult:
+def optimize_finish(cfg: SocialMPCConfig, prep: PreparedProblem, u_flat, stats: SolveStats,
+                    lm_trace=None) -> OptimizeResult:
     """Extraction half of Optimizer::optimize: saving_velocities[j] = block
     min(j, H-1)//bl for j = 0..S (optimizer.cpp:390-419 incl. the
     post-horizon extrapolation), then the path is re-integrated from pose_0
@@ -260,4 +450,5 @@ def optimize_finish(cfg: SocialMPCConfig, prep: PreparedProblem, u_flat, stats: 
         people_proj=prep.people_proj,
         stats=stats,
         u=u,
+        lm_trace=lm_trace,
     )

@@ -149,6 +149,7 @@ class StepAux(NamedTuple):
     status: torch.Tensor  # (B,) int32, STATUS_*
     solve: SolveStats
     plan_start_index: torch.Tensor  # (B,) int32 cumulative prune point
+    lm_trace: object = None  # solver.lm.LMTrace when debug_optimizer, (B, T) leaves
 
 
 def resolve_device(device) -> torch.device:
@@ -209,7 +210,7 @@ def to_numpy(tree):
     -> the same structure with NumPy leaves on the host."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
-    if isinstance(tree, tuple):
+    if isinstance(tree, tuple):  # StepAux.lm_trace (an LMTrace or None) included
         leaves = (to_numpy(x) for x in tree)
         return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
     return tree

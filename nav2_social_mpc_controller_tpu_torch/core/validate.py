@@ -1,5 +1,4 @@
-"""Checks at the call boundary of the batched step: window exactness, and
-the guard that refuses the configurations the port does not implement yet.
+"""Checks at the call boundary of the batched step: window exactness.
 
 `OptimizerConfig.obstacle_window_cells` and
 `SocialMPCConfig.esdf_window_cells` are EXACT-output optimisations only when
@@ -71,23 +70,6 @@ def check_obstacle_window(cfg, resolution: float) -> None:
             f"resolution {resolution}: the rolling-window crop would clip "
             "reachable obstacle-critic samples. Raise obstacle_window_cells or "
             "set it to 0."
-        )
-
-
-def check_supported_config(cfg) -> None:
-    """Refuse configurations whose code paths are not ported yet, instead of
-    silently solving something else."""
-    w = cfg.optimizer.weights
-    if w.pure_angle_weight != 0.0 or w.curvature_weight != 0.0:
-        raise NotImplementedError(
-            "latent critics (pure_angle_weight / curvature_weight) need the "
-            "autodiff residual path, which is not ported yet"
-        )
-    if cfg.optimizer.debug_optimizer:
-        raise NotImplementedError("debug_optimizer (the LM trace) is not ported yet")
-    if cfg.optimizer.warm_start_mode != "reference":
-        raise NotImplementedError(
-            "warm_start_mode='previous_solution' is not ported yet"
         )
 
 

@@ -13,6 +13,10 @@ list of per-agent field tuples (ax, ay, ayaw, alv, avalid). Each function
 returns (r, (gx, gy, gth, gv, gw)) with None for identically zero partials.
 Reference citations are in costs/critics.py. Angles wrap by
 atan2(sin, cos) everywhere.
+
+``stepwise_critic`` turns such a function into a differentiable per-step
+critic for the autodiff residual path (controller/optimize.py:
+build_residual_fn): its derivative rule IS these per-step partials.
 """
 
 import torch
@@ -204,3 +208,41 @@ def social_work_grad(weight, px, py, yaw, v, agents):
     total = d4.scale(d4.add(d4.add(wr, wp), d4.const(torch.full_like(px, 1e-6))), weight)
     gx, gy, gth, gv = d4.tangents(total)
     return total[0], (gx, gy, gth, gv, None)
+
+
+class _StepwiseCritic(torch.autograd.Function):
+    """r = fn(x, y, yaw, v)[0] with fn's exact per-step partials as its
+    derivative rule: tangent_out = gx*tx + gy*ty + gth*tth + gv*tv. What the
+    JAX package's one-reverse-pass stepwise JVP (costs/critics.py there)
+    amounts to, without differentiating through the where-masked chains whose
+    untaken branches hold NaN (an agent exactly on the robot)."""
+
+    @staticmethod
+    def forward(fn, px, py, pth, v):
+        r, grads = fn(px, py, pth, v)
+        return (r, *(torch.zeros_like(r) if t is None else t for t in grads[:4]))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_forward(*output[1:])
+        ctx.save_for_backward(*output[1:])
+
+    @staticmethod
+    def jvp(ctx, _fn, *tangents):
+        t_out = None
+        for grad, t in zip(ctx.saved_tensors, tangents):
+            if t is not None:
+                t_out = grad * t if t_out is None else t_out + grad * t
+        return (t_out, None, None, None, None)
+
+    @staticmethod
+    def backward(ctx, grad_r, *_unused):
+        return (None, *(grad_r * grad for grad in ctx.saved_tensors))
+
+
+def stepwise_critic(fn, px, py, pth, v):
+    """Differentiable per-step critic from fn(px, py, pth, v) ->
+    (r, (gx, gy, gth, gv, gw)), one of this module's *_grad functions with
+    its constants bound. All inputs (B, S); returns r (B, S)."""
+    return _StepwiseCritic.apply(fn, px, py, pth, v)[0]

@@ -19,11 +19,18 @@ pre-multiplied by their weight, so the solver cost is 0.5*sum(r^2)):
   velocity_cost        <- critics/velocity_cost_function.hpp:89-99
   goal_align_cost      <- critics/goal_align_cost_function.hpp:100-116
   velocity_feasibility <- critics/velocity_feasibility_cost_function.hpp:86-98
+  angle_cost           <- critics/angle_cost_function.hpp:94-108 (latent:
+                          compiled but never instantiated by the reference
+                          optimizer; available behind pure_angle_weight)
+  curvature_cost       <- critics/curvature_cost_function.hpp:65-87 (latent,
+                          behind curvature_weight)
 
 The three people critics read the projected agents (B, S, N, 6) at step i+1
 (models/sfm.py); an agent slot is valid when its t column is not -1.
 Conditional logic is masked arithmetic with identical branch outcomes.
 """
+
+import math
 
 import torch
 
@@ -58,7 +65,8 @@ def distance_cost(weight, pos, target):
 
 
 def obstacle_cost(weight, poses, costmap_data, costmap_origin, costmap_resolution):
-    """w * bicubic(costmap) at the front point of each pose. poses (B, S, 3)."""
+    """w * bicubic(costmap) at the front point of each pose. poses (B, S, 3).
+    Differentiable in the poses (world/grid.py: sample_costmap)."""
     heading = torch.stack([torch.cos(poses[..., 2]), torch.sin(poses[..., 2])], dim=-1)
     front = poses[..., 0:2] + FRONT_OFFSET * heading
     return weight * sample_costmap(costmap_data, costmap_origin, costmap_resolution, front)
@@ -212,3 +220,28 @@ def velocity_feasibility_cost(weight, u, n_pairs: int):
         return u.new_zeros((u.shape[0], 0))
     d = u[:, 1 : n_pairs + 1] - u[:, 0:n_pairs]
     return weight * (d * d).sum(-1)
+
+
+def angle_cost(weight, pos, yaw, target):
+    """Latent AngleCost: face toward target. pos (B, S, 2); yaw (B, S);
+    target (B, 1, 2) or (B, S, 2)."""
+    d = target - pos
+    point_heading = torch.atan2(d[..., 1], d[..., 0])
+    diff = point_heading - wrap_atan2(yaw)
+    return weight * diff * diff
+
+
+def curvature_cost(weight, max_angle, p1, p2, p3):
+    """Latent CurvatureCost among three consecutive points, each (B, S, 2);
+    zero inside [pi - a, pi + a]."""
+    v1 = p2 - p1
+    v2 = p2 - p3
+    dot = (v1 * v2).sum(-1)
+    n1 = torch.sqrt((v1 * v1).sum(-1))
+    n2 = torch.sqrt((v2 * v2).sum(-1))
+    ang = torch.acos(torch.clamp(dot / torch.clamp(n1 * n2, min=1e-30), -1.0, 1.0))
+    lo = math.pi - max_angle
+    hi = math.pi + max_angle
+    mid = 0.5 * (lo + hi)
+    out = weight * torch.exp(torch.sqrt((ang - mid) ** 2))
+    return torch.where((ang < lo) | (ang > hi), out, torch.zeros_like(out))

@@ -21,7 +21,8 @@
 // Every product, sum and difference is written with the round-to-nearest
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts
 // into FMA, and division and sqrtf are IEEE (no fast math): the kernels
-// repeat the plain PyTorch version operation for operation. A non-positive
+// repeat the plain PyTorch version operation for operation. The Cholesky
+// solve itself is chol.cuh's, shared with K7 (spd_solve.cu). A non-positive
 // pivot gives sqrt(<0) = NaN or 1/0 = inf, which flows into a non-finite
 // step that commit rejects; the box projection uses comparisons, not
 // fminf/fmaxf, so that NaN is kept.
@@ -29,11 +30,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "chol.cuh"
+
 namespace {
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+using social_mpc::add;
+using social_mpc::mul;
+using social_mpc::sub;
 
 // clamp that propagates NaN (as torch.clamp / jnp.clip do)
 __device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
@@ -65,42 +68,18 @@ __global__ void propose_kernel(const float* __restrict__ u_in,
     }
     const float inv_radius = 1.0f / radius_in[b];
 
-    // Cholesky A = L L^T of the damped system (lower triangle of A is read).
-    float el[D][D];
-    float inv_diag[D];
+    // Damped system A = JtJ + clamp(diag)/radius, solved for the step x.
+    float neg_g[D];
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-        const float diag = clamp_keep_nan(jtj[j][j], min_diagonal, max_diagonal);
-        float s = add(jtj[j][j], mul(diag, inv_radius));
-#pragma unroll
-        for (int k = 0; k < j; ++k) s = sub(s, mul(el[j][k], el[j][k]));
-        const float ljj = sqrtf(s);
-        el[j][j] = ljj;
-        inv_diag[j] = 1.0f / ljj;
-#pragma unroll
-        for (int i = j + 1; i < D; ++i) {
-            float t = jtj[i][j];
-#pragma unroll
-            for (int k = 0; k < j; ++k) t = sub(t, mul(el[i][k], el[j][k]));
-            el[i][j] = mul(t, inv_diag[j]);
-        }
-    }
-    float y[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-        float s = -g[i];
-#pragma unroll
-        for (int k = 0; k < i; ++k) s = sub(s, mul(el[i][k], y[k]));
-        y[i] = mul(s, inv_diag[i]);
-    }
+    for (int i = 0; i < D; ++i) neg_g[i] = -g[i];
     float x[D];
-#pragma unroll
-    for (int i = D - 1; i >= 0; --i) {
-        float s = y[i];
-#pragma unroll
-        for (int k = i + 1; k < D; ++k) s = sub(s, mul(el[k][i], x[k]));
-        x[i] = mul(s, inv_diag[i]);
-    }
+    social_mpc::chol_solve<D>(
+        [&](int i, int j) {
+            if (i != j) return jtj[i][j];
+            const float diag = clamp_keep_nan(jtj[j][j], min_diagonal, max_diagonal);
+            return add(jtj[j][j], mul(diag, inv_radius));
+        },
+        neg_g, x);
 
     float delta[D];
 #pragma unroll

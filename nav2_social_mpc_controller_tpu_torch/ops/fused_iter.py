@@ -24,6 +24,7 @@ Layout: batch-major with the step axis innermost — (B, S) per-step arrays and
 (B, NB, S) per-block sensitivities — so a warp of K2 reads contiguous memory.
 """
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -136,7 +137,7 @@ def rollout_with_sensitivities(u, pose0, dt: float, block_idx, n_blocks: int):
 # ---------------------------------------------------------------------------
 
 
-def _agent_list(agents):
+def agent_list(agents):
     """(B, S, N, 6) projected agents -> the per-agent field tuples
     (ax, ay, ayaw, alv, avalid) costs/critic_grads.py takes."""
     return [
@@ -184,11 +185,11 @@ def fused_cost_g_jtj_plain(
         rows_j.append(torch.stack([cv, cw], dim=-1).permute(0, 2, 1, 3).reshape(b, s, d))
 
     # Residual order mirrors build_residual_fn of the JAX package.
-    agent_list = _agent_list(agents)
-    add(*cg.social_work_grad(st.social_weight, px, py, pth, v, agent_list), m_social)
+    agents_k = agent_list(agents)
+    add(*cg.social_work_grad(st.social_weight, px, py, pth, v, agents_k), m_social)
     # `active` is prefolded with the social mask
     add(*cg.agent_angle_grad(st.agent_angle_weight, pth, steer, active), None)
-    add(*cg.proxemics_grad(st.proxemics_weight, px, py, agent_list), m_social)
+    add(*cg.proxemics_grad(st.proxemics_weight, px, py, agents_k), m_social)
     add(*cg.velocity_grad(st.velocity_weight, st.desired_linear_vel, v, m_vel), None)
     add(*cg.goal_align_grad(st.goal_align_weight, goal_yaw, pth), m_step)
     add(*cg.distance_grad(st.distance_weight, px, py, final_x, final_y), m_step)
@@ -332,6 +333,16 @@ def fused_cost_g_jtj(
 # ---------------------------------------------------------------------------
 
 
+def select_lanes(obj, lanes):
+    """A shallow copy of obj with every tensor attribute (all of which carry
+    the scenario axis first) gathered at `lanes`, an int64 index tensor."""
+    out = copy.copy(obj)
+    for name, value in vars(obj).items():
+        if isinstance(value, torch.Tensor):
+            setattr(out, name, value.index_select(0, lanes))
+    return out
+
+
 class ValueGrad:
     """value_grad(u) -> (cost, g, jtj) for one tick's batch of problems.
 
@@ -399,6 +410,13 @@ class ValueGrad:
         self.vfm = (
             (vf_step[None, :] < (h_dyn // bl_dyn)[:, None]) & (vf_step[None, :] < n_vel[:, None])
         ).contiguous()
+
+    def select(self, lanes):
+        """This value_grad restricted to the scenarios `lanes` (an int64
+        index tensor): every per-scenario tensor gathered, the agents view
+        included (a gathered copy; K2 takes its strides). Every kernel works
+        scenario by scenario, so a gathered lane evaluates to the same bits."""
+        return select_lanes(self, lanes)
 
     def prep_inputs(self, u):
         """K6's argument tuple at decision vector u."""

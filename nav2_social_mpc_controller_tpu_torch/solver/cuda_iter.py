@@ -14,16 +14,23 @@ Reference semantics: the Ceres trust-region update rules
 (levenberg_marquardt_strategy.cc / trust_region_minimizer.cc).
 
 The plain versions are the SAME unrolled arithmetic written as batched
-tensor operations, one (B,) tensor per matrix entry. A library Cholesky is
+tensor operations, one (B,) tensor per matrix entry (the Cholesky solve is
+``solver/cuda_solve.py``'s, shared with kernel K7). A library Cholesky is
 not a stand-in: a non-positive pivot must flow on as NaN into a non-finite
 step that commit rejects, where ``torch.linalg.cholesky`` raises and
 ``cholesky_ex`` returns garbage silently. CUDA tensors launch the kernels
 (float32 only); CPU tensors take the plain versions.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import (
+    KERNEL_DIMS as _KERNEL_DIMS,
+    chol_solve_unrolled,
+)
 
 TERM_NO_CONVERGENCE = 0  # hit max_num_iterations (still usable, like Ceres)
 TERM_FUNCTION_TOL = 1
@@ -32,51 +39,31 @@ TERM_GRADIENT_TOL = 3
 TERM_MIN_RADIUS = 4
 TERM_NUMERIC_FAILURE = 5  # NaN/inf encountered -> solution unusable
 
-_KERNEL_DIMS = (6, 12)  # D values csrc/tr_iter.cu is instantiated for
+
+def damped_system(cfg, g, jtj, radius, jac_scale=None):
+    """The damped normal equations of one LM iteration as dense tensors:
+    A = JtJ + diag(clamp(diag JtJ) * (1/radius)) (B, D, D) and the right-hand
+    side -g (B, D), optionally in Ceres' Jacobi column scaling (JtJ and g
+    scaled by jac_scale (B, D) first; the caller maps the step back). The
+    damping multiplies by the reciprocal radius, exactly as propose_plain and
+    kernel K3 do, so a general iteration that solves this system with kernel
+    K7 takes bit for bit the step K3 takes."""
+    if jac_scale is not None:
+        jtj = jtj * (jac_scale[:, :, None] * jac_scale[:, None, :])
+        g = jac_scale * g
+    diag = torch.diagonal(jtj, dim1=1, dim2=2)
+    damp = torch.clamp(diag, cfg.min_diagonal, cfg.max_diagonal) * (1.0 / radius)[:, None]
+    a = jtj.clone()
+    torch.diagonal(a, dim1=1, dim2=2).add_(damp)
+    return a, -g
 
 
-def propose_plain(cfg, u, g, jtj, radius, lower, upper):
-    """Plain PyTorch version of kernel K3. u/g/lower/upper (B, D), jtj
-    (B, D, D), radius (B,) -> u_new, delta (B, D), model_change (B,)."""
+def project_step(u, step, g, jtj, lower, upper):
+    """Project the trial point u + step onto the box and evaluate the model
+    cost change with the projected delta (constrained trust region). Returns
+    (u_new, delta (B, D), model_change (B,)); the sums run serially over D,
+    in kernel K3's order."""
     d = u.shape[1]
-    inv_radius = 1.0 / radius
-
-    def a(i, j):
-        base = jtj[:, i, j]
-        if i != j:
-            return base
-        diag = torch.clamp(base, cfg.min_diagonal, cfg.max_diagonal)
-        return base + diag * inv_radius
-
-    # Unrolled Cholesky of the damped system, solving A x = -g.
-    el = {}
-    inv_diag = {}
-    for j in range(d):
-        s = a(j, j)
-        for k in range(j):
-            s = s - el[(j, k)] * el[(j, k)]
-        ljj = torch.sqrt(s)
-        el[(j, j)] = ljj
-        inv_diag[j] = 1.0 / ljj
-        for i in range(j + 1, d):
-            s = a(i, j)
-            for k in range(j):
-                s = s - el[(i, k)] * el[(j, k)]
-            el[(i, j)] = s * inv_diag[j]
-    y = {}
-    for i in range(d):
-        s = -g[:, i]
-        for k in range(i):
-            s = s - el[(i, k)] * y[k]
-        y[i] = s * inv_diag[i]
-    x = {}
-    for i in reversed(range(d)):
-        s = y[i]
-        for k in range(i + 1, d):
-            s = s - el[(k, i)] * x[k]
-        x[i] = s * inv_diag[i]
-
-    step = torch.stack([x[i] for i in range(d)], dim=1)
     # max/min keep NaN, like the kernel's comparisons.
     u_new = torch.minimum(torch.maximum(u + step, lower), upper)
     delta = u_new - u
@@ -94,12 +81,48 @@ def propose_plain(cfg, u, g, jtj, radius, lower, upper):
     return u_new, delta, -dg - 0.5 * dad
 
 
-def commit_plain(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
-                 failed, u_new, delta, model_change, new_cost, g_new, jtj_new):
+def propose_plain(cfg, u, g, jtj, radius, lower, upper):
+    """Plain PyTorch version of kernel K3. u/g/lower/upper (B, D), jtj
+    (B, D, D), radius (B,) -> u_new, delta (B, D), model_change (B,)."""
+    d = u.shape[1]
+    inv_radius = 1.0 / radius
+
+    def a(i, j):
+        base = jtj[:, i, j]
+        if i != j:
+            return base
+        diag = torch.clamp(base, cfg.min_diagonal, cfg.max_diagonal)
+        return base + diag * inv_radius
+
+    # Unrolled Cholesky of the damped system, solving A x = -g.
+    x = chol_solve_unrolled(a, [-g[:, i] for i in range(d)], d)
+    return project_step(u, torch.stack(x, dim=1), g, jtj, lower, upper)
+
+
+class CommitAux(NamedTuple):
+    """Per-iteration intermediates of commit, surfaced for the debug trace."""
+
+    rho: torch.Tensor  # (B,) actual / model reduction
+    actual_change: torch.Tensor  # (B,)
+    step_norm: torch.Tensor  # (B,) ||delta|| of the projected trial step
+    accept: torch.Tensor  # (B,) bool
+    active: torch.Tensor  # (B,) bool: the lane was not done
+
+
+def commit_plain(cfg, *args):
     """Plain PyTorch version of kernel K4: the accept/reject + convergence
-    tail of one LM iteration. State and trial tensors carry a leading batch
-    axis; iters/term int32, done/failed bool. Returns the updated
+    tail of one LM iteration (arguments as ``commit``). State and trial
+    tensors carry a leading batch axis; iters/term int32, done/failed bool.
+    Returns the updated
     (u, cost, g, jtj, radius, decrease_factor, iters, done, term, failed)."""
+    return commit_with_aux(cfg, *args)[0]
+
+
+def commit_with_aux(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
+                    failed, u_new, delta, model_change, new_cost, g_new, jtj_new):
+    """commit_plain and the intermediates the debug trace records: returns
+    (updated state tuple, CommitAux). Plain tensor operations on any device;
+    the general LM iteration (solver/lm.py) runs it as its tail."""
     d = u.shape[1]
     grad_ok = g.abs().max(dim=1).values <= cfg.gradient_tol
     actual_change = cost - new_cost
@@ -156,7 +179,7 @@ def commit_plain(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, ter
         ),
     )
     newly_done = numeric_failed | grad_ok | fn_conv | param_conv | radius_dead
-    return (
+    state = (
         u_out,
         cost_out,
         g_out,
@@ -168,6 +191,7 @@ def commit_plain(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, ter
         torch.where(done, term, term_new),
         failed | numeric_failed,
     )
+    return state, CommitAux(rho, actual_change, step_norm, accept, active)
 
 
 def propose(cfg, u, g, jtj, radius, lower, upper):

@@ -4,7 +4,20 @@ Counterpart of the JAX package's ``solver/lm.py`` and the replacement of the
 per-tick ``ceres::Solve`` call (optimizer.cpp:381): B independent solves of
 D = 2 * n_blocks variables advance together, one batched iteration at a time
 
-    propose (K3) -> value_grad (K1 + K2) -> commit (K4).
+    propose (K3) -> value_grad (K6 + K1 + K2) -> commit (K4)
+
+on the default call. A call that asks for the per-iteration trace, for
+Jacobi scaling or for its own ``linear_solve`` runs the GENERAL iteration
+
+    damped system -> linear_solve (default: K7) -> project -> value_grad
+    -> commit's plain arithmetic (+ a trace row)
+
+whose default solve, kernel K7, factors the same system with the same
+arithmetic as K3 (``csrc/chol.cuh``): the general iteration damps with
+``clamp(diag) * (1/radius)`` as K3 does (the JAX package writes
+``clamp(diag) / radius``, one rounding apart), so with ``default_linear_solve``
+and no scaling a traced solve and an untraced solve give identical results
+bit for bit, on the CPU and on the card.
 
 Semantics reproduced from Ceres:
   * LM with diagonal damping: A = J^T J + (1/radius) * clamp(diag(J^T J)),
@@ -32,6 +45,7 @@ iterations and no synchronisation at all).
 from typing import Callable, NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwad
 
 from nav2_social_mpc_controller_tpu_torch.core.types import SolveStats
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_iter import (  # noqa: F401
@@ -42,8 +56,12 @@ from nav2_social_mpc_controller_tpu_torch.solver.cuda_iter import (  # noqa: F40
     TERM_NUMERIC_FAILURE,
     TERM_PARAMETER_TOL,
     commit,
+    commit_with_aux,
+    damped_system,
+    project_step,
     propose,
 )
+from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import spd_solve
 
 # How often the loop asks the device whether every lane is done. Measured on an
 # H100 (PERF.md, "LM loop host syncs"): the tick is bound by the host's launch
@@ -65,9 +83,29 @@ class LMConfig(NamedTuple):
     min_radius: float = 1e-32
     min_diagonal: float = 1e-6
     max_diagonal: float = 1e32
-    # Ceres' Jacobi column scaling; the production default is off and the
-    # scaled path is not ported yet (lm_solve refuses it).
+    # Ceres' default Jacobi column scaling (trust_region_minimizer.cc):
+    # s_i = 1/(1 + ||J col_i|| at iteration 0), frozen; the LM step is
+    # computed on the column-scaled system and mapped back delta = S delta'.
+    # With Marquardt damping D = diag(J^T J) this is an exact no-op whenever
+    # the [min_diagonal, max_diagonal] clamp does not bind in either space,
+    # which is why the production default stays False.
     jacobi_scaling: bool = False
+
+
+class LMTrace(NamedTuple):
+    """Per-iteration solver telemetry, the `debug_optimizer` analogue of
+    Ceres' PER_MINIMIZER_ITERATION logging (optimizer.cpp:122-130): one row
+    per LM iteration and lane, (B, T) with T = trace_len; rows beyond a
+    lane's executed count stay zero. Enabled via lm_solve(..., trace_len=T) /
+    OptimizerConfig.debug_optimizer."""
+
+    cost: torch.Tensor  # cost at iteration start
+    cost_change: torch.Tensor  # actual cost change of the trial step
+    grad_max: torch.Tensor  # max|J^T r|
+    step_norm: torch.Tensor  # ||delta|| of the (projected) trial step
+    tr_ratio: torch.Tensor  # rho = actual/model reduction
+    tr_radius: torch.Tensor  # trust-region radius at iteration start
+    accepted: torch.Tensor  # bool — step accepted
 
 
 class LMState(NamedTuple):
@@ -86,36 +124,78 @@ class LMState(NamedTuple):
     failed: torch.Tensor  # (B,) bool
 
 
+def default_linear_solve(a, b):
+    """Dense SPD solve of the damped normal equations, a (B, D, D), b (B, D)
+    -> (B, D): kernel K7 on a CUDA tensor, its plain version on a CPU
+    tensor (solver/cuda_solve.py)."""
+    return spd_solve(a, b)
+
+
 def lm_iteration(value_grad: Callable, lower, upper, cfg: LMConfig, st: LMState) -> LMState:
-    """ONE batched trust-region iteration: propose -> evaluate -> commit."""
+    """ONE batched trust-region iteration of the default call:
+    propose -> evaluate -> commit."""
     u_new, delta, model_change = propose(cfg, st.u, st.g, st.jtj, st.radius, lower, upper)
     new_cost, g_new, jtj_new = value_grad(u_new)
     return LMState(*commit(cfg, *st, u_new, delta, model_change, new_cost, g_new, jtj_new))
 
 
-def lm_solve(
-    value_grad: Callable,
-    u0: torch.Tensor,
-    lower: torch.Tensor,
-    upper: torch.Tensor,
-    cfg: LMConfig,
-    check_every: int = DEFAULT_CHECK_EVERY,
-):
-    """Minimise 0.5 * ||r(u)||^2 subject to lower <= u <= upper for a batch.
+def lm_iteration_general(value_grad: Callable, lower, upper, cfg: LMConfig, linear_solve,
+                         jac_scale, st: LMState):
+    """ONE batched trust-region iteration with the damped solve handed to
+    `linear_solve` and, when jac_scale (B, D) is given, computed on the
+    column-scaled system. Returns (new state, CommitAux)."""
+    a, rhs = damped_system(cfg, st.g, st.jtj, st.radius, jac_scale)
+    step = linear_solve(a.contiguous(), rhs.contiguous())
+    if jac_scale is not None:
+        step = jac_scale * step
+    u_new, delta, model_change = project_step(st.u, step, st.g, st.jtj, lower, upper)
+    new_cost, g_new, jtj_new = value_grad(u_new)
+    state, aux = commit_with_aux(
+        cfg, *st, u_new, delta, model_change, new_cost, g_new, jtj_new
+    )
+    return LMState(*state), aux
 
-    value_grad(u (B, D)) -> (cost (B,), g (B, D), jtj (B, D, D));
-    u0/lower/upper (B, D). Returns (u_opt (B, D), SolveStats)."""
-    if cfg.jacobi_scaling:
-        raise NotImplementedError("jacobi_scaling is not ported yet")
+
+def make_value_grad(residual_fn: Callable, d: int):
+    """value_grad(u (B, D)) -> (cost (B,), g = J^T r (B, D), JtJ (B, D, D))
+    by forward-mode differentiation of residual_fn(u (B, D)) -> r (B, R): D
+    tangent passes over the whole batch (every scenario's column i at once),
+    reduced immediately so the (B, R, D) Jacobian never enters the solver
+    loop. This is the REFERENCE evaluation and the one the latent critics
+    need; ops/fused_iter.py is the analytic path the benchmark configs take.
+    The two contractions are plain float32/float64 matrix products (never
+    TF32: nothing in this package enables it)."""
+
+    def value_grad(u):
+        cols = []
+        r = None
+        with fwad.dual_level():
+            for i in range(d):
+                tangent = torch.zeros_like(u)
+                tangent[:, i] = 1.0
+                primal, col = fwad.unpack_dual(residual_fn(fwad.make_dual(u, tangent)))
+                r = primal.detach()
+                cols.append(torch.zeros_like(r) if col is None else col.detach())
+        jac = torch.stack(cols, dim=2)  # (B, R, D)
+        cost = 0.5 * (r * r).sum(1)
+        g = torch.matmul(jac.transpose(1, 2), r[:, :, None])[:, :, 0]
+        jtj = torch.matmul(jac.transpose(1, 2), jac)
+        return cost, g, jtj
+
+    return value_grad
+
+
+def initial_state(value_grad: Callable, u0, cfg: LMConfig) -> LMState:
+    """The solver state at u0. A lane whose initial cost is not finite
+    starts done and failed."""
     b = u0.shape[0]
     dtype = u0.dtype
     dev = u0.device
-
-    initial_cost, g0, jtj0 = value_grad(u0)
-    bad = ~torch.isfinite(initial_cost)  # such lanes start done and failed
-    st = LMState(
+    cost, g0, jtj0 = value_grad(u0)
+    bad = ~torch.isfinite(cost)
+    return LMState(
         u=u0,
-        cost=initial_cost,
+        cost=cost,
         g=g0,
         jtj=jtj0,
         radius=torch.full((b,), cfg.initial_radius, dtype=dtype, device=dev),
@@ -125,18 +205,84 @@ def lm_solve(
         term=torch.full((b,), TERM_NO_CONVERGENCE, dtype=torch.int32, device=dev),
         failed=bad.clone(),
     )
-    # Every active lane has run the same number of iterations, so the
-    # per-lane cap iters < max_iterations is the loop bound itself.
-    for it in range(cfg.max_iterations):
-        if check_every > 0 and it % check_every == 0 and bool(st.done.all()):
-            break
-        st = lm_iteration(value_grad, lower, upper, cfg, st)
 
-    stats = SolveStats(
+
+def solve_stats(st: LMState, initial_cost) -> SolveStats:
+    return SolveStats(
         iterations=st.iters,
         initial_cost=initial_cost,
         final_cost=st.cost,
         termination=st.term,
         usable=~st.failed,
     )
+
+
+def lm_solve(
+    value_grad: Callable,
+    u0: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    cfg: LMConfig,
+    linear_solve: Callable = default_linear_solve,
+    trace_len: int = 0,
+    check_every: int = DEFAULT_CHECK_EVERY,
+):
+    """Minimise 0.5 * ||r(u)||^2 subject to lower <= u <= upper for a batch.
+
+    value_grad(u (B, D)) -> (cost (B,), g (B, D), jtj (B, D, D)) — e.g.
+    ops.fused_iter.build_value_grad or make_value_grad(residual_fn, D);
+    u0/lower/upper (B, D). linear_solve(a (B, D, D), b (B, D)) -> (B, D)
+    solves the damped normal equations. Returns (u_opt (B, D), SolveStats),
+    plus an LMTrace with (B, trace_len) leaves when trace_len > 0 (the
+    debug_optimizer path).
+
+    The default call (no trace, default_linear_solve, no Jacobi scaling) runs
+    kernels K3 and K4 around the evaluation; any other call runs the general
+    iteration, whose default solve is kernel K7."""
+    st = initial_state(value_grad, u0, cfg)
+    initial_cost = st.cost
+    general = trace_len > 0 or linear_solve is not default_linear_solve or cfg.jacobi_scaling
+
+    # Jacobi scale frozen at iteration 0, as Ceres does: ||J col_i||^2 at u0
+    # is diag(J^T J at u0).
+    jac_scale = None
+    if cfg.jacobi_scaling:
+        diag0 = torch.diagonal(st.jtj, dim1=1, dim2=2)
+        jac_scale = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag0, min=0.0)))
+
+    trace = None
+    if trace_len > 0:
+        b = u0.shape[0]
+        trace = LMTrace(
+            *(torch.zeros((b, trace_len), dtype=u0.dtype, device=u0.device) for _ in range(6)),
+            accepted=torch.zeros((b, trace_len), dtype=torch.bool, device=u0.device),
+        )
+
+    # Every active lane has run the same number of iterations, so the
+    # per-lane cap iters < max_iterations is the loop bound itself.
+    for it in range(cfg.max_iterations):
+        if check_every > 0 and it % check_every == 0 and bool(st.done.all()):
+            break
+        if not general:
+            st = lm_iteration(value_grad, lower, upper, cfg, st)
+            continue
+        st_new, aux = lm_iteration_general(
+            value_grad, lower, upper, cfg, linear_solve, jac_scale, st
+        )
+        if trace is not None:
+            # An active lane's iteration count is `it`: its row is column
+            # clip(it, 0, T-1). Done lanes keep what the column holds.
+            col = min(it, trace_len - 1)
+            grad_max = st.g.abs().max(dim=1).values
+            for buf, v in zip(
+                trace,
+                (st.cost, aux.actual_change, grad_max, aux.step_norm, aux.rho, st.radius,
+                 aux.accept),
+            ):
+                buf[:, col] = torch.where(aux.active, v, buf[:, col])
+        st = st_new
+
+    stats = solve_stats(st, initial_cost)
+    if trace_len > 0:
+        return st.u, stats, trace
     return st.u, stats

@@ -87,9 +87,39 @@ def costmap_world_to_grid(point_xy, origin, resolution):
     return g[..., 0], g[..., 1]
 
 
+class _BicubicSample(torch.autograd.Function):
+    """bicubic_linearize with a derivative rule built from its own (value,
+    d/drow, d/dcol) triple, so that differentiating a costmap sample launches
+    kernel K1 on the card like any other sample (the kernel itself has no
+    derivative). The grid is a constant."""
+
+    @staticmethod
+    def forward(data, row, col):
+        return bicubic_linearize(data, row, col)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_forward(*output[1:])
+        ctx.save_for_backward(*output[1:])
+
+    @staticmethod
+    def jvp(ctx, _t_data, t_row, t_col):
+        drow, dcol = ctx.saved_tensors
+        t_val = None
+        for grad, t in ((drow, t_row), (dcol, t_col)):
+            if t is not None:
+                t_val = grad * t if t_val is None else t_val + grad * t
+        return t_val, None, None
+
+    @staticmethod
+    def backward(ctx, grad_val, _g_drow, _g_dcol):
+        drow, dcol = ctx.saved_tensors
+        return None, grad_val * drow, grad_val * dcol
+
+
 def sample_costmap(costmap_data, origin, resolution, point_xy):
     """Bicubic costmap value at world points, ObstacleCost convention:
-    Evaluate(row = y_grid, col = x_grid)."""
+    Evaluate(row = y_grid, col = x_grid). Differentiable in point_xy."""
     col, row = costmap_world_to_grid(point_xy, origin, resolution)
-    val, _, _ = bicubic_linearize(costmap_data, row.contiguous(), col.contiguous())
-    return val
+    return _BicubicSample.apply(costmap_data, row.contiguous(), col.contiguous())[0]

@@ -51,11 +51,13 @@ def scripted_poses(sc, n_ticks, stride=4):
     return out
 
 
-def run_both(jcfg, people, n_ticks, np_dtype, jstep=None):
+def run_both(jcfg, people, n_ticks, np_dtype, jstep=None, keep_trace=False, make_tstep=make_step_batch):
     """Run both packages over len(people) scenarios (seed k with people[k]
     valid people) x n_ticks ticks with the carry fed back; returns the
     per-tick NumPy results of each side as ((jcmd, jaux, jcarry), (tcmd,
-    taux, tcarry)). `jstep` lets a module share one compiled JAX step."""
+    taux, tcarry)). `jstep` lets a module share one compiled JAX step;
+    `keep_trace` keeps the JAX side's aux.lm_trace; `make_tstep` builds the
+    port's step (make_step_batch's signature)."""
     n_seeds = len(people)
     cfg = config_from_dict(dataclasses.asdict(jcfg))
     sc_np = jax_stack_scenarios(
@@ -69,7 +71,7 @@ def run_both(jcfg, people, n_ticks, np_dtype, jstep=None):
         lambda x: jnp.broadcast_to(x, (n_seeds,) + x.shape),
         jax_make_carry(jcfg, dtype=jnp.float64 if np_dtype == np.float64 else jnp.float32),
     )
-    tstep = make_step_batch(cfg, device="cpu", dtype=tdtype)
+    tstep = make_tstep(cfg, device="cpu", dtype=tdtype)
     tcarry = make_carry(cfg, n_seeds, device="cpu", dtype=tdtype)
 
     out = []
@@ -80,7 +82,8 @@ def run_both(jcfg, people, n_ticks, np_dtype, jstep=None):
         tcmd, taux, tcarry = tstep(tsc, tcarry)
         out.append(
             (
-                jax.tree.map(np.asarray, (jcmd, jaux._replace(lm_trace=None), jcarry)),
+                jax.tree.map(
+                    np.asarray, (jcmd, jaux if keep_trace else jaux._replace(lm_trace=None), jcarry)),
                 T.to_numpy((tcmd, taux, tcarry)),
             )
         )

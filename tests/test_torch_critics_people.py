@@ -19,7 +19,8 @@ from nav2_social_mpc_controller_tpu.ops.fused_iter import agent_angle_precompute
 from nav2_social_mpc_controller_tpu_torch.costs import critic_grads as tcg
 from nav2_social_mpc_controller_tpu_torch.costs import critics as tcritics
 from nav2_social_mpc_controller_tpu_torch.ops import dual4 as d4
-from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import _agent_list, agent_angle_precompute
+from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import agent_angle_precompute
+from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import agent_list as _agent_list
 
 torch.set_num_threads(1)
 

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels against their plain PyTorch versions ON THE
+"""The port's seven CUDA kernels against their plain PyTorch versions ON THE
 CARD, at small shapes chosen for their corner cases (border-clamped and NaN
 coordinates, masked steps and shrunk horizons, scenarios with and without
 valid people, an agent exactly on the robot, a system that is not positive
@@ -18,7 +18,9 @@ kernel); K6 sums in the plain version's order and is held to the JAX
 package's figures for its rollout kernel (rtol 2e-5, atol 1e-5; 2e-4 on
 row/col, which reach 64 cells), its copied controls exact; K3/K4 are written
 with round-to-nearest intrinsics and repeat the plain version operation for
-operation, so they are held to 1e-6 and their discrete outputs to equality.
+operation, so they are held to 1e-6 and their discrete outputs to equality;
+K3's step and K7's solution (the Cholesky solve both share, csrc/chol.cuh)
+are held to equality of bits.
 K5 (the SFM scan) carries float32 rounding through every step of the
 pedestrian dynamics: 1e-4 scale-normalised, its validity column exact.
 """
@@ -40,6 +42,7 @@ from nav2_social_mpc_controller_tpu_torch.ops import bicubic_cuda as K1
 from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
 from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
 from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
+from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
 from nav2_social_mpc_controller_tpu_torch.solver import lm
 from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
 
@@ -271,7 +274,7 @@ def test_propose_and_commit_kernels_match_plain(card, d):
     ref = K34.propose_plain(LM_CFG, *prop_in)
     torch.cuda.synchronize()
     for x, y in zip(got, ref):
-        assert _norm_err(x, y) <= 1e-6
+        assert _norm_err(x, y) == 0.0  # bit-equal: the shared Cholesky of csrc/chol.cuh
     assert torch.isnan(got[1][1]).all(), "a negative pivot must flow on as NaN"
 
     cost = rng.uniform(1.0, 100.0, b)
@@ -302,6 +305,73 @@ def test_propose_and_commit_kernels_match_plain(card, d):
     assert int(out[8][2]) == K34.TERM_NUMERIC_FAILURE and int(out[8][3]) == K34.TERM_GRADIENT_TOL
 
 
+@pytest.mark.parametrize("d", [6, 12])
+def test_spd_solve_kernel_matches_plain(card, d):
+    rng = np.random.default_rng(100 + d)
+    n = 300  # not a multiple of the block size
+    m = rng.standard_normal((n, d, d))
+    a = np.einsum("bij,bkj->bik", m, m) + 0.5 * np.eye(d)
+    a[7] = -a[7]  # not positive definite: NaN, on both sides
+    b = rng.standard_normal((n, d))
+    a_t = torch.tensor(a.astype(np.float32), device=card)
+    b_t = torch.tensor(b.astype(np.float32), device=card)
+    got = K7.spd_solve(a_t, b_t)
+    ref = K7.spd_solve_plain(a_t, b_t)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[7]).all() and torch.isnan(ref[7]).all()
+    assert _norm_err(got, ref) == 0.0  # the same arithmetic, operation for operation
+    ok = np.arange(n) != 7
+    x64 = np.linalg.solve(a[ok], b[ok][..., None])[..., 0]
+    # float32 Cholesky of systems with condition numbers up to ~1e3
+    np.testing.assert_allclose(got.cpu().numpy()[ok], x64, rtol=2e-3, atol=2e-4)
+
+
+def test_spd_solve_refuses_other_sizes_on_the_card(card):
+    a = torch.eye(5, device=card).expand(4, 5, 5).contiguous()
+    with pytest.raises(ValueError, match="D in"):
+        K7.spd_solve(a, torch.ones((4, 5), device=card))
+    with pytest.raises(ValueError, match="float32"):
+        K7.spd_solve(torch.eye(6, device=card, dtype=torch.float64).expand(4, 6, 6).contiguous(),
+                     torch.ones((4, 6), device=card, dtype=torch.float64))
+
+
+def test_debug_and_compacted_steps_equal_the_plain_step_on_the_card(card):
+    """The general iteration (K7) takes the steps K3 takes, and compaction
+    changes no lane: three ticks, every result bit for bit."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_step_batch,
+        make_step_batch_compacted,
+    )
+
+    cfg = C.benchmark_social_config()
+    opt = dataclasses.replace(cfg.optimizer, warm_start_mode="previous_solution")
+    cfg = dataclasses.replace(cfg, optimizer=opt)
+    dbg = dataclasses.replace(cfg, optimizer=dataclasses.replace(opt, debug_optimizer=True))
+    b = 64
+    sc = scenario_from_numpy(make_scenario_batch(cfg, b, base_seed=0, n_valid_people=3), device=card)
+    steps = (make_step_batch(cfg, device=card), make_step_batch(dbg, device=card),
+             make_step_batch_compacted(cfg, 0.125, device=card))
+    carries = [make_carry(cfg, b, device=card) for _ in steps]
+    for _ in range(3):
+        _build.reset_launch_counts()
+        outs = []
+        for k, fn in enumerate(steps):
+            cmd, aux, carries[k] = fn(sc, carries[k])
+            outs.append((cmd, aux))
+        torch.cuda.synchronize()
+        assert _build.launch_counts["spd_solve"] > 0
+        for cmd, aux in outs[1:]:
+            assert torch.equal(cmd.linear_x, outs[0][0].linear_x)
+            assert torch.equal(cmd.angular_z, outs[0][0].angular_z)
+            assert torch.equal(aux.solve.iterations, outs[0][1].solve.iterations)
+            assert torch.equal(aux.solve.termination, outs[0][1].solve.termination)
+            assert torch.equal(aux.solve.final_cost, outs[0][1].solve.final_cost)
+        for other in carries[1:]:
+            assert all(torch.equal(x, y) for x, y in zip(other, carries[0]))
+    trace = outs[1][1].lm_trace
+    assert torch.equal(trace.cost[:, 0], outs[1][1].solve.initial_cost)
+
+
 def test_step_on_the_card_launches_every_kernel(card):
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_step_batch
 
@@ -311,5 +381,19 @@ def test_step_on_the_card_launches_every_kernel(card):
     _build.reset_launch_counts()
     cmd, aux, _ = make_step_batch(cfg, device=card)(sc, make_carry(cfg, 4, device=card))
     torch.cuda.synchronize()
-    assert all(n > 0 for n in _build.launch_counts.values()), _build.launch_counts
+    default_path = {k: n for k, n in _build.launch_counts.items() if k != "spd_solve"}
+    assert all(n > 0 for n in default_path.values()), _build.launch_counts
+    assert _build.launch_counts["spd_solve"] == 0  # K7 belongs to the general iteration
     assert torch.isfinite(cmd.linear_x).all() and bool(aux.solve.usable.all())
+
+    dbg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, debug_optimizer=True))
+    _build.reset_launch_counts()
+    cmd_d, aux_d, _ = make_step_batch(dbg, device=card)(sc, make_carry(cfg, 4, device=card))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts
+    # the loop stops at the first check (every DEFAULT_CHECK_EVERY-th iteration) that finds all done
+    every = lm.DEFAULT_CHECK_EVERY
+    ran = min(5, -(-int(aux_d.solve.iterations.max()) // every) * every)
+    assert counts["spd_solve"] == ran > 0, counts
+    assert counts["propose"] == 0 and counts["commit"] == 0, counts
+    assert torch.equal(cmd_d.linear_x, cmd.linear_x) and torch.equal(cmd_d.angular_z, cmd.angular_z)

@@ -216,5 +216,15 @@ def test_lm_solve_matches_jax_lm_solve():
         np.testing.assert_allclose(st.final_cost.numpy()[:5], np.asarray(st_ref.final_cost)[:5], rtol=1e-9)
     assert not st.usable[5] and st.iterations[5] == 0 and st.iterations[:5].min() > 0
     assert st.iterations.dtype == torch.int32 and st.usable.dtype == torch.bool
-    with pytest.raises(NotImplementedError):
-        tlm.lm_solve(value_grad, _t(u0), _t(lower), _t(upper), TCFG._replace(jacobi_scaling=True))
+    # Jacobi scaling (refused until the general iteration was ported): the
+    # scaled solve agrees with the JAX package's scaled solve.
+    u_js_ref, st_js_ref = jax.vmap(
+        lambda a_, y_, u0_, lo, hi: jlm.lm_solve(
+            lambda u: (a_ @ u - y_) + 0.1 * (a_ @ u - y_) ** 3, u0_, lo, hi,
+            JCFG._replace(jacobi_scaling=True))
+    )(*map(jnp.asarray, (a, y, u0, lower, upper)))
+    u_js, st_js = tlm.lm_solve(
+        value_grad, _t(u0), _t(lower), _t(upper), TCFG._replace(jacobi_scaling=True))
+    np.testing.assert_array_equal(st_js.iterations.numpy(), np.asarray(st_js_ref.iterations))
+    np.testing.assert_array_equal(st_js.termination.numpy(), np.asarray(st_js_ref.termination))
+    np.testing.assert_allclose(u_js.numpy()[:5], np.asarray(u_js_ref)[:5], atol=1e-8)

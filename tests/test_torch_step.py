@@ -102,14 +102,30 @@ def test_result_does_not_depend_on_when_the_loop_stops():
     ids=["debug_optimizer", "previous_solution", "curvature", "pure_angle"],
 )
 def test_unsupported_config_is_refused(change):
+    """These four settings were refused while their code paths were missing;
+    every OptimizerConfig is supported now, so each one builds and solves a
+    tick. What is still refused: a warm_start_mode the config does not know,
+    and debug_optimizer under compaction (the trace belongs to the plain
+    loop)."""
     cfg = benchmark_obstacle_only_config()
-    opt = cfg.optimizer
+    opt = dataclasses.replace(cfg.optimizer, max_iterations=4)
     if "weights" in change:
         opt = dataclasses.replace(opt, weights=dataclasses.replace(opt.weights, **change["weights"]))
     else:
         opt = dataclasses.replace(opt, **change)
-    with pytest.raises(NotImplementedError):
-        make_step_batch(dataclasses.replace(cfg, optimizer=opt), device="cpu")
+    cfg = dataclasses.replace(cfg, optimizer=opt)
+    sc = T.scenario_from_numpy(
+        jax_make_scenario(benchmark_obstacle_only_config(), seed=0, n_valid_people=0), device="cpu")
+    cmd, aux, _ = make_step_batch(cfg, device="cpu")(sc, make_carry(cfg, 1, device="cpu"))
+    assert bool(aux.solve.usable.all()) and int(aux.status[0]) == T.STATUS_OK
+    assert (aux.lm_trace is not None) == bool(opt.debug_optimizer)
+    with pytest.raises(ValueError, match="warm_start_mode"):
+        dataclasses.replace(opt, warm_start_mode="last_week")
+    if opt.debug_optimizer:
+        from nav2_social_mpc_controller_tpu_torch.controller.controller import make_step_batch_compacted
+
+        with pytest.raises(ValueError, match="debug_optimizer"):
+            make_step_batch_compacted(cfg, device="cpu")
 
 
 def test_too_small_obstacle_window_is_refused():
