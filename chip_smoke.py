@@ -14,7 +14,11 @@ the seven hand-written CUDA kernels, and checks them. Phases, each printing
 one JSON line:
 
   device     the card (torch + nvidia-smi name and power limit)
-  build      nvcc build of csrc/*.cu into the package's build/ directory
+  build      nvcc build of csrc/*.cu into the package's build/ directory;
+             ptxas registers, stack and spills of every kernel, and the SASS
+             instruction counts (FP32, MUFU) of K2's pair force in each
+             direction and of the robot's duals, one sincosf and one
+             division, behind K2's and K6's bounds
   shapes     kernel-vs-plain at a people-free D = 12 / S = 39 shape (and K1
              at S = 70); then with every person valid at the social
              (B = 4096, N = 3), six-agent (B = 1024, N = 6) and
@@ -52,6 +56,8 @@ line of a good run is
 """
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +67,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+# Instruction rates behind that figure (132 SMs at 1.98 GHz): the FP32 pipe
+# issues 128 lanes per clock per SM (an FFMA is 2 of the 67e12 flops), the
+# multi-function unit (MUFU: rcp, rsq, ex2, lg2, sin, cos) and the type
+# conversions 16 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0).
+FP32_INSTR_PER_S = F32_FLOPS_PER_S / 2
+SLOW_INSTR_PER_S = F32_FLOPS_PER_S / 16
 
 B_MAIN = 4096
 B_WIDE = 1024  # batch of the D = 12 / S = 39 kernel check
@@ -140,8 +153,203 @@ def bound(bytes_moved, flops):
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
+def bound_by_instructions(bytes_moved, flops, fp32_instr, slow_instr):
+    """The least time of a kernel whose transcendental chains were counted
+    in SASS instructions: bytes over the memory rate against the operations,
+    which take the larger of the FP32 pipe's time (`flops` counted as before
+    plus `fp32_instr` instructions) and the MUFU/conversion pipe's time
+    (`slow_instr`). Returns (ms, "bytes" or "operations", the three times)."""
+    parts = {
+        "bytes_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+        "fp32_ms": (flops / F32_FLOPS_PER_S + fp32_instr / FP32_INSTR_PER_S) * 1e3,
+        "mufu_ms": slow_instr / SLOW_INSTR_PER_S * 1e3,
+    }
+    ops = max(parts["fp32_ms"], parts["mufu_ms"])
+    return max(parts["bytes_ms"], ops), ("bytes" if parts["bytes_ms"] >= ops else "operations"), parts
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# instruction counts of the transcendental chains, from the compiled SASS
+# ---------------------------------------------------------------------------
+
+# Probe kernels compiled with the kernels' own flags, each one piece of the
+# function K2's and K6's bounds count, with nothing of how the kernels list
+# or select their work: the robot's duals at one step (seeded state, velocity
+# from the heading's sin/cos), built as K2 builds them; one pair force in
+# each direction with its own end (the force on the robot from one agent,
+# stored; the force on one agent from the robot, squared), each of which
+# also builds the robot's duals, counted once per step instead; one sincosf
+# (K6's step; the headings K2 needs once per social step and agent) and one
+# IEEE division (K6's row/col). The kernel source is included, so these are
+# the same device functions.
+SASS_PROBE_SOURCE = r"""
+#include "fused_iter.cu"
+
+__device__ __forceinline__ void probe_store(float* p, const Dual4& x) {
+    p[0] = x.p;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[1 + k] = x.t[k];
+}
+
+__device__ __forceinline__ void probe_state(const float* in, Dual4& x, Dual4& y, Dual4& vx,
+                                            Dual4& vy) {
+    const float* r = in + 6 * threadIdx.x;  // x, y, yaw, v, sin yaw, cos yaw
+    const Dual4 yaw = d4_seed(r[2], 2);
+    const Dual4 v = d4_seed(r[3], 3);
+    x = d4_seed(r[0], 0);
+    y = d4_seed(r[1], 1);
+    vx = d4_mul(v, d4_cos(yaw, r[4], r[5]));
+    vy = d4_mul(v, d4_sin(yaw, r[4], r[5]));
+}
+
+__device__ __forceinline__ void probe_agent(const float* in, Dual4& x, Dual4& y, Dual4& vx,
+                                            Dual4& vy) {
+    const float* q = in + 6 * blockDim.x + 4 * threadIdx.x;  // x, y, vx, vy
+    x = d4_const(q[0]);
+    y = d4_const(q[1]);
+    vx = d4_const(q[2]);
+    vy = d4_const(q[3]);
+}
+
+__global__ void probe_robot_state(const float* in, float* out) {
+    Dual4 x, y, vx, vy;
+    probe_state(in, x, y, vx, vy);
+    float* o = out + 20 * threadIdx.x;
+    probe_store(o, x);
+    probe_store(o + 5, y);
+    probe_store(o + 10, vx);
+    probe_store(o + 15, vy);
+}
+
+__global__ void probe_force_on_robot(const float* in, float* out) {
+    Dual4 x, y, vx, vy, ax, ay, avx, avy, fx, fy;
+    probe_state(in, x, y, vx, vy);
+    probe_agent(in, ax, ay, avx, avy);
+    social_pair_force(x, y, vx, vy, ax, ay, avx, avy, fx, fy);
+    probe_store(out + 10 * threadIdx.x, fx);
+    probe_store(out + 10 * threadIdx.x + 5, fy);
+}
+
+__global__ void probe_force_on_agent(const float* in, float* out) {
+    Dual4 x, y, vx, vy, ax, ay, avx, avy, fx, fy;
+    probe_state(in, x, y, vx, vy);
+    probe_agent(in, ax, ay, avx, avy);
+    social_pair_force(ax, ay, avx, avy, x, y, vx, vy, fx, fy);
+    probe_store(out + 5 * threadIdx.x, d4_add(d4_mul(fx, fx), d4_mul(fy, fy)));
+}
+
+__global__ void probe_sincosf(const float* in, float* out) {
+    float s, c;
+    sincosf(in[threadIdx.x], &s, &c);
+    out[2 * threadIdx.x] = s;
+    out[2 * threadIdx.x + 1] = c;
+}
+
+__global__ void probe_fdiv(const float* in, float* out) {
+    out[threadIdx.x] = in[2 * threadIdx.x] / in[2 * threadIdx.x + 1];
+}
+"""
+SASS_PROBES = ("probe_robot_state", "probe_force_on_robot", "probe_force_on_agent",
+               "probe_sincosf", "probe_fdiv")
+# Opcodes issued to the FP32 pipe, and to the MUFU / conversion pipe.
+FP32_OPCODES = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FSWZADD"}
+SLOW_OPCODES = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
+SASS_COUNTS = {}  # probe -> {"fp32", "mufu", "all"}; filled by phase_build
+
+
+def cuda_tool(name):
+    """A CUDA toolkit program that sits beside nvcc."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+
+    path = os.path.join(os.path.dirname(_build.find_nvcc()), name)
+    if not os.path.exists(path):
+        fail(f"{name} not found beside nvcc")
+    return path
+
+
+def start_sass_probes():
+    """Start compiling the probe kernels to a cubin (runs beside the build)."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.BUILD_DIR, "sass_probe.cu")
+    with open(src, "w") as f:
+        f.write(SASS_PROBE_SOURCE)
+    cubin = os.path.join(_build.BUILD_DIR, "sass_probe.cubin")
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-cubin", "-o", cubin, src]
+    return cubin, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@(!?)(U?P\w+)\s+)?([A-Z][A-Z0-9_]*)\S*\s*([^;]*)")
+# Below this magnitude sinf/cosf reduce their argument inline; at or above it
+# they branch to a long reduction (integer and local-memory work) that no
+# angle of these kernels reaches: they lie within a few turns of 0.
+HUGE_ANGLE = "105615"
+
+
+def sass_opcodes(listing):
+    """{function name: its opcodes up to the first unconditional EXIT} of a
+    cuobjdump -sass listing: a static count of the path these kernels run.
+    Out-of-line slow paths (the subroutines after EXIT, e.g. of a division)
+    and the inline reduction of a huge sin/cos argument (the instructions a
+    `@!P BRA` jumps over, P being set by a compare of |x| with 105615) are
+    left out; any other branch is counted whether taken or not."""
+    funcs, name, done = {}, None, True
+    huge, skip_to = set(), None
+    for ln in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name, done, huge, skip_to = m.group(1), False, set(), None
+            funcs[name] = []
+            continue
+        m = SASS_LINE.match(ln)
+        if not m or name is None or done:
+            continue
+        addr, negated, guard, op, args = (int(m.group(1), 16), m.group(2), m.group(3),
+                                          m.group(4), m.group(5))
+        if skip_to is not None:
+            if addr < skip_to:
+                continue
+            skip_to = None
+        funcs[name].append(op[:-3] if op.endswith("32I") else op)
+        done = op == "EXIT" and not guard
+        operands = [t.strip() for t in args.split(",")]
+        if op == "BRA" and negated and guard in huge:
+            skip_to = int(operands[-1], 16)
+            continue
+        # predicates this instruction writes: the leading ones, or a carry-out
+        # after a register destination
+        written = []
+        for t in operands:
+            if not re.fullmatch(r"U?P(\d|T)", t):
+                break
+            written.append(t)
+        if len(operands) > 1 and not written and re.fullmatch(r"U?P\d", operands[1]):
+            written.append(operands[1])
+        huge.difference_update(written)
+        if op == "FSETP" and HUGE_ANGLE in args and written:
+            huge.add(written[0])
+    return funcs
+
+
+def finish_sass_probes(cubin, proc):
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the SASS probes:\n{out}")
+    listing = subprocess.run([cuda_tool("cuobjdump"), "-sass", cubin], capture_output=True,
+                             text=True, check=True).stdout
+    funcs = sass_opcodes(listing)
+    for probe in SASS_PROBES:
+        ops = next((v for k, v in funcs.items() if probe in k), None)
+        if not ops:
+            fail(f"SASS probe {probe} not found in the cuobjdump listing")
+        SASS_COUNTS[probe] = {"fp32": sum(op in FP32_OPCODES for op in ops),
+                              "mufu": sum(op in SLOW_OPCODES for op in ops), "all": len(ops)}
+    return dict(SASS_COUNTS)
 
 
 # ---------------------------------------------------------------------------
@@ -252,8 +460,9 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # difference by the time step; its t column (validity) must be exact. K2 with
 # its people stages on runs exp/atan2/sin/cos chains of ~60 dual operations
 # per pair force, CUDA's functions against torch's: 3e-5, the JAX package's
-# tolerance for its fused kernel; people-free it stays at 1e-5. K6 sums in
-# the plain version's (serial) order and is held element by element to the
+# tolerance for its fused kernel; people-free it stays at 1e-5. K6 sums by
+# warp scans (a tree order; the plain version's torch.cumsum is serial on
+# the CPU and a scan on the card) and is held element by element to the
 # JAX package's tolerances for its rollout kernel: |got - ref| <= atol +
 # 2e-5 |ref| with atol 1e-5, and 2e-4 on row/col (values up to 64 cells);
 # its error is reported as a share of that allowance (tolerance 1.0), and its
@@ -325,10 +534,15 @@ def check_rollout(args, reps):
     b, s = block_idx.shape
     nb = args[7]
     # Bytes: the inputs once, the 6 + 4*NB output planes once. Operations per
-    # step: two sincosf counted as ~40, ~20 for the pose and the sample
-    # coordinates, 8 per block for the sensitivities.
-    bnd, by = bound(nbytes(u, pose0, block_idx, origin, res) + (6 + 4 * nb) * b * s * 4,
-                    b * s * (60.0 + 8.0 * nb))
+    # step: one sincosf and the two divisions of row/col by their SASS
+    # instruction counts, ~20 for the pose and the sample coordinates, 8 per
+    # block for the sensitivities.
+    steps = b * s
+    sc, dv = SASS_COUNTS["probe_sincosf"], SASS_COUNTS["probe_fdiv"]
+    bnd, by, parts = bound_by_instructions(
+        nbytes(u, pose0, block_idx, origin, res) + (6 + 4 * nb) * steps * 4,
+        steps * (20.0 + 8.0 * nb), steps * (sc["fp32"] + 2 * dv["fp32"]),
+        steps * (sc["mufu"] + 2 * dv["mufu"]))
     maps = len({tuple(r) for r in block_idx[:256].tolist()})
     chain_ms = time_cuda(lambda: K6.rollout_prep_plain(*args), max(reps // 10, 3))
     return {
@@ -337,7 +551,7 @@ def check_rollout(args, reps):
         "tol_rule": f"|got-ref| <= atol + {K6_RTOL}|ref|, atol {K6_ATOL} ({K6_ATOL_ROWCOL} row/col)",
         "ms": time_cuda(lambda: K6.rollout_prep(*args), reps),
         "host_ms": time_host(lambda: K6.rollout_prep(*args), reps),
-        "plain_ms": chain_ms, "bound_ms": bnd, "bound_by": by,
+        "plain_ms": chain_ms, "bound_ms": bnd, "bound_by": by, "bound_parts": parts,
         # No single PyTorch call computes this function; the nearest library
         # form is the torch.cumsum chain the port ran before this kernel,
         # which is the plain version itself.
@@ -390,26 +604,41 @@ def check_fused(args, reps):
     tensors = [t for t in args[1:] if isinstance(t, torch.Tensor) and t is not agents]
     # The work depends on the data: masked-off steps are skipped, and the
     # agents are read (5 of their 6 fields) only for steps whose social mask
-    # is on. A contraction costs 8D + D(D+1) + 3 operations; a step of the
-    # people stages 2N pair forces of ~450 operations each (60 dual
-    # operations of ~7, atan2f/expf/sinf/cosf counted as one each) plus the
-    # proxemics scan, and three more contractions.
+    # is on. A contraction costs 8D + D(D+1) + 3 operations. A social step
+    # needs the robot's duals once, the sin/cos of 1 + N headings, the force
+    # on each of the N agents' slots and the force on the robot from each
+    # valid agent (an invalid agent's is selected away), counted by the FP32
+    # and MUFU instructions of their SASS probes (a force probe less the
+    # robot's duals it also builds), plus the pair sums, the proxemics scan
+    # and three more contractions.
     live = float(m_step.sum())
     social = float(m_social.sum())
+    on_robot_pairs = float(((agents[..., 3] != -1.0) & m_social[..., None]).sum())
+    on_agent_pairs = social * n
     contraction = 8 * d + d * (d + 1) + 3
-    flops = (live * (5 * contraction + 120) + social * (2 * n * 450 + 10 * n + 3 * contraction)
+    flops = (live * (5 * contraction + 120) + social * (10 * n + 3 * contraction)
              + b * statics.n_vf * 40)
-    bnd, by = bound(nbytes(*tensors) + nbytes(*got) + social * n * 5 * 4, flops)
+    sc = SASS_COUNTS
+    state = sc["probe_robot_state"]
+
+    def people(kind):
+        return (on_robot_pairs * (sc["probe_force_on_robot"][kind] - state[kind])
+                + on_agent_pairs * (sc["probe_force_on_agent"][kind] - state[kind])
+                + social * (state[kind] + (1 + n) * sc["probe_sincosf"][kind]))
+
+    bnd, by, parts = bound_by_instructions(
+        nbytes(*tensors) + nbytes(*got) + social * n * 5 * 4, flops, people("fp32"), people("mufu"))
     people = social > 0
     return {
         "shape": f"B={b} S={s} D={d} N={n}", "social_steps": int(social),
+        "pair_forces": int(on_robot_pairs + on_agent_pairs),
         "max_err": max(e[0] for e in errs), "max_abs_err": max(e[1] for e in errs),
         "tol": TOL["fused_iter_people" if people else "fused_iter"],
         "scenarios_beyond_1e-5": max(lanes_beyond(a, b_, 1e-5) for a, b_ in zip(got, ref)),
         "ms": time_cuda(lambda: K2.fused_cost_g_jtj(*args), reps),
         "host_ms": time_host(lambda: K2.fused_cost_g_jtj(*args), reps),
         "plain_ms": time_cuda(lambda: K2.fused_cost_g_jtj_plain(*args), max(reps // 10, 3)),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "bound_ms": bnd, "bound_by": by, "bound_parts": parts, "library_ms": None,
     }
 
 
@@ -507,7 +736,7 @@ KERNEL_INFO = {
     },
     "rollout_prep": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_prep.cu",
-        "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158",
+        "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158", "redesigned": "PR 4",
     },
     "bicubic": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/bicubic.cu",
@@ -515,7 +744,7 @@ KERNEL_INFO = {
     },
     "fused_iter": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/fused_iter.cu",
-        "replaces": "nav2_social_mpc_controller_tpu/ops/fused_iter.py:462",
+        "replaces": "nav2_social_mpc_controller_tpu/ops/fused_iter.py:462", "redesigned": "PR 4",
     },
     "propose": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tr_iter.cu",
@@ -580,17 +809,43 @@ def phase_device():
     return dev, smi
 
 
+def ptxas_usage(log):
+    """{kernel: {registers, stack_bytes, spill_stores, spill_loads}} from
+    ptxas -v output (template kernels named like fused_kernel<3>)."""
+    usage, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            raw = m.group(1)
+            short = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", raw)
+            name = raw if not short else (
+                f"{short.group(1)}<{short.group(2)}>" if short.group(2) else short.group(1))
+            usage.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            usage[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
 def phase_build():
     from nav2_social_mpc_controller_tpu_torch import _build
 
     t0 = time.perf_counter()
+    probes = start_sass_probes()
     _build.build(verbose=True)
     _build.load()
     seconds = time.perf_counter() - t0
+    sass = finish_sass_probes(*probes)
     regs = [ln.strip() for ln in _build.last_build_log.splitlines()
             if "registers" in ln or "spill" in ln.lower() or "entry function" in ln]
     print("\n".join(regs), file=sys.stderr)
-    emit({"phase": "build", "seconds": seconds, "sources": len(_build.sources())})
+    emit({"phase": "build", "seconds": seconds, "sources": len(_build.sources()),
+          "ptxas": ptxas_usage(_build.last_build_log), "sass_probe_instructions": sass})
 
 
 def phase_shapes(dev):

@@ -17,19 +17,28 @@
 // forward pass (struct Dual4) that repeats ops/dual4.py and
 // costs/critic_grads.py operation for operation, with dense tangents where
 // Python skips symbolic zeros: 0 * x and x + 0 are exact for finite x, so
-// the two differ only for non-finite primals. It is a __noinline__ function
-// called before the step's sensitivities are loaded, so its long chain does
-// not share registers with them.
+// the two differ only for non-finite primals.
 //
-// Design: one warp per scenario, lanes over rollout steps (a lane loops when
-// S > 32). Each lane builds its step's J columns in registers and keeps
-// 1 + D + D(D+1)/2 partial sums; a butterfly of warp shuffles reduces them
-// and lane 0 writes the outputs, JtJ in both triangles. Batch-major layout
-// with the step axis innermost, so a warp's loads are contiguous. People-free
-// the kernel is bound by bytes: it reads (14 + 6*NB) floats per step and does
-// a few hundred multiply-adds on them. With people a step adds 5*N floats and
-// 2*N pair forces of ~450 operations; at N = 6 the bound is operations, and
-// the kernel's time is the latency of those chains on one warp per scenario.
+// What bounds it. People-free, a step reads (14 + 6*NB) floats and does a
+// few hundred multiply-adds on them: bytes. With people, a social step adds
+// 2*N pair forces, each a dependent chain of about 450 FP32 and 20 MUFU
+// instructions (three atan2f, two expf, two sqrtf and a dozen IEEE
+// divisions): the people stages are bound by instruction issue and by how
+// much of the chains' latency the SM can hide.
+//
+// Design: one warp per scenario, four per block; lanes run over rollout steps
+// (a lane loops when S > 32), each building its J columns in registers and
+// keeping 1 + D + D(D+1)/2 partial sums; a butterfly of warp shuffles reduces
+// them and lane 0 writes the outputs, JtJ in both triangles. A social step's
+// lane runs the people stages first, inline, before its sensitivities are
+// loaded: the robot's duals once, then per agent k = 0..N-1 the force on the
+// robot from the agent and the force on the agent's slot from the robot.
+// The two are independent chains with no branch between them, so the
+// scheduler interleaves them; the force on the robot from an invalid agent is
+// computed and selected away (d4_where), as in the reference, because a
+// branch around it would serialise the two chains. Batch-major layout with
+// the step axis innermost, so a warp's loads are contiguous; a scenario's
+// outputs do not depend on its block or slot.
 //
 // The angle wrap is atan2f(sinf(a), cosf(a)), the reference's wrapAngle.
 // nvcc contracts a*b+c into FMA and the warp reduction sums in another
@@ -210,19 +219,18 @@ __device__ __forceinline__ Dual4 d4_sqrt(const Dual4& a) {
     return r;
 }
 
-__device__ __forceinline__ Dual4 d4_cos(const Dual4& a) {
-    const float s = sinf(a.p);
+// cos and sin of a dual, given s = sinf(a.p) and c = cosf(a.p).
+__device__ __forceinline__ Dual4 d4_cos(const Dual4& a, float s, float c) {
     Dual4 r;
-    r.p = cosf(a.p);
+    r.p = c;
 #pragma unroll
     for (int k = 0; k < 4; ++k) r.t[k] = -s * a.t[k];
     return r;
 }
 
-__device__ __forceinline__ Dual4 d4_sin(const Dual4& a) {
-    const float c = cosf(a.p);
+__device__ __forceinline__ Dual4 d4_sin(const Dual4& a, float s, float c) {
     Dual4 r;
-    r.p = sinf(a.p);
+    r.p = s;
 #pragma unroll
     for (int k = 0; k < 4; ++k) r.t[k] = c * a.t[k];
     return r;
@@ -239,8 +247,13 @@ __device__ __forceinline__ Dual4 d4_atan2(const Dual4& y, const Dual4& x) {
 }
 
 // A select, never arithmetic: a NaN tangent on the side not taken is dropped.
+// Component by component, so no operand has to be addressable.
 __device__ __forceinline__ Dual4 d4_where(bool c, const Dual4& a, const Dual4& b) {
-    return c ? a : b;
+    Dual4 r;
+    r.p = c ? a.p : b.p;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.t[k] = c ? a.t[k] : b.t[k];
+    return r;
 }
 
 // SocialWorkCost constants (costs/critics.py)
@@ -303,24 +316,25 @@ struct StageOut { float r, gx, gy, gth, gv; };
 // of ||SF(agent_j <- robot)||^2 + 1e-6) and its partials wrt (x, y, yaw, v):
 // critic_grads.social_work_grad. `ag` points at this step's first agent;
 // agent k is at ag + k * stride with fields [x, y, yaw, t, lv, .].
-__device__ __noinline__ StageOut social_stage(float weight, float px, float py, float pth,
-                                              float v, const float* ag, int stride, int n) {
+__device__ __forceinline__ StageOut social_stage(float weight, float px, float py, float pth,
+                                                 float v, const float* ag, int stride, int n) {
+    const float s = sinf(pth), c = cosf(pth);
     const Dual4 dpx = d4_seed(px, 0);
     const Dual4 dpy = d4_seed(py, 1);
     const Dual4 dyaw = d4_seed(pth, 2);
     const Dual4 dv = d4_seed(v, 3);
-    const Dual4 rvx = d4_mul(dv, d4_cos(dyaw));
-    const Dual4 rvy = d4_mul(dv, d4_sin(dyaw));
+    const Dual4 rvx = d4_mul(dv, d4_cos(dyaw, s, c));
+    const Dual4 rvy = d4_mul(dv, d4_sin(dyaw, s, c));
 
     Dual4 sfx = d4_const(0.0f), sfy = d4_const(0.0f), wp = d4_const(0.0f);
     for (int k = 0; k < n; ++k) {
         const float* q = ag + (size_t)k * stride;
         const float ayaw = q[2], alv = q[4];
-        const bool valid = q[3] != -1.0f;
         const Dual4 ax = d4_const(q[0]), ay = d4_const(q[1]);
         const Dual4 avx = d4_const(alv * cosf(ayaw)), avy = d4_const(alv * sinf(ayaw));
-        Dual4 fx, fy;
         // force on the robot from this agent, counted when the agent is valid
+        const bool valid = q[3] != -1.0f;
+        Dual4 fx, fy;
         social_pair_force(dpx, dpy, rvx, rvy, ax, ay, avx, avy, fx, fy);
         sfx = d4_add(sfx, d4_where(valid, fx, d4_const(0.0f)));
         sfy = d4_add(sfy, d4_where(valid, fy, d4_const(0.0f)));

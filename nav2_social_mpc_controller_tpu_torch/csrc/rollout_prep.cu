@@ -10,38 +10,61 @@
 // [px, py, pth, v, row, col] and one (B, 4*NB, S) stack
 // [dxdv | dydv | dxdw | dydw].
 //
-// The TPU kernel forms its prefix sums as products with 0/1 triangular
-// matrices; that is its route to a scan and is not carried over. Design: one
-// thread per scenario walks the S steps in order and carries the 3 + 4*NB
-// running sums in registers (NB is a template parameter so they stay there).
-// A sum is multiplied by dt where it is written, as the plain version
-// multiplies its cumsum, and the serial order is the order of a CPU cumsum,
-// so kernel and plain version differ by FMA contraction and by CUDA's
-// sinf/cosf only. cos/sin of the new heading serve the front point of this
-// step and the position integrand of the next, so each is computed once.
-// The step's control is a copy u[block_idx[s]], never a product-sum: u sits
-// in registers and is picked by comparisons, and the next step's block index
-// is loaded a step ahead, so no step waits on two dependent global loads.
-// dtheta_prev/dw_b = dt * (steps so far in block b) is an exact integer
-// count times dt.
+// What bounds it: bytes. It writes (6 + 4*NB) floats per step and reads
+// almost nothing; per step it does one sincosf and a few dozen FP32
+// operations. A thread per scenario walking its steps in order would store
+// each output row at a stride of S floats across the warp (every store
+// touching 32 sectors) and run S sincosf back to back.
 //
-// Bound: bytes — it writes (6 + 4*NB) floats per step and reads almost
-// nothing; at one thread per scenario it is latency-bound well above that
-// (S serial steps of sincosf), which is where K1-K4 sit too.
+// Design: one warp per scenario, lane s on step s (steps past 32 run as
+// further chunks of 32 that start from the sums carried out of the last lane
+// of the chunk before), several scenarios per block. Every running sum is an
+// inclusive warp scan (__shfl_up_sync, 5 rounds): of w for the heading, of
+// v cos / v sin of the previous heading for the position, and of the 4*NB
+// sensitivity integrands. The previous heading's cos/sin are the
+// neighbouring lane's (the start heading's on step 0), so a step costs one
+// sincosf, run in parallel across the lanes. dtheta_prev/dw_b = dt * (steps
+// of block b before s) is an exact integer count from __ballot_sync and
+// __popc. The step's control is a copy of u[block_idx[s]], picked by
+// comparisons, never a product-sum. Lane s writes element s of every output
+// row, so a warp's store of a row covers S contiguous floats.
+//
+// The scans add in a tree order, the plain version's torch.cumsum serially:
+// the two differ by that rounding, by FMA contraction and by CUDA's sincosf.
+// Each scenario is summed by its own warp in a fixed order, so its outputs
+// do not depend on where in the batch it sits.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WARPS = 4;  // scenarios (warps) per block
+
+// Inclusive prefix sum over the warp's lanes.
+__device__ __forceinline__ float warp_scan(float x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_up_sync(FULL_MASK, x, off);
+        if (lane >= off) x += y;
+    }
+    return x;
+}
+
+__device__ __forceinline__ float last_lane(float x) {
+    return __shfl_sync(FULL_MASK, x, 31);
+}
+
 template <int NB>
-__global__ void rollout_prep_kernel(
+__global__ void __launch_bounds__(WARPS * 32) rollout_prep_kernel(
     const float* __restrict__ u, const float* __restrict__ pose0,
     const int* __restrict__ block_idx, const float* __restrict__ win_origin,
     const float* __restrict__ resolution, float* __restrict__ planes,
     float* __restrict__ sens, int B, int S, float dt, float front) {
     constexpr int D = 2 * NB;
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (b >= B) return;  // uniform across the warp
 
     const float x0 = pose0[3 * b + 0], y0 = pose0[3 * b + 1], th0 = pose0[3 * b + 2];
     const float ox = win_origin[2 * b + 0], oy = win_origin[2 * b + 1];
@@ -53,24 +76,27 @@ __global__ void rollout_prep_kernel(
         uv[k] = u[(size_t)b * D + 2 * k];
         uw[k] = u[(size_t)b * D + 2 * k + 1];
     }
-
     const size_t plane = (size_t)B * S;
     float* out = planes + (size_t)b * S;
     float* sb = sens + (size_t)b * 4 * NB * S;
+    const unsigned below = (1u << lane) - 1u;
 
+    // Sums carried out of the chunks before this one.
     float sum_w = 0.0f, sum_x = 0.0f, sum_y = 0.0f;
-    float s_dxdv[NB], s_dydv[NB], s_dxdw[NB], s_dydw[NB], count[NB];
+    float s_dxdv[NB], s_dydv[NB], s_dxdw[NB], s_dydw[NB];
+    int count[NB];
 #pragma unroll
     for (int k = 0; k < NB; ++k) {
         s_dxdv[k] = s_dydv[k] = s_dxdw[k] = s_dydw[k] = 0.0f;
-        count[k] = 0.0f;
+        count[k] = 0;
     }
-    float cosp = cosf(th0), sinp = sinf(th0);  // heading before the step
+    float cos_last, sin_last;  // heading before the chunk's first step
+    sincosf(th0, &sin_last, &cos_last);
 
-    int blk_next = bi[0];
-    for (int s = 0; s < S; ++s) {
-        const int blk = blk_next;
-        if (s + 1 < S) blk_next = bi[s + 1];
+    for (int s0 = 0; s0 < S; s0 += 32) {
+        const int s = s0 + lane;
+        const bool on = s < S;
+        const int blk = on ? bi[s] : -1;
         float v = 0.0f, w = 0.0f;
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
@@ -79,39 +105,58 @@ __global__ void rollout_prep_kernel(
                 w = uw[k];
             }
         }
+        const float cum_w = sum_w + warp_scan(w, lane);
+        const float th = th0 + dt * cum_w;
+        float sin_th, cos_th;
+        sincosf(th, &sin_th, &cos_th);
+        float cosp = __shfl_up_sync(FULL_MASK, cos_th, 1);
+        float sinp = __shfl_up_sync(FULL_MASK, sin_th, 1);
+        if (lane == 0) {
+            cosp = cos_last;
+            sinp = sin_last;
+        }
         const float vc = v * cosp;
         const float vs = v * sinp;
-        sum_x += vc;
-        sum_y += vs;
+        const float cum_x = sum_x + warp_scan(vc, lane);
+        const float cum_y = sum_y + warp_scan(vs, lane);
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
-            const float dth_prev = dt * count[k];
-            if (k == blk) {
-                s_dxdv[k] += cosp;
-                s_dydv[k] += sinp;
-                count[k] += 1.0f;
+            const bool mine = blk == k;
+            const unsigned in_k = __ballot_sync(FULL_MASK, mine);
+            const float dth_prev = dt * (float)(count[k] + __popc(in_k & below));
+            const float c_dxdv = s_dxdv[k] + warp_scan(mine ? cosp : 0.0f, lane);
+            const float c_dydv = s_dydv[k] + warp_scan(mine ? sinp : 0.0f, lane);
+            const float c_dxdw = s_dxdw[k] + warp_scan((-vs) * dth_prev, lane);
+            const float c_dydw = s_dydw[k] + warp_scan(vc * dth_prev, lane);
+            if (on) {
+                sb[(size_t)(0 * NB + k) * S + s] = dt * c_dxdv;
+                sb[(size_t)(1 * NB + k) * S + s] = dt * c_dydv;
+                sb[(size_t)(2 * NB + k) * S + s] = dt * c_dxdw;
+                sb[(size_t)(3 * NB + k) * S + s] = dt * c_dydw;
             }
-            s_dxdw[k] += (-vs) * dth_prev;
-            s_dydw[k] += vc * dth_prev;
-            sb[(size_t)(0 * NB + k) * S + s] = dt * s_dxdv[k];
-            sb[(size_t)(1 * NB + k) * S + s] = dt * s_dydv[k];
-            sb[(size_t)(2 * NB + k) * S + s] = dt * s_dxdw[k];
-            sb[(size_t)(3 * NB + k) * S + s] = dt * s_dydw[k];
+            s_dxdv[k] = last_lane(c_dxdv);
+            s_dydv[k] = last_lane(c_dydv);
+            s_dxdw[k] = last_lane(c_dxdw);
+            s_dydw[k] = last_lane(c_dydw);
+            count[k] += __popc(in_k);
         }
-        sum_w += w;
-        const float th = th0 + dt * sum_w;
-        const float px = x0 + dt * sum_x;
-        const float py = y0 + dt * sum_y;
-        cosp = cosf(th);
-        sinp = sinf(th);
-        const float fx = px + front * cosp;
-        const float fy = py + front * sinp;
-        out[0 * plane + s] = px;
-        out[1 * plane + s] = py;
-        out[2 * plane + s] = th;
-        out[3 * plane + s] = v;
-        out[4 * plane + s] = (fy - oy) / res;  // row
-        out[5 * plane + s] = (fx - ox) / res;  // col
+        const float px = x0 + dt * cum_x;
+        const float py = y0 + dt * cum_y;
+        if (on) {
+            const float fx = px + front * cos_th;
+            const float fy = py + front * sin_th;
+            out[0 * plane + s] = px;
+            out[1 * plane + s] = py;
+            out[2 * plane + s] = th;
+            out[3 * plane + s] = v;
+            out[4 * plane + s] = (fy - oy) / res;  // row
+            out[5 * plane + s] = (fx - ox) / res;  // col
+        }
+        sum_w = last_lane(cum_w);
+        sum_x = last_lane(cum_x);
+        sum_y = last_lane(cum_y);
+        cos_last = last_lane(cos_th);
+        sin_last = last_lane(sin_th);
     }
 }
 
@@ -123,15 +168,14 @@ extern "C" int social_mpc_rollout_prep_f32(
     float* sens, int B, int S, int NB, float dt, float front,
     cudaStream_t stream) {
     if (B <= 0 || S <= 0) return (int)cudaGetLastError();
-    const int threads = 32;  // few scenarios per block: spread them over the SMs
-    const int blocks = (B + threads - 1) / threads;
+    const int blocks = (B + WARPS - 1) / WARPS;
     switch (NB) {
         case 3:
-            rollout_prep_kernel<3><<<blocks, threads, 0, stream>>>(
+            rollout_prep_kernel<3><<<blocks, WARPS * 32, 0, stream>>>(
                 u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, dt, front);
             break;
         case 6:
-            rollout_prep_kernel<6><<<blocks, threads, 0, stream>>>(
+            rollout_prep_kernel<6><<<blocks, WARPS * 32, 0, stream>>>(
                 u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, dt, front);
             break;
         default: return (int)cudaErrorInvalidValue;

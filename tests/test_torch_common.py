@@ -139,6 +139,12 @@ def fused_problems(name, dtype, near_goal=True, people=()):
     jcfg = getattr(jcfg_mod, name)()
     jdims = jopt.ProblemDims.from_config(jcfg)
     keys = ("u", "rows", "n_rows", "proj", "present", "cmd", "cmo", "cmr")
+    # Each JAX stage compiled once for the five seeds (same shapes).
+    trajectorize = jax.jit(functools.partial(jax_trajectorize, jcfg.trajectorizer))
+    format_rows = jax.jit(functools.partial(jopt.format_to_optimize, jcfg, jdims))
+    project = jax.jit(functools.partial(
+        jax_project_people, maxtime=jcfg.trajectorizer.max_time, dt=jcfg.trajectorizer.time_step,
+        esdf_window=jcfg.esdf_window_cells))
     batch = {k: [] for k in keys}
     for seed in range(5):
         n_people = people[seed] if people else 0
@@ -147,22 +153,20 @@ def fused_problems(name, dtype, near_goal=True, people=()):
         if near_goal and seed >= 2:
             i = int(sc.path.n) - seed  # 2..4 poses before the goal
             pose = np.array([sc.path.points[i, 0], sc.path.points[i, 1], sc.path.yaw[i]], dtype)
-        res = jax_trajectorize(jcfg.trajectorizer, sc.path, jnp.asarray(pose))
+        res = trajectorize(sc.path, jnp.asarray(pose))
         carry = JaxCarry(
             prev_path=jnp.zeros((jdims.maxsize, 3), dtype),
             prev_cmds=jnp.zeros((jdims.maxsize, 2), dtype),
             prev_n=jnp.zeros((), jnp.int32),
         )
-        rows, n_rows = jopt.format_to_optimize(
-            jcfg, jdims, res.poses, res.cmds, res.n_steps, jnp.asarray(sc.robot.speed), carry
+        rows, n_rows = format_rows(
+            res.poses, res.cmds, res.n_steps, jnp.asarray(sc.robot.speed), carry
         )
-        proj = np.asarray(jax_project_people(
+        proj = np.asarray(project(
             jnp.asarray(sc.people.state, dtype), rows, n_rows,
             jnp.asarray(sc.esdf.distances, dtype), jnp.asarray(sc.esdf.indexes),
             jnp.asarray(sc.esdf.origin, dtype), jnp.asarray(sc.esdf.resolution, dtype),
             jnp.asarray(sc.esdf.valid),
-            maxtime=jcfg.trajectorizer.max_time, dt=jcfg.trajectorizer.time_step,
-            esdf_window=jcfg.esdf_window_cells,
         ))
         batch["u"].append(np.clip(np.asarray(rows[: jdims.n_blocks, 4:6]).reshape(-1), -0.6, 0.6))
         batch["rows"].append(np.asarray(rows))
@@ -208,11 +212,15 @@ def check_value_grad_with_people(batch, dtype):
     rng = np.random.default_rng(1)
     u = (bt["u"] + rng.uniform(-0.05, 0.05, bt["u"].shape)).astype(dtype)
     args = (u, bt["rows"], bt["n_rows"], bt["proj"], bt["present"], bt["cmd"], bt["cmo"], bt["cmr"])
+    # The JAX side runs under one jit: the same functions, compiled once
+    # instead of dispatched operation by operation.
     if dtype == np.float64:
-        ref = jax.vmap(functools.partial(jfused._ref_value_grad, jcfg, jdims))(*map(jnp.asarray, args))
+        ref = jax.jit(jax.vmap(functools.partial(jfused._ref_value_grad, jcfg, jdims)))(
+            *map(jnp.asarray, args))
         tol, rtol = 1e-9, 1e-9
     else:
-        ref = jfused._fused_batched(jcfg, jdims, *map(jnp.asarray, args), interpret=True)
+        ref = jax.jit(functools.partial(jfused._fused_batched, jcfg, jdims, interpret=True))(
+            *map(jnp.asarray, args))
         tol, rtol = 3e-5, 2e-5
     c_ref, g_ref, jtj_ref = (np.asarray(x) for x in ref)
     cost, g, jtj = (x.numpy() for x in fused_value_grad(tcfg, tdims, bt)(_t(u)))

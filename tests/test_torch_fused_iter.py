@@ -89,7 +89,7 @@ def test_value_grad_matches_reference(name, dtype):
     args = (u, bt["rows"], bt["n_rows"], bt["proj"], bt["present"], bt["cmd"], bt["cmo"], bt["cmr"])
     c_ref, g_ref, jtj_ref = (
         np.asarray(x)
-        for x in jax.vmap(functools.partial(jfused._ref_value_grad, jcfg, jdims))(
+        for x in jax.jit(jax.vmap(functools.partial(jfused._ref_value_grad, jcfg, jdims)))(
             *map(jnp.asarray, args)
         )
     )

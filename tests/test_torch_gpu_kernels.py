@@ -14,7 +14,7 @@ Tolerances: nvcc contracts a*b+c into FMA in K1/K2 and K2 reduces across a
 warp in another order than the plain version, so those agree to float32
 rounding of their sums (1e-5 / 1e-4, scale-normalised; with the people
 stages' exp/atan2 chains 3e-5, the JAX package's figure for its fused
-kernel); K6 sums in the plain version's order and is held to the JAX
+kernel); K6 sums by warp scans, in another order, and is held to the JAX
 package's figures for its rollout kernel (rtol 2e-5, atol 1e-5; 2e-4 on
 row/col, which reach 64 cells), its copied controls exact; K3/K4 are written
 with round-to-nearest intrinsics and repeat the plain version operation for
@@ -175,19 +175,35 @@ def test_fused_kernel_matches_plain(card, name):
     assert torch.equal(got[2], got[2].transpose(1, 2)), "JtJ is written in both triangles"
 
 
-@pytest.mark.parametrize(
-    "name", ["benchmark_social_config", "benchmark_omni_6agents_config", "benchmark_stress_h36_config"])
-def test_fused_kernel_with_people_matches_plain(card, name):
+@pytest.mark.parametrize("name,tile", [
+    ("benchmark_social_config", 1), ("benchmark_omni_6agents_config", 1),
+    ("benchmark_stress_h36_config", 1), ("benchmark_stress_h36_config", 7)])
+def test_fused_kernel_with_people_matches_plain(card, name, tile):
     """The three people stages: a batch in which the FOV filter leaves some
     scenarios without a person (their stages must not run), padded agent
-    slots, near-goal plans, and one scenario with an agent exactly on the
-    rolled-out robot (the `tiny` branch of the social force)."""
+    slots, near-goal plans, one scenario with an agent exactly on the
+    rolled-out robot (the `tiny` branch of the social force), and a first
+    block of scenarios with none, some and all of a scenario's live steps
+    social. At S = 39 (stress horizon) a lane holds two steps; the agents
+    are also tiled to N = 21, a long loop over agents. A scenario moved to
+    another block and slot gives the same bits."""
     cfg = getattr(C, name)()
     prep, vg, st, _ = _problem(cfg, card, batch=24, n_valid_people=cfg.n_agents - 1)
-    present = vg.m_social.any(dim=1)
-    assert bool(present.any()) and not bool(present.all())
     args = list(vg.fused_inputs(st.u))
-    k = int(torch.nonzero(present)[0])
+    if tile > 1:
+        args[0] = args[0]._replace(n_agents=cfg.n_agents * tile)
+        args[15] = args[15].repeat(1, 1, tile, 1)
+    m_step, s = args[16], args[16].shape[1]
+    m_social = args[18].clone()
+    m_social[0] = False
+    m_social[2] = m_step[2]
+    m_social[3] = m_step[3] & (torch.arange(s, device=card) % 2 == 0)
+    args[18], args[19] = m_social, args[19] & m_social
+    assert int(m_social[2].sum()) == s - 1, "every live step of scenario 2 is social"
+    assert bool(m_social[3].any()) and bool((m_social[3] != m_step[3]).any())
+    present = m_social.any(dim=1)
+    assert bool(present.any()) and not bool(present.all())
+    k = int(torch.nonzero(present[4:])[0]) + 4
     agents = args[15].clone()  # (B, S, N, 6)
     agents[k, 3, 0, 0], agents[k, 3, 0, 1] = args[2][k, 3], args[3][k, 3]
     agents[k, 3, 0, 3] = 0.0
@@ -198,6 +214,10 @@ def test_fused_kernel_with_people_matches_plain(card, name):
     for g, r in zip(got, ref):
         assert torch.isfinite(r).all()
         assert _norm_err(g, r) <= 3e-5
+    perm = torch.roll(torch.arange(len(present), device=card), 5)
+    moved = [a.index_select(0, perm) if torch.is_tensor(a) else a for a in args]
+    for g, g_moved in zip(got, K2.fused_cost_g_jtj(*moved)):
+        assert torch.equal(g_moved, g[perm])
     # the people stages are really on: switching them off changes the cost
     off = list(args)
     off[18], off[19] = torch.zeros_like(args[18]), torch.zeros_like(args[19])
@@ -212,21 +232,25 @@ def test_fused_kernel_with_people_matches_plain(card, name):
         assert _norm_err(g, r) <= 3e-5
 
 
-@pytest.mark.parametrize("nb,s", [(3, 29), (6, 39)])
+@pytest.mark.parametrize("nb,s", [(3, 29), (3, 32), (3, 39), (6, 39)])
 def test_rollout_prep_kernel_matches_plain(card, nb, s):
     """K6 against its plain version with a different block map in every
-    scenario (h_dyn / bl_dyn shrink near the goal); batch 45 leaves the last
-    block partly empty."""
+    scenario (h_dyn / bl_dyn shrink near the goal) and one whose first block
+    has no step; batch 45 leaves the last block partly empty. S = 32 fills a
+    warp's lanes exactly; S = 39 carries the sums into a second chunk. A
+    scenario moved to another block and slot gives the same bits."""
     from nav2_social_mpc_controller_tpu_torch.models.motion import block_index_sequence_dynamic
 
-    rng = np.random.default_rng(nb)
+    rng = np.random.default_rng(nb * 100 + s)
     b = 45
     h_dyn = rng.integers(1, 6 * nb + 1, b)
     h_dyn[0] = 6 * nb
     bl_dyn = np.minimum(6, h_dyn)
     block_idx = block_index_sequence_dynamic(
         s, torch.tensor(h_dyn, device=card), torch.tensor(bl_dyn, device=card)).to(torch.int32)
+    block_idx[1] = block_idx[1].clamp(min=1)
     assert len({tuple(r) for r in block_idx.tolist()}) >= 3
+    assert not bool((block_idx[1] == 0).any())
 
     def t(x):
         return torch.tensor(np.asarray(x, np.float32), device=card)
@@ -246,6 +270,11 @@ def test_rollout_prep_kernel_matches_plain(card, nb, s):
     for name in ref:
         atol = 2e-4 if name in ("row", "col") else 1e-5
         torch.testing.assert_close(got[name], ref[name], rtol=2e-5, atol=atol, msg=name)
+    perm = torch.roll(torch.arange(b, device=card), 7)
+    moved = K6.rollout_prep(*(a.index_select(0, perm).contiguous() if torch.is_tensor(a) else a
+                              for a in args))
+    for name in ref:
+        assert torch.equal(moved[name], got[name][perm]), name
     with pytest.raises(ValueError):
         K6.rollout_prep(u, pose0, block_idx.long(), origin, res, 0.05, 0.25, nb)
 

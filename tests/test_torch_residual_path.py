@@ -83,7 +83,7 @@ def _jax_r_and_j(jcfg, jdims, bt, u):
         return fn(u_l), jax.jacfwd(fn)(u_l)
 
     args = (u, bt["rows"], bt["n_rows"], bt["proj"], bt["present"], bt["cmd"], bt["cmo"], bt["cmr"])
-    r, j = jax.vmap(lane)(*map(jnp.asarray, args))
+    r, j = jax.jit(jax.vmap(lane))(*map(jnp.asarray, args))
     return np.asarray(r), np.asarray(j)
 
 
