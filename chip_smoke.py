@@ -43,7 +43,9 @@ one JSON line:
              and the social configuration, tick breakdown, launches, memory
   kernels    K1-K7 at the social main path's shapes (inputs captured from a
              real tick): error vs the plain version against a stated
-             tolerance, kernel / plain / library ms, the bound, launches
+             tolerance, kernel / plain / library ms, the bound, launches;
+             beside them the launch floor, an almost empty kernel timed the
+             same way
 
 ``python3 chip_smoke.py --lm-sync-sweep`` runs, instead of the phases after
 ``build``, the one measurement behind the LM loop's ``DEFAULT_CHECK_EVERY``:
@@ -112,6 +114,13 @@ def time_cuda(fn, reps, warm=3):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def launch_floor_ms(reps):
+    """Device ms of an almost empty kernel, torch.cuda._sleep(0), timed as
+    time_cuda times the kernels: what any launch costs the card when the
+    launches are queued back to back, the floor under a kernel of a few us."""
+    return time_cuda(lambda: torch.cuda._sleep(0), reps)
 
 
 def time_host(fn, reps):
@@ -359,16 +368,17 @@ def finish_sass_probes(cubin, proc):
 
 def make_batch(cfg, batch, dev, n_valid_people=0):
     """`batch` scenarios on the device: N_BASE distinct seeds generated with
-    NumPy, tiled. Returns (scenario, per-tick robot poses)."""
+    NumPy, tiled (the last copy cut where `batch` is no multiple of N_BASE).
+    Returns (scenario, per-tick robot poses)."""
     from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
     from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
 
     base = scenario_from_numpy(
         make_scenario_batch(cfg, N_BASE, base_seed=0, n_valid_people=n_valid_people), device=dev)
-    reps = batch // N_BASE
+    reps = -(-batch // N_BASE)
 
     def tile(t):
-        return t.repeat((reps,) + (1,) * (t.ndim - 1)).contiguous()
+        return t.repeat((reps,) + (1,) * (t.ndim - 1))[:batch].contiguous()
 
     def tile_tree(tree):
         return type(tree)(*(tile_tree(x) if isinstance(x, tuple) else tile(x) for x in tree))
@@ -569,17 +579,20 @@ def check_bicubic(win, row, col, reps):
     b, h, w = win.shape
     s = row.shape[1]
     # The work depends on the data: a sample reads its 4x4 taps, not the whole
-    # window. Count every distinct window cell this run's samples touch once,
-    # row/col read once, the three outputs written once; ~150 flops a sample.
+    # window. The card moves 32-byte sectors, so count every distinct sector
+    # of the window this run's samples touch once (the distinct 4-byte cells
+    # beside it), row/col read once, the three outputs written once; ~150
+    # flops a sample.
     ridx = K1.tap_index(torch.floor(row), h)  # (B, S, 4)
     cidx = K1.tap_index(torch.floor(col), w)
     cells = (torch.arange(b, device=win.device)[:, None, None, None] * h
              + ridx[..., :, None]) * w + cidx[..., None, :]
     touched = int(torch.unique(cells).numel())
-    bnd, by = bound(touched * win.element_size() + nbytes(row, col) + 3 * nbytes(row),
-                    150.0 * b * s)
+    sectors = int(torch.unique(cells // (32 // win.element_size())).numel())
+    bnd, by = bound(sectors * 32 + nbytes(row, col) + 3 * nbytes(row), 150.0 * b * s)
     return {
         "shape": f"win({b},{h},{w}) S={s}", "window_cells_touched": touched,
+        "window_sectors_touched": sectors,
         "max_err": max(e[0] for e in errs), "max_abs_err": max(e[1] for e in errs),
         "tol": TOL["bicubic"],
         "ms": time_cuda(lambda: K1.bicubic_linearize(win, row, col), reps),
@@ -672,6 +685,29 @@ def check_propose(lm_cfg, args, reps):
     }
 
 
+def commit_bytes_needed(args, accept):
+    """Bytes K4's function must move on this run's data, each once: the ten
+    outputs; every lane's cost, radius, iters, done, failed, u and g; a lane
+    already done its decrease, term and JtJ to pass them through; an active
+    lane its decrease (when rejected), delta, model change and new cost; and
+    only the source its accept flag selects: JtJ when rejected, u_new, g_new
+    and jtj_new when accepted."""
+    (u, cost, g, jtj, radius, decrease, iters, done, term, failed,
+     u_new, delta, mc, new_cost, g_new, jtj_new) = args
+    b = u.shape[0]
+
+    def lane(*ts):
+        return nbytes(*ts) // b
+
+    n_done, n_acc = int(done.sum()), int(accept.sum())
+    n_rej = b - n_done - n_acc
+    return (nbytes(*args[:10])
+            + b * lane(cost, radius, iters, done, failed, u, g)
+            + n_done * lane(decrease, term, jtj)
+            + n_rej * lane(decrease, delta, mc, new_cost, jtj)
+            + n_acc * lane(delta, mc, new_cost, u_new, g_new, jtj_new))
+
+
 def check_commit(lm_cfg, args, reps):
     from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K
 
@@ -690,7 +726,8 @@ def check_commit(lm_cfg, args, reps):
             fail(f"commit: discrete output {name} differs from the plain version "
                  f"in {int((a != b_).sum())} lanes")
     b, d = args[0].shape
-    bnd, by = bound(nbytes(*args) + nbytes(*got), b * (12.0 * d + 40.0))
+    bnd, by = bound(commit_bytes_needed(args, K.commit_with_aux(lm_cfg, *args)[1].accept),
+                    b * (12.0 * d + 40.0))
     return {
         "shape": f"B={b} D={d}",
         "max_err": worst, "max_abs_err": worst_abs, "tol": TOL["commit"],
@@ -748,11 +785,11 @@ KERNEL_INFO = {
     },
     "propose": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tr_iter.cu",
-        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:322",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:322", "redesigned": "PR 5",
     },
     "commit": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tr_iter.cu",
-        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:362",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:362", "redesigned": "PR 5",
     },
     "spd_solve": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
@@ -1606,7 +1643,7 @@ def main():
                               "debug": launches_debug[k], "latent": launches_latent[k],
                               "compacted": launches_compacted[k]}, **v}
         for k, v in res.items()
-    ]})
+    ], "launch_floor_ms": launch_floor_ms(200)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": dev_info})

@@ -228,3 +228,34 @@ def test_lm_solve_matches_jax_lm_solve():
     np.testing.assert_array_equal(st_js.iterations.numpy(), np.asarray(st_js_ref.iterations))
     np.testing.assert_array_equal(st_js.termination.numpy(), np.asarray(st_js_ref.termination))
     np.testing.assert_allclose(u_js.numpy()[:5], np.asarray(u_js_ref)[:5], atol=1e-8)
+
+
+def test_check_tensor_refuses_what_the_kernels_do_not_take():
+    vec = torch.zeros((4, 6))
+    _build.check_tensor("commit", "u", vec, torch.float32, (4, 6), vec.device)
+    _build.check_tensor("commit", "iters", torch.zeros(4, dtype=torch.int32), torch.int32, (4,),
+                        vec.device)
+    for bad, match in ((vec.double(), "float32"), (vec[:, :5], r"\(4, 6\)"),
+                       (torch.zeros((6, 4)).t(), "contiguous=False")):
+        with pytest.raises(ValueError, match=match):
+            _build.check_tensor("commit", "u", bad, torch.float32, (4, 6), vec.device)
+
+
+@pytest.mark.parametrize("d,kind,per_lane", [
+    (6, "done", 428), (6, "rejected", 456), (6, "accepted", 500),
+    (12, "done", 1388), (12, "rejected", 1440), (12, "accepted", 1532),
+])
+def test_commit_bound_counts_only_the_selected_source(d, kind, per_lane):
+    """K4's byte bound counts what the function needs for each lane: all ten
+    outputs, the decision's inputs, and of (u_new, g_new, jtj_new) and JtJ
+    only the source the lane's flag selects."""
+    import chip_smoke
+
+    b = 4
+    vec, mat, one = torch.zeros((b, d)), torch.zeros((b, d, d)), torch.zeros(b)
+    i32 = torch.zeros(b, dtype=torch.int32)
+    done = torch.full((b,), kind == "done")
+    args = (vec, one, vec, mat, one, one, i32, done, i32, torch.zeros(b, dtype=torch.bool),
+            vec, vec, one, one, vec, mat)
+    accept = torch.full((b,), kind == "accepted")
+    assert chip_smoke.commit_bytes_needed(args, accept) == b * per_lane

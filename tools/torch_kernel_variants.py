@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Time variants of the PyTorch/CUDA port's K2 or K6 source against each
-other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds them at.
+"""Time variants of the PyTorch/CUDA port's K2, K6 or K3/K4 source against
+each other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds
+them at.
 
     python3 tools/torch_kernel_variants.py NAME=PATH.cu [NAME=PATH.cu ...]
 
-Each PATH is a complete variant of `csrc/fused_iter.cu` (K2) or of
-`csrc/rollout_prep.cu` (K6), exporting the same C entry point; the kernel is
-told by that entry point. The source in the checkout is added as `shipped`.
-Every variant is built with `_build.NVCC_FLAGS` into its own library (all
-nvcc runs started together), the wrapper is pointed at each in turn, and
-every variant is timed with `chip_smoke.time_cuda` over 4 rounds, the order
-reversed every other round, on inputs captured from real ticks:
+Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
+`csrc/rollout_prep.cu` (K6) or of `csrc/tr_iter.cu` (K3 propose and K4
+commit), exporting the same C entry points; the kind is told by those entry
+points. The source in the checkout is added as `shipped` (a parent's source
+comes from `git show <commit>:<path>` before the call; a variant file must
+lie inside the copy of the repo, e.g. in a git-ignored directory). The K3/K4
+variants against which `csrc/tr_iter.cu`'s design was chosen are kept in
+`tools/tr_iter_variants/`, each named in its first line. Every
+variant is built with `_build.NVCC_FLAGS` into its own library (all nvcc runs
+started together), the wrappers are pointed at each in turn, and every
+kernel of every variant is timed with `chip_smoke.time_cuda` over 4 rounds,
+the order reversed every other round, on inputs captured from real ticks.
+K2 and K6 at six shapes:
 
   social_main           social config, B = 4096, 3 valid people per input
                         (the main path's shape)
@@ -21,12 +28,25 @@ reversed every other round, on inputs captured from real ticks:
   stress36_all_valid    stress horizon (D = 12, S = 39), B = 1024, likewise
   stress36_people_free  stress horizon, B = 1024, no person
 
+K3 and K4 (both timed in each turn) at the four default ticks' shapes, one
+width of the compaction ladder and a ragged batch:
+
+  social_main           social config, B = 4096, D = 6, 3 valid people
+  obstacle_main         obstacle config, B = 4096, D = 6
+  omni6_main            six agents, B = 1024, D = 6, every person valid
+  stress36_main         stress horizon, B = 1024, D = 12, every person valid
+  social_1024           social config, B = 1024
+  social_ragged         social config, B = 4096 + 5
+
 Prints JSON lines: the `device` and `build` lines of chip_smoke.py, ptxas
-usage per variant, then {"variants": [{shape, kernel, variant, ms (one per
-round), min_ms, err}]}, where err is K2's scale-normalised error against its
-plain version or K6's share of its allowance; then the nvidia-smi name and
-power limit. Exits with a code other than 0 if a variant does not build or
-exceeds its kernel's tolerance.
+usage per variant, the launch floor (`time_cuda` of an empty
+`torch.cuda._sleep(0)`), then {"variants": [{shape, kernel, variant, ms (one
+per round), min_ms, err, tol}]}, where err is K2's scale-normalised error
+against its plain version, K6's share of its allowance, or for K3/K4 the
+number of output elements whose bits differ from the plain version's (NaN
+against NaN counted equal; tolerance 0); then the nvidia-smi name and power
+limit. Exits with a code other than 0 if a variant does not build or exceeds
+its kernel's tolerance.
 """
 
 import collections
@@ -41,7 +61,12 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-ENTRY = {"social_mpc_fused_iter_f32": "fused_iter", "social_mpc_rollout_prep_f32": "rollout_prep"}
+# kind (the csrc/ file a variant replaces) -> the C entry points it exports
+KINDS = {
+    "fused_iter": ("social_mpc_fused_iter_f32",),
+    "rollout_prep": ("social_mpc_rollout_prep_f32",),
+    "tr_iter": ("social_mpc_propose_f32", "social_mpc_commit_f32"),
+}
 ROUNDS = 4
 REPS = 200
 
@@ -55,21 +80,21 @@ def parse_args(argv):
         if not sep or not os.path.isfile(path):
             cs.fail(f"expected NAME=PATH.cu, got {arg!r}")
         variants[name] = path
-    kernels = set()
+    kinds = set()
     for path in variants.values():
         text = open(path).read()
-        found = [k for e, k in ENTRY.items() if e in text]
+        found = [k for k, entries in KINDS.items() if all(e in text for e in entries)]
         if len(found) != 1:
-            cs.fail(f"{path} exports neither or both of {sorted(ENTRY)}")
-        kernels.add(found[0])
-    if len(kernels) != 1:
-        cs.fail("all variants must be of one kernel")
-    kernel = kernels.pop()
-    variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kernel}.cu")
-    return kernel, variants
+            cs.fail(f"{path} exports the entry points of none or several of {sorted(KINDS)}")
+        kinds.add(found[0])
+    if len(kinds) != 1:
+        cs.fail("all variants must be of one kind")
+    kind = kinds.pop()
+    variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kind}.cu")
+    return kind, variants
 
 
-def build_all(variants):
+def build_all(kind, variants):
     from nav2_social_mpc_controller_tpu_torch import _build
 
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
@@ -88,39 +113,88 @@ def build_all(variants):
             cs.fail(f"variant {name} does not build:\n{log[-3000:]}")
         usage[name] = cs.ptxas_usage(log)
         lib = ctypes.CDLL(so)
-        entry = next(e for e in ENTRY if hasattr(lib, e))
-        fn = getattr(lib, entry)
-        fn.argtypes = _build._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        libs[name] = types.SimpleNamespace(**{entry: fn})
+        fns = {}
+        for entry in KINDS[kind]:
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        libs[name] = types.SimpleNamespace(**fns)
     return libs, usage
 
 
-def captures():
+def captures(kind):
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry
     from nav2_social_mpc_controller_tpu_torch.core import config as C
 
-    def cap(cfg, batch, n_valid, near_goal):
+    def cap(cfg, batch, n_valid, near_goal=False):
         sc, poses = cs.make_batch(cfg, batch, "cuda", n_valid_people=n_valid)
         pose = cs.near_goal_every(sc, poses[0]) if near_goal else poses[0]
         return cs.capture_iteration(cfg, cs.with_pose(sc, pose), make_carry(cfg, batch, device="cuda"))
 
     social, obstacle = C.benchmark_social_config(), C.benchmark_obstacle_only_config()
     omni6, stress = C.benchmark_omni_6agents_config(), C.benchmark_stress_h36_config()
+    if kind == "tr_iter":
+        return {
+            "social_main": cap(social, cs.B_MAIN, 3),
+            "obstacle_main": cap(obstacle, cs.B_MAIN, 0),
+            "omni6_main": cap(omni6, cs.B_WIDE, omni6.n_agents),
+            "stress36_main": cap(stress, cs.B_WIDE, stress.n_agents),
+            "social_1024": cap(social, cs.B_WIDE, 3),
+            "social_ragged": cap(social, cs.B_MAIN + 5, 3),
+        }
     return {
-        "social_main": cap(social, cs.B_MAIN, 3, False),
-        "obstacle_main": cap(obstacle, cs.B_MAIN, 0, False),
+        "social_main": cap(social, cs.B_MAIN, 3),
+        "obstacle_main": cap(obstacle, cs.B_MAIN, 0),
         "social_all_valid": cap(social, cs.B_MAIN, social.n_agents, True),
         "omni6_all_valid": cap(omni6, cs.B_WIDE, omni6.n_agents, True),
         "stress36_all_valid": cap(stress, cs.B_WIDE, stress.n_agents, True),
-        "stress36_people_free": cap(stress, cs.B_WIDE, 0, False),
+        "stress36_people_free": cap(stress, cs.B_WIDE, 0),
     }
+
+
+def kernels(kind):
+    """[(kernel, its wrapper on a capture, its plain version on a capture)]"""
+    from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
+    from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
+
+    if kind == "fused_iter":
+        return [("fused_iter", lambda c: K2.fused_cost_g_jtj(*c["fused"]),
+                 lambda c: K2.fused_cost_g_jtj_plain(*c["fused"]))]
+    if kind == "rollout_prep":
+        return [("rollout_prep", lambda c: K6.rollout_prep(*c["rollout_prep"]),
+                 lambda c: K6.rollout_prep_plain(*c["rollout_prep"]))]
+    return [("propose", lambda c: K34.propose(c["lm_cfg"], *c["propose"]),
+             lambda c: K34.propose_plain(c["lm_cfg"], *c["propose"])),
+            ("commit", lambda c: K34.commit(c["lm_cfg"], *c["commit"]),
+             lambda c: K34.commit_plain(c["lm_cfg"], *c["commit"]))]
+
+
+def bits_differ(got, ref):
+    """Number of elements whose bits differ (NaN against NaN counted equal)."""
+    import torch
+
+    n = 0
+    for a, b in zip(got, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return float("inf")
+        if a.is_floating_point():
+            nan = torch.isnan(a)
+            n += int((nan != torch.isnan(b)).sum())
+            both = ~(nan | torch.isnan(b))
+            n += int((a.view(torch.int32) != b.view(torch.int32))[both].sum())
+        else:
+            n += int((a != b).sum())
+    return float(n)
 
 
 def error(kernel, got, ref):
     if kernel == "fused_iter":
         return max(cs.norm_err(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))[0]
                    for a, b in zip(got, ref))
+    if kernel in ("propose", "commit"):
+        return bits_differ(got, ref)
     share = 0.0
     for name, r in ref.items():
         atol = cs.K6_ATOL_ROWCOL if name in ("row", "col") else cs.K6_ATOL
@@ -129,41 +203,43 @@ def error(kernel, got, ref):
     return share
 
 
+def tolerance(kernel, cap):
+    if kernel in ("propose", "commit"):
+        return 0.0
+    if kernel == "fused_iter" and bool(cap["fused"][18].any()):
+        return cs.TOL["fused_iter_people"]
+    return cs.TOL[kernel]
+
+
 def main():
     import torch
 
     from nav2_social_mpc_controller_tpu_torch import _build
-    from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
-    from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
 
     _, smi = cs.phase_device()
-    kernel, variants = parse_args(sys.argv[1:])
+    kind, variants = parse_args(sys.argv[1:])
     cs.phase_build()
-    libs, usage = build_all(variants)
+    libs, usage = build_all(kind, variants)
     cs.emit({"ptxas": usage})
-    if kernel == "fused_iter":
-        run, plain, arg_key = K2.fused_cost_g_jtj, K2.fused_cost_g_jtj_plain, "fused"
-    else:
-        run, plain, arg_key = K6.rollout_prep, K6.rollout_prep_plain, "rollout_prep"
+    cs.emit({"launch_floor_ms": cs.launch_floor_ms(REPS)})
     times, errs, tols = collections.defaultdict(list), {}, {}
     order = list(libs)
     try:
-        for shape, cap in captures().items():
-            args = cap[arg_key]
-            ref = plain(*args)
-            people = kernel == "fused_iter" and bool(args[18].any())
-            tols[shape] = cs.TOL["fused_iter_people" if people else kernel]
-            for rnd in range(ROUNDS):
-                for name in (order if rnd % 2 == 0 else order[::-1]):
-                    _build._lib = libs[name]
-                    if rnd == 0:
-                        errs[(shape, name)] = error(kernel, run(*args), ref)
-                    times[(shape, name)].append(cs.time_cuda(lambda: run(*args), REPS))
+        for shape, cap in captures(kind).items():
+            for kernel, run, plain in kernels(kind):
+                ref = plain(cap)
+                tols[(shape, kernel)] = tolerance(kernel, cap)
+                for rnd in range(ROUNDS):
+                    for name in (order if rnd % 2 == 0 else order[::-1]):
+                        _build._lib = libs[name]
+                        if rnd == 0:
+                            errs[(shape, kernel, name)] = error(kernel, run(cap), ref)
+                        times[(shape, kernel, name)].append(cs.time_cuda(lambda: run(cap), REPS))
     finally:
         _build._lib = None
     torch.cuda.synchronize()
-    table = [{"shape": s, "kernel": kernel, "variant": n, "ms": v, "min_ms": min(v),
-              "err": errs[(s, n)], "tol": tols[s]} for (s, n), v in times.items()]
+    table = [{"shape": s, "kernel": k, "variant": n, "ms": v, "min_ms": min(v),
+              "err": errs[(s, k, n)], "tol": tols[(s, k)]} for (s, k, n), v in times.items()]
     cs.emit({"variants": table})
     print(smi, flush=True)
     bad = [r for r in table if not r["err"] <= r["tol"]]
