@@ -10,21 +10,26 @@ fed back, then one tick each of the six-agent and the stress-horizon
 configurations at B = 1024 — and the general paths: the debug-trace tick
 (the general LM iteration, kernel K7), a Jacobi-scaled solve, a latent-critic
 tick (the autodiff residual path) and the compacted warm-start tick — through
-the seven hand-written CUDA kernels, and checks them. Phases, each printing
+the eight hand-written CUDA kernels (an evaluation's rollout and costmap
+sample run as one, rollout_sample), and checks them. Phases, each printing
 one JSON line:
 
   device     the card (torch + nvidia-smi name and power limit)
   build      nvcc build of csrc/*.cu into the package's build/ directory;
              ptxas registers, stack and spills of every kernel, and the SASS
              instruction counts (FP32, MUFU) of K2's pair force in each
-             direction and of the robot's duals, one sincosf and one
-             division, behind K2's and K6's bounds
+             direction and of the robot's duals, one sincosf, one division,
+             and K5's pair force and agent step, behind the operation bounds
+             of K2, K5, K6 and rollout_sample
   shapes     kernel-vs-plain at a people-free D = 12 / S = 39 shape (and K1
              at S = 70); then with every person valid at the social
              (B = 4096, N = 3), six-agent (B = 1024, N = 6) and
              stress-horizon (B = 1024, D = 12, S = 39) shapes, every fourth
              robot near its goal (shrunk block maps, no person in view): the
-             SFM scan (K5), K2 with its people stages and the rollout prep (K6)
+             SFM scan (K5), K2 with its people stages, the rollout prep (K6)
+             and rollout_sample; rollout_sample also at the obstacle tick's
+             shape and on a ragged batch (B = 4101), each time bit for bit
+             against K6 then K1
   main_path  one line per path: launch counts, status, bounds, cursor, the
              people projection; for the 3-tick paths agreement of 64
              scenarios with the port's plain path on the CPU in float32
@@ -41,7 +46,7 @@ one JSON line:
              iterations x width and ms/tick of both
   timing     ms/tick and solves/s at B = 1024 and B = 4096 for the obstacle
              and the social configuration, tick breakdown, launches, memory
-  kernels    K1-K7 at the social main path's shapes (inputs captured from a
+  kernels    every kernel at the social main path's shapes (inputs captured from a
              real tick): error vs the plain version against a stated
              tolerance, kernel / plain / library ms, the bound, launches;
              beside them the launch floor, an almost empty kernel timed the
@@ -262,8 +267,38 @@ __global__ void probe_fdiv(const float* in, float* out) {
     out[threadIdx.x] = in[2 * threadIdx.x] / in[2 * threadIdx.x + 1];
 }
 """
+# K5's pieces, in a unit of their own (its helpers share names with K2's):
+# one pair force, and one active step of an agent given the social force on
+# it (the desired and obstacle forces, the update, the new yaw and angular
+# velocity, the goal test and the nearest-obstacle lookup at the new
+# position), each from memory to memory.
+SFM_PROBE_SOURCE = r"""
+#include "sfm_scan.cu"
+
+__global__ void probe_sfm_pair(const SfmArgs a, const float* in, float* out) {
+    const float* q = in + 8 * threadIdx.x;
+    float fx, fy;
+    pair_social(a, q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], fx, fy);
+    out[2 * threadIdx.x] = fx;
+    out[2 * threadIdx.x + 1] = fy;
+}
+
+__global__ void probe_sfm_step(const SfmArgs a, const Esdf* es, Agent* agents,
+                               const float* social) {
+    Agent g = agents[threadIdx.x];
+    float fdx, fdy, fox, foy;
+    desired_force(a, g, fdx, fdy);
+    obstacle_force(a, g, fox, foy);
+    move(a, fdx, fdy, social[2 * threadIdx.x], social[2 * threadIdx.x + 1], fox, foy, g.px, g.py,
+         g.vx, g.vy);
+    goal_test(a, g, g.px, g.py);
+    nearest_obstacle(a, es[threadIdx.x], g, g.px, g.py);
+    heading(a, g, g.vx, g.vy);
+    agents[threadIdx.x] = g;
+}
+"""
 SASS_PROBES = ("probe_robot_state", "probe_force_on_robot", "probe_force_on_agent",
-               "probe_sincosf", "probe_fdiv")
+               "probe_sincosf", "probe_fdiv", "probe_sfm_pair", "probe_sfm_step")
 # Opcodes issued to the FP32 pipe, and to the MUFU / conversion pipe.
 FP32_OPCODES = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FSWZADD"}
 SLOW_OPCODES = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
@@ -281,32 +316,40 @@ def cuda_tool(name):
 
 
 def start_sass_probes():
-    """Start compiling the probe kernels to a cubin (runs beside the build)."""
+    """Start compiling the probe kernels to cubins (runs beside the build):
+    [(cubin, nvcc process)], one per probe source."""
     from nav2_social_mpc_controller_tpu_torch import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(_build.BUILD_DIR, "sass_probe.cu")
-    with open(src, "w") as f:
-        f.write(SASS_PROBE_SOURCE)
-    cubin = os.path.join(_build.BUILD_DIR, "sass_probe.cubin")
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-cubin", "-o", cubin, src]
-    return cubin, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    started = []
+    for name, text in (("sass_probe", SASS_PROBE_SOURCE), ("sass_probe_sfm", SFM_PROBE_SOURCE)):
+        src = os.path.join(_build.BUILD_DIR, f"{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        cubin = os.path.join(_build.BUILD_DIR, f"{name}.cubin")
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-cubin", "-o",
+               cubin, src]
+        started.append((cubin, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    return started
 
 
 SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@(!?)(U?P\w+)\s+)?([A-Z][A-Z0-9_]*)\S*\s*([^;]*)")
-# Below this magnitude sinf/cosf reduce their argument inline; at or above it
-# they branch to a long reduction (integer and local-memory work) that no
-# angle of these kernels reaches: they lie within a few turns of 0.
-HUGE_ANGLE = "105615"
+# Below 105615 sinf/cosf reduce their argument inline; at or above it they
+# branch to a long reduction (integer and local-memory work) that no angle of
+# these kernels reaches: they lie within a few turns of 0. Likewise K5's
+# angle wrap takes fmodf only where its argument reaches 2 * (2 pi) =
+# 12.56637..., which no difference of two wrapped angles does.
+HUGE_ANGLES = ("105615", "12.56637")
 
 
 def sass_opcodes(listing):
     """{function name: its opcodes up to the first unconditional EXIT} of a
     cuobjdump -sass listing: a static count of the path these kernels run.
     Out-of-line slow paths (the subroutines after EXIT, e.g. of a division)
-    and the inline reduction of a huge sin/cos argument (the instructions a
-    `@!P BRA` jumps over, P being set by a compare of |x| with 105615) are
-    left out; any other branch is counted whether taken or not."""
+    and the inline path of a huge angle (the instructions a `@!P BRA` jumps
+    over, P being set by a compare of |x| with one of HUGE_ANGLES) are left
+    out; any other branch is counted whether taken or not."""
     funcs, name, done = {}, None, True
     huge, skip_to = set(), None
     for ln in listing.splitlines():
@@ -340,18 +383,20 @@ def sass_opcodes(listing):
         if len(operands) > 1 and not written and re.fullmatch(r"U?P\d", operands[1]):
             written.append(operands[1])
         huge.difference_update(written)
-        if op == "FSETP" and HUGE_ANGLE in args and written:
+        if op == "FSETP" and any(h in args for h in HUGE_ANGLES) and written:
             huge.add(written[0])
     return funcs
 
 
-def finish_sass_probes(cubin, proc):
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        fail(f"nvcc failed for the SASS probes:\n{out}")
-    listing = subprocess.run([cuda_tool("cuobjdump"), "-sass", cubin], capture_output=True,
-                             text=True, check=True).stdout
-    funcs = sass_opcodes(listing)
+def finish_sass_probes(started):
+    funcs = {}
+    for cubin, proc in started:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the SASS probes:\n{out}")
+        listing = subprocess.run([cuda_tool("cuobjdump"), "-sass", cubin], capture_output=True,
+                                 text=True, check=True).stdout
+        funcs.update(sass_opcodes(listing))
     for probe in SASS_PROBES:
         ops = next((v for k, v in funcs.items() if probe in k), None)
         if not ops:
@@ -476,9 +521,13 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # JAX package's tolerances for its rollout kernel: |got - ref| <= atol +
 # 2e-5 |ref| with atol 1e-5, and 2e-4 on row/col (values up to 64 cells);
 # its error is reported as a share of that allowance (tolerance 1.0), and its
-# expanded controls, being copies, must be equal.
+# expanded controls, being copies, must be equal. The rollout-sample kernel
+# compiles K6's and K1's arithmetic from the headers they compile from: its
+# error is the number of output elements whose bits differ from K6's then
+# K1's on the card (NaN against NaN counted equal), tolerance 0.
 TOL = {"sfm_scan": 1e-4, "rollout_prep": 1.0, "bicubic": 1e-5, "fused_iter": 1e-5,
-       "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 1e-6}
+       "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 1e-6,
+       "rollout_sample": 0}
 K6_RTOL, K6_ATOL, K6_ATOL_ROWCOL = 2e-5, 1e-5, 2e-4
 
 
@@ -488,12 +537,17 @@ def sfm_inputs(sc, people_state, prep):
             sc.esdf.origin, sc.esdf.resolution, sc.esdf.valid)
 
 
+def sfm_keywords(cfg):
+    """The SFM scan wrapper's keyword arguments for config `cfg`."""
+    return dict(maxtime=cfg.trajectorizer.max_time, dt=cfg.trajectorizer.time_step,
+                people_desired_vel=cfg.people_desired_vel, people_radius=cfg.people_radius,
+                goal_radius=cfg.goal_radius, esdf_window=cfg.esdf_window_cells)
+
+
 def check_sfm(cfg, args, reps):
     from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
 
-    kw = dict(maxtime=cfg.trajectorizer.max_time, dt=cfg.trajectorizer.time_step,
-              people_desired_vel=cfg.people_desired_vel, people_radius=cfg.people_radius,
-              goal_radius=cfg.goal_radius, esdf_window=cfg.esdf_window_cells)
+    kw = sfm_keywords(cfg)
     got = K5.project_people(*args, **kw)
     ref = K5.project_people_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -506,21 +560,41 @@ def check_sfm(cfg, args, reps):
     # The work depends on the data: only valid agents are simulated, and only
     # over the steps the robot's rows cover. Bytes: every input but the index
     # grid read once, one 4-byte grid cell per lookup made, the output written
-    # once. Operations: ~120 per pair force (two atan2f and two expf counted
-    # as one each), ~100 per agent step for the other forces and the update.
+    # once. Operations, by the SASS instructions of their probes: at each
+    # active step of a valid agent one pair force from each other valid agent
+    # and one from the robot, then the agent's step (update and lookup); the
+    # robot's velocity (a sincosf) once per row of a scenario with a valid
+    # agent.
     nv = ((people[..., 3] != -1.0) & args[6][:, None]).sum(dim=1).double()
     steps = (n_rows.double() - 1.0).clamp(0.0, float(s1 - 1))
     lookups = float((nv * (steps + 1.0)).sum())
-    flops = float((steps * (nv * nv * 120.0 + nv * 100.0)).sum())
+    pairs = float((steps * nv * nv).sum())
+    agent_steps = float((steps * nv).sum())
+    robot_rows = float((nv > 0).sum()) * (s1 - 1)
+    sc = SASS_COUNTS
+
+    def instr(kind):
+        return (pairs * sc["probe_sfm_pair"][kind] + agent_steps * sc["probe_sfm_step"][kind]
+                + robot_rows * sc["probe_sincosf"][kind])
+
     moved = nbytes(people, rows, n_rows, args[4], args[5], args[6], got) + 4.0 * lookups
-    bnd, by = bound(moved, flops)
+    bnd, by, parts = bound_by_instructions(moved, 0.0, instr("fp32"), instr("mufu"))
+    ms = time_cuda(lambda: K5.project_people(*args, **kw), reps)
+    # One block's scenarios alone (the first that hold a valid agent): the
+    # launch and the chain of S - 1 dependent steps, nothing to hide it.
+    per_block = K5.scan_geometry(n, b).scenarios_per_block
+    first = int(torch.nonzero(nv > 0)[0]) if bool((nv > 0).any()) else 0
+    one = tuple(a[first:first + per_block].contiguous() for a in args)
+    one_block_ms = time_cuda(lambda: K5.project_people(*one, **kw), reps)
     return {
         "shape": f"people({b},{n},6) rows({b},{s1},6)", "valid_agents": int(nv.sum()),
+        "pair_forces": int(pairs), "agent_steps": int(agent_steps),
         "max_err": err[0], "max_abs_err": err[1], "tol": TOL["sfm_scan"],
-        "ms": time_cuda(lambda: K5.project_people(*args, **kw), reps),
+        "ms": ms, "ms_per_step": ms / max(s1 - 1, 1),
+        "one_block_ms": one_block_ms, "one_block_ms_per_step": one_block_ms / max(s1 - 1, 1),
         "host_ms": time_host(lambda: K5.project_people(*args, **kw), reps),
         "plain_ms": time_cuda(lambda: K5.project_people_plain(*args, **kw), 2, warm=1),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "bound_ms": bnd, "bound_by": by, "bound_parts": parts, "library_ms": None,
     }
 
 
@@ -543,16 +617,11 @@ def check_rollout(args, reps):
     u, pose0, block_idx, origin, res = args[:5]
     b, s = block_idx.shape
     nb = args[7]
-    # Bytes: the inputs once, the 6 + 4*NB output planes once. Operations per
-    # step: one sincosf and the two divisions of row/col by their SASS
-    # instruction counts, ~20 for the pose and the sample coordinates, 8 per
-    # block for the sensitivities.
-    steps = b * s
-    sc, dv = SASS_COUNTS["probe_sincosf"], SASS_COUNTS["probe_fdiv"]
+    # Bytes: the inputs once, the 6 + 4*NB output planes once; operations:
+    # rollout_operations.
     bnd, by, parts = bound_by_instructions(
-        nbytes(u, pose0, block_idx, origin, res) + (6 + 4 * nb) * steps * 4,
-        steps * (20.0 + 8.0 * nb), steps * (sc["fp32"] + 2 * dv["fp32"]),
-        steps * (sc["mufu"] + 2 * dv["mufu"]))
+        nbytes(u, pose0, block_idx, origin, res) + (6 + 4 * nb) * b * s * 4,
+        *rollout_operations(args))
     maps = len({tuple(r) for r in block_idx[:256].tolist()})
     chain_ms = time_cuda(lambda: K6.rollout_prep_plain(*args), max(reps // 10, 3))
     return {
@@ -569,6 +638,101 @@ def check_rollout(args, reps):
     }
 
 
+def window_sectors(win, row, col):
+    """(distinct 4-byte cells, distinct 32-byte sectors) of the windows that
+    the samples at (row, col) read: a sample reads its 4x4 taps, not the
+    whole window, and the card moves 32-byte sectors, so a bound counts each
+    sector this run's samples touch once."""
+    from nav2_social_mpc_controller_tpu_torch.ops import bicubic_cuda as K1
+
+    b, h, w = win.shape
+    ridx = K1.tap_index(torch.floor(row), h)  # (B, S, 4)
+    cidx = K1.tap_index(torch.floor(col), w)
+    cells = (torch.arange(b, device=win.device)[:, None, None, None] * h
+             + ridx[..., :, None]) * w + cidx[..., None, :]
+    return (int(torch.unique(cells).numel()),
+            int(torch.unique(cells // (32 // win.element_size())).numel()))
+
+
+def bits_differ(got, ref):
+    """Number of elements whose bits differ (NaN against NaN counted equal)
+    between two sequences of tensors."""
+    n = 0
+    for a, b in zip(got, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return float("inf")
+        if a.is_floating_point():
+            nan = torch.isnan(a)
+            n += int((nan != torch.isnan(b)).sum())
+            both = ~(nan | torch.isnan(b))
+            n += int((a.view(torch.int32) != b.view(torch.int32))[both].sum())
+        else:
+            n += int((a != b).sum())
+    return float(n)
+
+
+def prep_then_sample(win, args):
+    """K6 then K1 on the card: what the rollout-sample kernel is held to."""
+    from nav2_social_mpc_controller_tpu_torch.ops import bicubic_cuda as K1
+    from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
+
+    r = K6.rollout_prep(*args)
+    val, d_row, d_col = K1.bicubic_linearize(win, r.pop("row"), r.pop("col"))
+    return {**r, "val": val, "d_row": d_row, "d_col": d_col}
+
+
+def rollout_operations(args):
+    """(flops, FP32 instructions, MUFU instructions) of K6's function on
+    these inputs: per step one sincosf and the two divisions of row/col by
+    their SASS instruction counts, ~20 flops for the pose and the sample
+    coordinates, 8 per block for the sensitivities."""
+    b, s = args[2].shape
+    nb = args[7]
+    steps = b * s
+    sc, dv = SASS_COUNTS["probe_sincosf"], SASS_COUNTS["probe_fdiv"]
+    return (steps * (20.0 + 8.0 * nb), steps * (sc["fp32"] + 2 * dv["fp32"]),
+            steps * (sc["mufu"] + 2 * dv["mufu"]))
+
+
+def check_rollout_sample(win, args, reps):
+    """The rollout-sample kernel against K6 then K1 on the same inputs (equal
+    bits), and against its plain version (scale-normalised, for the record)."""
+    from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K
+
+    got = K.rollout_sample(win, *args)
+    ref = prep_then_sample(win, args)
+    plain = K.rollout_sample_plain(win, *args)
+    torch.cuda.synchronize()
+    keys = sorted(ref)
+    differ = bits_differ([got[k] for k in keys], [ref[k] for k in keys])
+    vs_plain = max(norm_err(got[k].reshape(got[k].shape[0], -1),
+                            plain[k].reshape(plain[k].shape[0], -1))[0] for k in keys)
+    u, pose0, block_idx, origin, res = args[:5]
+    b, s = block_idx.shape
+    nb = args[7]
+    # Bytes: K6's inputs once, the windows' sectors its samples touch, the
+    # 7 + 4*NB output planes once. Operations: K6's and ~150 flops a sample.
+    r = K.rollout_prep_plain(*args)
+    _, sectors = window_sectors(win, r["row"], r["col"])
+    flops, fp32, mufu = rollout_operations(args)
+    bnd, by, parts = bound_by_instructions(
+        nbytes(u, pose0, block_idx, origin, res) + sectors * 32 + (7 + 4 * nb) * b * s * 4,
+        flops + 150.0 * b * s, fp32, mufu)
+    return {
+        "shape": f"B={b} S={s} NB={nb} win({win.shape[1]},{win.shape[2]})",
+        "max_err": differ, "max_abs_err": float(max(
+            (got[k].double() - ref[k].double()).abs().nan_to_num(0.0).max() for k in keys)),
+        "tol": TOL["rollout_sample"],
+        "err_is": "output elements whose bits differ from rollout_prep then bicubic",
+        "vs_plain_norm_err": vs_plain,
+        "ms": time_cuda(lambda: K.rollout_sample(win, *args), reps),
+        "k6_then_k1_ms": time_cuda(lambda: prep_then_sample(win, args), reps),
+        "host_ms": time_host(lambda: K.rollout_sample(win, *args), reps),
+        "plain_ms": time_cuda(lambda: K.rollout_sample_plain(win, *args), max(reps // 10, 3)),
+        "bound_ms": bnd, "bound_by": by, "bound_parts": parts, "library_ms": None,
+    }
+
+
 def check_bicubic(win, row, col, reps):
     from nav2_social_mpc_controller_tpu_torch.ops import bicubic_cuda as K1
 
@@ -578,17 +742,9 @@ def check_bicubic(win, row, col, reps):
     errs = [norm_err(a, b) for a, b in zip(got, ref)]
     b, h, w = win.shape
     s = row.shape[1]
-    # The work depends on the data: a sample reads its 4x4 taps, not the whole
-    # window. The card moves 32-byte sectors, so count every distinct sector
-    # of the window this run's samples touch once (the distinct 4-byte cells
-    # beside it), row/col read once, the three outputs written once; ~150
-    # flops a sample.
-    ridx = K1.tap_index(torch.floor(row), h)  # (B, S, 4)
-    cidx = K1.tap_index(torch.floor(col), w)
-    cells = (torch.arange(b, device=win.device)[:, None, None, None] * h
-             + ridx[..., :, None]) * w + cidx[..., None, :]
-    touched = int(torch.unique(cells).numel())
-    sectors = int(torch.unique(cells // (32 // win.element_size())).numel())
+    # row/col read once, the three outputs written once, the window's sectors
+    # the samples touch (window_sectors); ~150 flops a sample.
+    touched, sectors = window_sectors(win, row, col)
     bnd, by = bound(sectors * 32 + nbytes(row, col) + 3 * nbytes(row), 150.0 * b * s)
     return {
         "shape": f"win({b},{h},{w}) S={s}", "window_cells_touched": touched,
@@ -769,7 +925,7 @@ def check_spd_solve(a, b, reps):
 KERNEL_INFO = {
     "sfm_scan": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/sfm_scan.cu",
-        "replaces": "nav2_social_mpc_controller_tpu/models/sfm_pallas.py:306",
+        "replaces": "nav2_social_mpc_controller_tpu/models/sfm_pallas.py:306", "redesigned": "PR 6",
     },
     "rollout_prep": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_prep.cu",
@@ -778,6 +934,13 @@ KERNEL_INFO = {
     "bicubic": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/bicubic.cu",
         "replaces": "nav2_social_mpc_controller_tpu/ops/bicubic_pallas.py:288 (and :346)",
+        "redesigned": "PR 6",
+    },
+    "rollout_sample": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_sample.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158 then "
+                    "nav2_social_mpc_controller_tpu/ops/bicubic_pallas.py:288",
+        "redesigned": "PR 6",
     },
     "fused_iter": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/fused_iter.cu",
@@ -798,9 +961,13 @@ KERNEL_INFO = {
 }
 
 # Kernels of the default tick (K3/K4 iteration) and of the debug tick (general
-# iteration: K7 in place of K3/K4).
-DEFAULT_PATH_KERNELS = ("sfm_scan", "rollout_prep", "bicubic", "fused_iter", "propose", "commit")
-DEBUG_PATH_KERNELS = ("sfm_scan", "rollout_prep", "bicubic", "fused_iter", "spd_solve")
+# iteration: K7 in place of K3/K4). An evaluation runs K6's rollout and K1's
+# sample as one launch, rollout_sample; the standalone K1 serves the latent
+# tick's residual path, and the standalone K6 is the reference rollout_sample
+# is held to.
+DEFAULT_PATH_KERNELS = ("sfm_scan", "rollout_sample", "fused_iter", "propose", "commit")
+DEBUG_PATH_KERNELS = ("sfm_scan", "rollout_sample", "fused_iter", "spd_solve")
+LATENT_PATH_KERNELS = ("sfm_scan", "bicubic", "propose", "commit")
 
 
 def check_all_kernels(cfg, cap, reps):
@@ -808,6 +975,7 @@ def check_all_kernels(cfg, cap, reps):
         "sfm_scan": check_sfm(cfg, cap["sfm"], reps),
         "rollout_prep": check_rollout(cap["rollout_prep"], reps),
         "bicubic": check_bicubic(*cap["bicubic"], reps),
+        "rollout_sample": check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"], reps),
         "fused_iter": check_fused(cap["fused"], reps),
         "propose": check_propose(cap["lm_cfg"], cap["propose"], reps),
         "commit": check_commit(cap["lm_cfg"], cap["commit"], reps),
@@ -848,15 +1016,17 @@ def phase_device():
 
 def ptxas_usage(log):
     """{kernel: {registers, stack_bytes, spill_stores, spill_loads}} from
-    ptxas -v output (template kernels named like fused_kernel<3>)."""
+    ptxas -v output (template kernels named like fused_kernel<3> or
+    sfm_scan_kernel<3,1>)."""
     usage, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
             raw = m.group(1)
-            short = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", raw)
+            short = re.search(r"([a-z_]+_kernel)(?:I((?:L\w+?E)+)E)?", raw)
+            targs = re.findall(r"L\w+?(\d+)E", short.group(2) or "") if short else []
             name = raw if not short else (
-                f"{short.group(1)}<{short.group(2)}>" if short.group(2) else short.group(1))
+                f"{short.group(1)}<{','.join(targs)}>" if targs else short.group(1))
             usage.setdefault(name, {})
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -877,7 +1047,7 @@ def phase_build():
     _build.build(verbose=True)
     _build.load()
     seconds = time.perf_counter() - t0
-    sass = finish_sass_probes(*probes)
+    sass = finish_sass_probes(probes)
     regs = [ln.strip() for ln in _build.last_build_log.splitlines()
             if "registers" in ln or "spill" in ln.lower() or "entry function" in ln]
     print("\n".join(regs), file=sys.stderr)
@@ -918,8 +1088,36 @@ def phase_shapes(dev):
             fail(f"kernel spd_solve on random systems at D={d}: error {r['max_err']:.3e}, "
                  f"{r['non_finite_systems']} non-finite systems")
         mixed.append({"name": "spd_solve", "systems": "random SPD, every 97th negated", **r})
+    # The rollout-sample kernel at the obstacle tick's shape and on a ragged
+    # batch (the other default ticks' shapes are held with the people).
+    from nav2_social_mpc_controller_tpu_torch.core.config import (
+        benchmark_obstacle_only_config, benchmark_social_config,
+    )
+
+    fused_shapes = [
+        {"name": "rollout_sample", "config": name,
+         **check_rollout_sample(*evaluation_inputs(c, batch, dev, n_valid), reps=50)}
+        for name, c, batch, n_valid in (
+            ("benchmark_obstacle_only_config", benchmark_obstacle_only_config(), B_MAIN, 0),
+            ("benchmark_social_config", benchmark_social_config(), B_MAIN + 5, 3))]
+    for r in fused_shapes:
+        if not r["max_err"] <= r["tol"]:
+            fail(f"kernel rollout_sample differs from rollout_prep then bicubic at {r['config']} "
+                 f"{r['shape']} in {r['max_err']:.0f} elements")
     emit({"phase": "shapes", "kernels_wide": [{"name": k, **v} for k, v in res.items()]
-          + [{"name": "bicubic", **s70}] + mixed + phase_people_shapes(dev)})
+          + [{"name": "bicubic", **s70}] + mixed + phase_people_shapes(dev) + fused_shapes})
+
+
+def evaluation_inputs(cfg, batch, dev, n_valid_people):
+    """(window, K6's arguments) of the first evaluation of a tick of `batch`
+    scenarios: the rollout-sample kernel's inputs."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import build_value_grad
+
+    sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid_people)
+    prep = step_pre(cfg, with_pose(sc, poses[0]), make_carry(cfg, batch, device=dev)).prep
+    vg = build_value_grad(cfg, prep)
+    return vg.win, vg.prep_inputs(prep.u0)
 
 
 def phase_people_shapes(dev):
@@ -929,7 +1127,7 @@ def phase_people_shapes(dev):
     D = 12, S = 39). Every fourth robot stands near its goal, so the batch
     mixes block maps and scenarios with and without a person in view. K5 is
     given the unfiltered people; K2 and K6 the inputs of a real tick after
-    3 LM iterations."""
+    3 LM iterations; the rollout-sample kernel the inputs of K6 and K1."""
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry
     from nav2_social_mpc_controller_tpu_torch.core import config as C
 
@@ -944,7 +1142,9 @@ def phase_people_shapes(dev):
         sfm_args = (sc.people.state,) + cap["sfm"][1:]
         checks = {"sfm_scan": check_sfm(cfg, sfm_args, reps=50),
                   "fused_iter": check_fused(cap["fused"], reps=50),
-                  "rollout_prep": check_rollout(cap["rollout_prep"], reps=50)}
+                  "rollout_prep": check_rollout(cap["rollout_prep"], reps=50),
+                  "rollout_sample": check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"],
+                                                         reps=50)}
         if checks["sfm_scan"]["valid_agents"] != batch * cfg.n_agents:
             fail(f"sfm_scan check at {name}: only {checks['sfm_scan']['valid_agents']} valid agents")
         present = float(cap["fused"][18].any(dim=1).float().mean())
@@ -1001,6 +1201,13 @@ def check_launches(name, launches, expected):
             fail(f"{name}: kernel {kname} is not on this path yet was launched {n} times")
 
 
+def check_one_sample_per_evaluation(name, launches):
+    """An evaluation launches the rollout-sample kernel once, then K2."""
+    if launches["rollout_sample"] != launches["fused_iter"]:
+        fail(f"{name}: rollout_sample launched {launches['rollout_sample']} times for "
+             f"{launches['fused_iter']} evaluations")
+
+
 def loop_iterations(iterations, max_iterations):
     """LM iterations the loop of lm_solve ran for a batch whose lanes ran
     `iterations`: it stops at the first check (every DEFAULT_CHECK_EVERY-th
@@ -1031,6 +1238,7 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
     launches = dict(_build.launch_counts)
 
     check_launches(name, launches, DEFAULT_PATH_KERNELS)
+    check_one_sample_per_evaluation(name, launches)
     opt = cfg.optimizer
     dims = ProblemDims.from_config(cfg)
     prev_cursor = torch.zeros_like(carry.plan_start)
@@ -1336,6 +1544,7 @@ def phase_debug_tick(cfg, dev, sc, poses):
     outs, carry = run_ticks(step, sc, poses, carry0)
     launches = dict(_build.launch_counts)
     check_launches("debug_tick", launches, DEBUG_PATH_KERNELS)
+    check_one_sample_per_evaluation("debug_tick", launches)
 
     ran = sum(loop_iterations(aux.solve.iterations, t_len) for _, aux in outs)
     if launches["spd_solve"] != ran:
@@ -1479,7 +1688,7 @@ def phase_latent_tick(cfg, dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
-    check_launches("latent_tick", launches, ("sfm_scan", "bicubic", "propose", "commit"))
+    check_launches("latent_tick", launches, LATENT_PATH_KERNELS)
     check_tick_outputs("latent_tick", lat, cmd, aux)
     if aux.lm_trace is not None:
         fail("latent_tick: a trace without debug_optimizer")
@@ -1552,6 +1761,7 @@ def phase_compacted_tick(cfg, dev, sc, poses, capacity_frac=0.25):
     outs_c, carry_c = run_ticks(compacted, sc, poses, fresh())
     launches = dict(_build.launch_counts)
     check_launches("compacted_tick", launches, DEFAULT_PATH_KERNELS)
+    check_one_sample_per_evaluation("compacted_tick", launches)
     for t, (a, b_) in enumerate(zip(outs_c, outs_p)):
         check_tick_outputs(f"compacted_tick tick {t}", warm, *a)
         same_results(f"compacted_tick tick {t} vs the plain tick", a, b_)
@@ -1631,17 +1841,21 @@ def main():
     launches_compacted = phase_compacted_tick(social, dev, sc, poses)
     phase_timing([("obstacle", obstacle, 0), ("social", social, social.n_agents)], dev)
 
-    # K1-K7 at the social main path's shapes, inputs captured from a real tick.
-    # `launches` is the count on the kernel's own main path: three social
-    # ticks for K1-K6, three debug ticks for K7.
+    # Every kernel at the social main path's shapes, inputs captured from a
+    # real tick. `launches` is the count on the kernel's own path: three
+    # social ticks, three debug ticks for K7, one latent tick for the
+    # standalone K1; the standalone K6 runs on no path (an evaluation runs
+    # it inside rollout_sample, which is held to it).
     cap = capture_iteration(social, with_pose(sc, poses[0]), make_carry(social, B_MAIN, device=dev))
     res = check_all_kernels(social, cap, reps=200)
+    by_path = {"social": launches, "obstacle": launches_obstacle, "debug": launches_debug,
+               "latent": launches_latent, "compacted": launches_compacted}
+    own_path = {k: "social" for k in res} | {"spd_solve": "debug", "bicubic": "latent",
+                                             "rollout_prep": None}
     emit({"kernels": [
-        {"name": k, **KERNEL_INFO[k],
-         "launches": (launches_debug if k == "spd_solve" else launches)[k],
-         "launches_by_path": {"social": launches[k], "obstacle": launches_obstacle[k],
-                              "debug": launches_debug[k], "latent": launches_latent[k],
-                              "compacted": launches_compacted[k]}, **v}
+        {"name": k, **KERNEL_INFO[k], "path": own_path[k],
+         "launches": by_path[own_path[k]][k] if own_path[k] else 0,
+         "launches_by_path": {p: n[k] for p, n in by_path.items()}, **v}
         for k, v in res.items()
     ], "launch_floor_ms": launch_floor_ms(200)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -1,7 +1,8 @@
 """Builds and loads the package's CUDA kernels.
 
 The sources under ``csrc/`` expose a plain C interface (no PyTorch headers),
-so each compiles in seconds (``chol.cuh`` is the one shared header).
+so each compiles in seconds (the headers ``chol.cuh``, ``bicubic.cuh`` and
+``rollout.cuh`` hold the code that two kernels share).
 ``load()`` compiles every ``*.cu`` for Hopper
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
@@ -34,8 +35,8 @@ NVCC_FLAGS = (
 )
 
 launch_counts = {
-    "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "fused_iter": 0, "propose": 0, "commit": 0,
-    "spd_solve": 0,
+    "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "rollout_sample": 0, "fused_iter": 0,
+    "propose": 0, "commit": 0, "spd_solve": 0,
 }
 
 _lock = threading.Lock()
@@ -61,14 +62,18 @@ _SIGNATURES = {
     # u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, NB,
     # dt, front, stream
     "social_mpc_rollout_prep_f32": [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
+    # u, pose0, block_idx, win_origin, resolution, win, planes, sens, B, S,
+    # NB, H, W, dt, front, stream
+    "social_mpc_rollout_sample_f32": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_P],
     # u, g, jtj, radius, lower, upper, u_new, delta, model_change, B, D,
     # min_diagonal, max_diagonal, stream
     "social_mpc_propose_f32": [_P] * 9 + [_I, _I, _F, _F, _P],
     # 16 inputs, 10 outputs, B, D, 7 floats (tolerances...), stream
     "social_mpc_commit_f32": [_P] * 26 + [_I, _I] + [_F] * 7 + [_P],
     # people, rows, n_rows, indexes, origin, resolution, esdf_valid, out,
-    # B, N, S+1, H, W, window, 14 floats (maxtime, dt, SFM parameters...), stream
-    "social_mpc_sfm_scan_f32": [_P] * 8 + [_I] * 6 + [_F] * 14 + [_P],
+    # B, N, S+1, H, W, window, sources per lane, blocks, 14 floats (maxtime,
+    # dt, SFM parameters...), stream
+    "social_mpc_sfm_scan_f32": [_P] * 8 + [_I] * 8 + [_F] * 14 + [_P],
     # a, b, x, N, D, stream
     "social_mpc_spd_solve_f32": [_P, _P, _P, _I, _I, _P],
 }

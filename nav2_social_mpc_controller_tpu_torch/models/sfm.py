@@ -27,7 +27,10 @@ it (core/validate.py holds the sizing rule). No table is cropped for it —
 the index grid is read directly.
 
 ``project_people`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; there is no fallback on the card.
+version only for CPU tensors; there is no fallback on the card. The kernel
+gives a group of scenarios a block: force warps that compute the pair
+forces on parallel lanes and an agent warp for the rest of each agent's
+step; ``scan_geometry`` chooses the groups.
 """
 
 from typing import NamedTuple
@@ -58,6 +61,44 @@ class SFMParams(NamedTuple):
 
 
 DEFAULT_PARAMS = SFMParams()
+
+
+class ScanGeometry(NamedTuple):
+    """K5's launch: a block per group of `scenarios_per_block` scenarios,
+    `force_warps` force warps and one agent warp. In a force warp each
+    agent's N sources (the other agents, then the robot) spread over
+    `lanes_per_agent` lanes, `sources_per_lane` pair forces a lane; the agent
+    warp has a lane for each agent of the block."""
+
+    sources_per_lane: int
+    lanes_per_agent: int
+    lanes_per_scenario: int
+    scenarios_per_warp: int
+    force_warps: int
+    scenarios_per_block: int
+    blocks: int
+
+
+KERNEL_MAX_AGENTS = 8  # csrc/sfm_scan.cu is instantiated for N = 1..8
+
+
+def scan_geometry(n_agents: int, batch: int) -> ScanGeometry:
+    """The launch geometry of the scan for N agents and B scenarios: the
+    fewest sources per lane with which a scenario's force lanes fit in one
+    warp of 32, as many scenarios a force warp as fit, and as many force
+    warps a block as the agent warp has lanes for their agents."""
+    if not 1 <= n_agents <= KERNEL_MAX_AGENTS:
+        raise ValueError(
+            f"project_people: the kernel is built for 1 to {KERNEL_MAX_AGENTS} agents, "
+            f"got {n_agents}"
+        )
+    spl = next(s for s in range(1, n_agents + 1) if n_agents * -(-n_agents // s) <= 32)
+    lpa = -(-n_agents // spl)
+    lps = n_agents * lpa
+    spw = 32 // lps
+    force_warps = 32 // (n_agents * spw)
+    spb = force_warps * spw
+    return ScanGeometry(spl, lpa, lps, spw, force_warps, spb, -(-batch // spb))
 
 
 def lookup_window(esdf_window: int, grid_h: int, grid_w: int) -> int:
@@ -300,13 +341,17 @@ def project_people(
     ):
         _build.check_tensor("project_people", name, t, dtype, shape, init_people.device)
     out = torch.empty((b, s1, n, 6), dtype=f32, device=init_people.device)
+    if b == 0 or n == 0:
+        return out
+    geo = scan_geometry(n, b)
     lib = _build.load()
     with torch.cuda.device(init_people.device):
         err = lib.social_mpc_sfm_scan_f32(
             init_people.data_ptr(), robot_traj.data_ptr(), robot_traj_n.data_ptr(),
             esdf_indexes.data_ptr(), esdf_origin.data_ptr(), esdf_resolution.data_ptr(),
             esdf_valid.data_ptr(), out.data_ptr(),
-            b, n, s1, h, w, lookup_window(esdf_window, h, w), maxtime, dt,
+            b, n, s1, h, w, lookup_window(esdf_window, h, w), geo.sources_per_lane,
+            geo.blocks, maxtime, dt,
             params.lam, params.gamma, params.n, params.n_prime, params.force_factor_social,
             params.force_factor_desired, params.relaxation_time,
             params.force_factor_obstacle, params.force_sigma_obstacle,

@@ -3,12 +3,12 @@ autodiff, with CUDA kernel K2 (``csrc/fused_iter.cu``) on the card.
 
 Counterpart of the JAX package's ``ops/fused_iter.py``. One evaluation is
 
-  1. kernel K6 (ops/rollout_cuda.py): rollout + analytic sensitivities (the
-     unicycle rollout is linear in the per-step integrands, so d(poses)/du is
-     itself a set of prefix sums) and the front-point sample coordinates;
-  2. kernel K1 (ops/bicubic_cuda.py) for the costmap value + row/col
-     derivatives at the rollout front points;
-  3. kernel K2 evaluating every critic's residual AND per-step gradient
+  1. the rollout-sample kernel (ops/rollout_cuda.py ``rollout_sample``):
+     K6's rollout + analytic sensitivities (the unicycle rollout is linear in
+     the per-step integrands, so d(poses)/du is itself a set of prefix sums)
+     with K1's costmap value + row/col derivatives at the rollout front
+     points, in one launch;
+  2. kernel K2 evaluating every critic's residual AND per-step gradient
      (costs/critic_grads.py), chain-contracting them against the
      sensitivities, and accumulating cost, g = J^T r and JtJ = J^T J — J is
      never materialised.
@@ -37,8 +37,11 @@ from nav2_social_mpc_controller_tpu_torch.models.motion import (
     dynamic_horizon,
     expand_blocks,
 )
-from nav2_social_mpc_controller_tpu_torch.ops.bicubic_cuda import bicubic_linearize
-from nav2_social_mpc_controller_tpu_torch.ops.rollout_cuda import rollout_prep, rollout_prep_plain
+from nav2_social_mpc_controller_tpu_torch.ops.rollout_cuda import (
+    rollout_prep,
+    rollout_prep_plain,
+    rollout_sample,
+)
 from nav2_social_mpc_controller_tpu_torch.world.grid import crop_grid_window
 
 _KERNEL_BLOCKS = (3, 6)  # NB values csrc/fused_iter.cu is instantiated for
@@ -350,8 +353,9 @@ class ValueGrad:
     loop: masks, the per-scenario dynamic horizon block map (h_dyn / bl_dyn
     shrink near the goal, optimizer.cpp:248-249), block one-hots and theta
     sensitivities, targets, the agent-angle selection, and the
-    obstacle-window crop around pose_0. A call does the u-dependent part: K6
-    (rollout + sensitivities + sample coordinates), K1, K2.
+    obstacle-window crop around pose_0. A call does the u-dependent part: the
+    rollout-sample kernel (K6's rollout + sensitivities with K1's costmap
+    sample), then K2.
 
     rows (B, maxsize, 6); n_rows (B,); people_proj (B, maxsize, N, 6), the
     SFM projection; present (B,) bool, whether the scenario has a valid
@@ -429,13 +433,12 @@ class ValueGrad:
         return r, self.win, r["row"], r["col"]
 
     def fused_inputs(self, u):
-        """K2's full argument tuple at u (runs K6 and K1)."""
-        r, win, row, col = self.bicubic_inputs(u)
-        val, drow, dcol = bicubic_linearize(win, row, col)
+        """K2's full argument tuple at u (runs the rollout-sample kernel)."""
+        r = rollout_sample(self.win, *self.prep_inputs(u))
         return (
             self.statics, u, r["px"], r["py"], r["pth"], r["v"],
             r["dxdv"], r["dydv"], r["dxdw"], r["dydw"], self.dth, self.eb,
-            val, drow, dcol, self.agents,
+            r["val"], r["d_row"], r["d_col"], self.agents,
             self.m_step, self.m_vel, self.m_social, self.active, self.steer,
             self.refx, self.refy, self.scal, self.vfm,
         )

@@ -15,11 +15,17 @@ with E_b[s] = [block_idx[s] == b] and dtheta_s/dw_b = dt * cum(E_b), which
 does not depend on u and is not an output. Each position step reads theta
 from BEFORE its own update (models/motion.rollout_poses). The outputs are
 what K1 (row, col) and K2 (the rest) consume.
+
+``rollout_sample`` is what an evaluation runs: the same rollout with K1's
+costmap sample at (row, col) in the same launch (``csrc/rollout_sample.cu``),
+returning (val, d_row, d_col) in place of (row, col). ``rollout_prep`` alone
+(K6, ``csrc/rollout_prep.cu``) is the reference it is held to on the card.
 """
 
 import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.ops.bicubic_cuda import bicubic_linearize_plain
 
 _KERNEL_BLOCKS = (3, 6)  # NB values csrc/rollout_prep.cu is instantiated for
 
@@ -117,6 +123,66 @@ def rollout_prep(u, pose0, block_idx, win_origin, resolution, dt, front_offset, 
     return {
         "px": planes[0], "py": planes[1], "pth": planes[2], "v": planes[3],
         "row": planes[4], "col": planes[5],
+        "dxdv": sens[:, 0:nb], "dydv": sens[:, nb : 2 * nb],
+        "dxdw": sens[:, 2 * nb : 3 * nb], "dydw": sens[:, 3 * nb : 4 * nb],
+    }
+
+
+def rollout_sample_plain(win, u, pose0, block_idx, win_origin, resolution, dt, front_offset,
+                         n_blocks):
+    """Plain PyTorch version of the rollout-sample kernel: exactly
+    ``rollout_prep_plain`` followed by ``bicubic_linearize_plain`` at its
+    (row, col)."""
+    r = rollout_prep_plain(u, pose0, block_idx, win_origin, resolution, dt, front_offset,
+                           n_blocks)
+    val, d_row, d_col = bicubic_linearize_plain(win, r.pop("row"), r.pop("col"))
+    return {**r, "val": val, "d_row": d_row, "d_col": d_col}
+
+
+def rollout_sample(win, u, pose0, block_idx, win_origin, resolution, dt, front_offset,
+                   n_blocks):
+    """The rollout, its position sensitivities and the costmap sample
+    (value, d/drow, d/dcol) at each step's front point, in one launch.
+
+    win (B, H, W) is each scenario's costmap window; the other arguments are
+    ``rollout_prep``'s. Returns a dict of px, py, pth, v, val, d_row, d_col
+    (B, S) and dxdv, dydv, dxdw, dydw (B, NB, S; slices of one stack).
+
+    CUDA tensors launch the rollout-sample kernel (float32 only); CPU tensors
+    take the plain version."""
+    args = (u, pose0, block_idx, win_origin, resolution, dt, front_offset, n_blocks)
+    if not u.is_cuda:
+        return rollout_sample_plain(win, *args)
+    nb = n_blocks
+    if nb not in _KERNEL_BLOCKS:
+        raise ValueError(f"rollout_sample: kernel is built for NB in {_KERNEL_BLOCKS}, got {nb}")
+    b, s = block_idx.shape
+    f32 = torch.float32
+    if win.ndim != 3:
+        raise ValueError(f"rollout_sample: expected win (B, H, W), got {tuple(win.shape)}")
+    h, w = win.shape[1:]
+    for name, t, dtype, shape in (
+        ("win", win, f32, (b, h, w)), ("u", u, f32, (b, 2 * nb)), ("pose0", pose0, f32, (b, 3)),
+        ("block_idx", block_idx, torch.int32, (b, s)),
+        ("win_origin", win_origin, f32, (b, 2)), ("resolution", resolution, f32, (b,)),
+    ):
+        _build.check_tensor("rollout_sample", name, t, dtype, shape, u.device)
+
+    planes = torch.empty((7, b, s), device=u.device, dtype=f32)
+    sens = torch.empty((b, 4 * nb, s), device=u.device, dtype=f32)
+    lib = _build.load()
+    with torch.cuda.device(u.device):
+        err = lib.social_mpc_rollout_sample_f32(
+            u.data_ptr(), pose0.data_ptr(), block_idx.data_ptr(), win_origin.data_ptr(),
+            resolution.data_ptr(), win.data_ptr(), planes.data_ptr(), sens.data_ptr(),
+            b, s, nb, h, w, float(dt), float(front_offset),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "rollout_sample")
+    _build.launch_counts["rollout_sample"] += 1
+    return {
+        "px": planes[0], "py": planes[1], "pth": planes[2], "v": planes[3],
+        "val": planes[4], "d_row": planes[5], "d_col": planes[6],
         "dxdv": sens[:, 0:nb], "dydv": sens[:, nb : 2 * nb],
         "dxdw": sens[:, 2 * nb : 3 * nb], "dydw": sens[:, 3 * nb : 4 * nb],
     }

@@ -1,4 +1,4 @@
-"""The port's seven CUDA kernels against their plain PyTorch versions ON THE
+"""The port's CUDA kernels against their plain PyTorch versions ON THE
 CARD, at small shapes chosen for their corner cases (border-clamped and NaN
 coordinates, masked steps and shrunk horizons, scenarios with and without
 valid people, an agent exactly on the robot, a system that is not positive
@@ -21,11 +21,17 @@ with round-to-nearest intrinsics and repeat the plain version operation for
 operation, and K7 and the plain versions keep chol.cuh's order of every sum,
 so K3, K4 and K7 are held to equality of bits (NaN in the same places).
 K5 (the SFM scan) carries float32 rounding through every step of the
-pedestrian dynamics: 1e-4 scale-normalised, its validity column exact.
+pedestrian dynamics: 1e-4 scale-normalised, its validity column exact; its
+branch form of the angle wrap equals the fmodf form bit for bit over every
+float32. The rollout-sample kernel compiles K6's and K1's arithmetic from
+their shared headers and is held to equal bits with K6 then K1.
 """
 
+import ctypes
 import dataclasses
+import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -126,6 +132,99 @@ def test_sfm_scan_kernel_matches_plain(card, name, n_valid, esdf_ok):
         projected = bool((got[:, 1:, :, 3] != -1.0).any())
         assert projected == (n_valid > 0 and esdf_ok)
     assert int(prep.n_rows.min()) < prep.rows.shape[1] - 1
+
+
+def _sfm_case(cfg, card, batch, n_valid):
+    """The SFM scan's arguments and keywords for `batch` scenarios with
+    `n_valid` valid people each, every third robot near its goal."""
+    sc_np = make_scenario_batch(cfg, batch, base_seed=0, n_valid_people=n_valid)
+    pose = np.array(sc_np.robot.pose)
+    for k in range(1, batch, 3):
+        i = int(sc_np.path.n[k]) - 2 - k % 7
+        pose[k] = [*sc_np.path.points[k, i], sc_np.path.yaw[k, i]]
+    sc = scenario_from_numpy(sc_np._replace(robot=sc_np.robot._replace(pose=pose)), device=card)
+    prep = step_pre(cfg, sc, make_carry(cfg, batch, device=card)).prep
+    args = (sc.people.state, prep.rows, prep.n_rows, sc.esdf.indexes, sc.esdf.origin,
+            sc.esdf.resolution, sc.esdf.valid)
+    kw = dict(maxtime=cfg.trajectorizer.max_time, dt=cfg.trajectorizer.time_step,
+              people_desired_vel=cfg.people_desired_vel, people_radius=cfg.people_radius,
+              goal_radius=cfg.goal_radius, esdf_window=cfg.esdf_window_cells)
+    return args, kw
+
+
+@pytest.mark.parametrize("name", ["benchmark_social_config", "benchmark_omni_6agents_config",
+                                  "benchmark_stress_h36_config"])
+def test_sfm_scan_kernel_ignores_batch_position(card, name):
+    """At the three people shapes with every person valid: a scenario's rows
+    do not depend on its warp or its slot in the warp (a rolled batch of 41
+    gives the rolled rows, bit for bit), and the kernel agrees with the plain
+    version, its t column exactly."""
+    cfg = getattr(C, name)()
+    args, kw = _sfm_case(cfg, card, 41, cfg.n_agents)
+    got = K5.project_people(*args, **kw)
+    perm = torch.roll(torch.arange(41, device=card), 5)
+    moved = K5.project_people(*(a.index_select(0, perm).contiguous() for a in args), **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(moved, got[perm])
+    ref = K5.project_people_plain(*args, **kw)
+    assert torch.equal(got[..., 3], ref[..., 3])
+    assert _norm_err(got, ref) <= 1e-4
+    assert bool((got[:, 1:, :, 3] != -1.0).any())
+
+
+def test_sfm_scan_refuses_more_agents_than_it_is_built_for(card):
+    cfg = C.benchmark_social_config()
+    args, kw = _sfm_case(cfg, card, 4, 3)
+    many = args[0].repeat(1, 3, 1)  # N = 9
+    with pytest.raises(ValueError, match="agents"):
+        K5.project_people(many, *args[1:], **kw)
+
+
+WRAP_PROBE = r"""
+#include "sfm_scan.cu"
+
+__device__ __forceinline__ bool same(float a, float b) {
+    return __float_as_uint(a) == __float_as_uint(b) || (a != a && b != b);
+}
+
+// Every float32 bit pattern from `start` on, `count` of them: the branch
+// form against fmodf's, for the remainder and for the wrap built on it.
+__global__ void wrap_sweep(unsigned long long start, unsigned long long count,
+                           unsigned long long* differ) {
+    unsigned long long n = 0;
+    const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+    for (unsigned long long k = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+         k < count; k += stride) {
+        const float x = __uint_as_float((unsigned)(start + k));
+        n += !same(remainder_two_pi(x), remainder_pos(x, kTwoPi));
+        n += !same(wrap_to_pi(x), -(remainder_pos(-x + kPi, kTwoPi) - kPi));
+    }
+    atomicAdd(differ, n);
+}
+
+extern "C" int wrap_sweep_launch(unsigned long long start, unsigned long long count,
+                                 unsigned long long* differ) {
+    wrap_sweep<<<132 * 16, 256>>>(start, count, differ);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def test_wrap_to_pi_branch_form_equals_fmodf_over_every_float(card, tmp_path):
+    """K5's angle wrap without fmodf gives fmodf's bits for every float32
+    (2^32 patterns, NaN against NaN counted equal), so on (-4 pi, 4 pi), where
+    it takes its branches, and beyond, where it calls fmodf."""
+    src, so = tmp_path / "wrap_probe.cu", tmp_path / "wrap_probe.so"
+    src.write_text(WRAP_PROBE)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-shared",
+                    "-o", str(so), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).wrap_sweep_launch
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    differ = torch.zeros(1, dtype=torch.int64, device=card)
+    assert fn(0, 1 << 32, differ.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert int(differ) == 0
 
 
 def _problem(cfg, card, batch=8, n_iters=2, n_valid_people=0):
@@ -276,6 +375,89 @@ def test_rollout_prep_kernel_matches_plain(card, nb, s):
         assert torch.equal(moved[name], got[name][perm]), name
     with pytest.raises(ValueError):
         K6.rollout_prep(u, pose0, block_idx.long(), origin, res, 0.05, 0.25, nb)
+
+
+def _prep_then_sample(win, args):
+    """K6 then K1 on the card, as the evaluation ran them before the
+    rollout-sample kernel: the reference that kernel is held to."""
+    r = K6.rollout_prep(*args)
+    val, d_row, d_col = K1.bicubic_linearize(win, r.pop("row"), r.pop("col"))
+    return {**r, "val": val, "d_row": d_row, "d_col": d_col}
+
+
+@pytest.mark.parametrize("name", ["benchmark_obstacle_only_config", "benchmark_social_config",
+                                  "benchmark_omni_6agents_config", "benchmark_stress_h36_config"])
+def test_rollout_sample_kernel_equals_rollout_prep_then_bicubic(card, name):
+    """At the four default ticks' shapes (S, NB) on a real tick's inputs: the
+    fused kernel's outputs equal K6's then K1's bit for bit, and an
+    evaluation launches it once and K6 / K1 not at all."""
+    cfg = getattr(C, name)()
+    prep, vg, st, _ = _problem(cfg, card, batch=24, n_valid_people=cfg.n_agents)
+    args = vg.prep_inputs(st.u)
+    before = dict(_build.launch_counts)
+    got = K6.rollout_sample(vg.win, *args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["rollout_sample"] == before["rollout_sample"] + 1
+    ref = _prep_then_sample(vg.win, args)
+    assert set(got) == set(ref)
+    for key in ref:
+        assert _same_bits(got[key], ref[key]), key
+    before = dict(_build.launch_counts)
+    vg(st.u)
+    torch.cuda.synchronize()
+    counts = {k: _build.launch_counts[k] - before[k] for k in before}
+    assert counts["rollout_sample"] == 1 and counts["fused_iter"] == 1, counts
+    assert counts["rollout_prep"] == 0 and counts["bicubic"] == 0, counts
+
+
+@pytest.mark.parametrize("nb,s", [(3, 29), (6, 39), (3, 70)])
+def test_rollout_sample_kernel_ragged_batch_and_offset_views(card, nb, s):
+    """B = 4101 (the last block partly empty), a different block map in
+    most scenarios, sample points that straddle the window's borders, and at
+    S = 70 steps past the two chunks a lane keeps in registers: equal
+    bits with K6 then K1, for contiguous inputs and for inputs that are views
+    4 bytes into their storage; a scenario moved to another warp gives the
+    same bits."""
+    from nav2_social_mpc_controller_tpu_torch.models.motion import block_index_sequence_dynamic
+
+    rng = np.random.default_rng(nb * 10 + s)
+    b, h, w = 4101, 64, 64
+    h_dyn = rng.integers(1, 6 * nb + 1, b)
+    bl_dyn = np.minimum(6, h_dyn)
+    block_idx = block_index_sequence_dynamic(
+        s, torch.tensor(h_dyn, device=card), torch.tensor(bl_dyn, device=card)).to(torch.int32)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=card)
+
+    pose0 = rng.uniform(-5, 5, (b, 3))
+    origin = pose0[:, :2] - rng.uniform(0.0, 3.4, (b, 2))  # window of 3.2 m: some points leave it
+    args = (t(rng.uniform(-0.8, 0.8, (b, 2 * nb))), t(pose0), block_idx.contiguous(), t(origin),
+            t(np.full((b,), 0.05)), 0.05, 0.25, nb)
+    win = t(np.rint(rng.uniform(0, 254, (b, h, w))))
+    got = K6.rollout_sample(win, *args)
+    ref = _prep_then_sample(win, args)
+    for key in ref:
+        assert _same_bits(got[key], ref[key]), key
+    assert bool(torch.isfinite(got["val"]).all())
+
+    def offset(x):
+        if not torch.is_tensor(x):
+            return x
+        v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return v.copy_(x)
+
+    shifted = K6.rollout_sample(offset(win), *map(offset, args))
+    perm = torch.roll(torch.arange(b, device=card), 7)
+    moved = K6.rollout_sample(win.index_select(0, perm).contiguous(),
+                              *(a.index_select(0, perm).contiguous() if torch.is_tensor(a) else a
+                                for a in args))
+    torch.cuda.synchronize()
+    for key in ref:
+        assert _same_bits(shifted[key], got[key]), key
+        assert _same_bits(moved[key], got[key][perm]), key
+    with pytest.raises(ValueError):
+        K6.rollout_sample(win, args[0], args[1], block_idx.long(), *args[3:])
 
 
 def _same_bits(got, ref):
@@ -506,9 +688,13 @@ def test_step_on_the_card_launches_every_kernel(card):
     _build.reset_launch_counts()
     cmd, aux, _ = make_step_batch(cfg, device=card)(sc, make_carry(cfg, 4, device=card))
     torch.cuda.synchronize()
-    default_path = {k: n for k, n in _build.launch_counts.items() if k != "spd_solve"}
+    # K7 belongs to the general iteration; K6 and K1 run inside the
+    # rollout-sample kernel, once per evaluation, as K2 does
+    off_path = ("spd_solve", "rollout_prep", "bicubic")
+    default_path = {k: n for k, n in _build.launch_counts.items() if k not in off_path}
     assert all(n > 0 for n in default_path.values()), _build.launch_counts
-    assert _build.launch_counts["spd_solve"] == 0  # K7 belongs to the general iteration
+    assert all(_build.launch_counts[k] == 0 for k in off_path), _build.launch_counts
+    assert _build.launch_counts["rollout_sample"] == _build.launch_counts["fused_iter"]
     assert torch.isfinite(cmd.linear_x).all() and bool(aux.solve.usable.all())
 
     dbg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, debug_optimizer=True))

@@ -188,3 +188,34 @@ def test_esdf_window_rule(name):
     tval.check_esdf_window(cfg, 0.05)
     with pytest.raises(ValueError, match="esdf_window_cells"):
         tval.check_esdf_window(cfg, 0.01)
+
+
+@pytest.mark.parametrize("n,b,want", [
+    (3, 4096, (1, 3, 9, 3, 3, 9, 456)),    # social, stress36: 3 force warps of 3 scenarios
+    (3, 4101, (1, 3, 9, 3, 3, 9, 456)),    # ragged: the last block holds 6
+    (6, 1024, (2, 3, 18, 1, 5, 5, 205)),   # omni6: two sources a lane, 5 force warps
+    (6, 4101, (2, 3, 18, 1, 5, 5, 821)),
+    (1, 37, (1, 1, 1, 32, 1, 32, 2)),
+    (8, 5, (2, 4, 32, 1, 4, 4, 2)),
+])
+def test_scan_geometry(n, b, want):
+    """K5's launch geometry (sources per lane, lanes per agent, force lanes
+    per scenario, scenarios per force warp, force warps per block, scenarios
+    per block, blocks): the fewest sources a lane with which a scenario fits
+    one warp; every source has a lane; the agent warp has a lane for every
+    agent of its block; every scenario a block."""
+    geo = tsfm.scan_geometry(n, b)
+    assert tuple(geo) == want
+    assert geo.sources_per_lane * geo.lanes_per_agent >= n
+    assert geo.lanes_per_scenario * geo.scenarios_per_warp <= 32
+    assert n * geo.scenarios_per_block <= 32 < n * (geo.scenarios_per_block + geo.scenarios_per_warp)
+    assert geo.scenarios_per_block == geo.force_warps * geo.scenarios_per_warp
+    assert geo.blocks * geo.scenarios_per_block >= b > (geo.blocks - 1) * geo.scenarios_per_block
+    if geo.sources_per_lane > 1:  # one source fewer a lane would not fit
+        assert n * -(-n // (geo.sources_per_lane - 1)) > 32
+
+
+@pytest.mark.parametrize("n", [0, 9])
+def test_scan_geometry_refuses_counts_the_kernel_is_not_built_for(n):
+    with pytest.raises(ValueError, match="agents"):
+        tsfm.scan_geometry(n, 8)

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Time variants of the PyTorch/CUDA port's K2, K6 or K3/K4 source against
-each other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds
-them at.
+"""Time variants of the PyTorch/CUDA port's kernel sources against each
+other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds them at.
 
     python3 tools/torch_kernel_variants.py NAME=PATH.cu [NAME=PATH.cu ...]
 
 Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
-`csrc/rollout_prep.cu` (K6) or of `csrc/tr_iter.cu` (K3 propose and K4
-commit), exporting the same C entry points; the kind is told by those entry
-points. The source in the checkout is added as `shipped` (a parent's source
+`csrc/rollout_prep.cu` (K6), of `csrc/tr_iter.cu` (K3 propose and K4
+commit), of `csrc/sfm_scan.cu` (K5) or of `csrc/rollout_sample.cu` (K6's
+rollout with K1's sample), exporting the same C entry points; the kind is
+told by those entry points. The source in the checkout is added as `shipped` (a parent's source
 comes from `git show <commit>:<path>` before the call; a variant file must
-lie inside the copy of the repo, e.g. in a git-ignored directory). The K3/K4
-variants against which `csrc/tr_iter.cu`'s design was chosen are kept in
-`tools/tr_iter_variants/`, each named in its first line. Every
+lie inside the copy of the repo, e.g. in a git-ignored directory). The
+variants against which `csrc/tr_iter.cu`'s and `csrc/sfm_scan.cu`'s designs
+were chosen are kept in `tools/tr_iter_variants/` and
+`tools/sfm_scan_variants/` (those of `csrc/rollout_sample.cu` in
+`tools/rollout_sample_variants/`), each named in its first line. Every
 variant is built with `_build.NVCC_FLAGS` into its own library (all nvcc runs
 started together), the wrappers are pointed at each in turn, and every
 kernel of every variant is timed with `chip_smoke.time_cuda` over 4 rounds,
@@ -28,8 +30,9 @@ K2 and K6 at six shapes:
   stress36_all_valid    stress horizon (D = 12, S = 39), B = 1024, likewise
   stress36_people_free  stress horizon, B = 1024, no person
 
-K3 and K4 (both timed in each turn) at the four default ticks' shapes, one
-width of the compaction ladder and a ragged batch:
+K3 and K4 (both timed in each turn), K5 and the rollout sample at the four
+default ticks' shapes, one width of the compaction ladder and a ragged
+batch:
 
   social_main           social config, B = 4096, D = 6, 3 valid people
   obstacle_main         obstacle config, B = 4096, D = 6
@@ -44,8 +47,11 @@ usage per variant, the launch floor (`time_cuda` of an empty
 per round), min_ms, err, tol}]}, where err is K2's scale-normalised error
 against its plain version, K6's share of its allowance, or for K3/K4 the
 number of output elements whose bits differ from the plain version's (NaN
-against NaN counted equal; tolerance 0); then the nvidia-smi name and power
-limit. Exits with a code other than 0 if a variant does not build or exceeds
+against NaN counted equal; tolerance 0), K5's scale-normalised error against
+its plain version (inf where its t column differs), and for the rollout
+sample the number of elements whose bits differ from K6 then K1 on the card,
+which are also timed, as `k6_then_k1`, in every turn; then the nvidia-smi
+name and power limit. Exits with a code other than 0 if a variant does not build or exceeds
 its kernel's tolerance.
 """
 
@@ -66,6 +72,8 @@ KINDS = {
     "fused_iter": ("social_mpc_fused_iter_f32",),
     "rollout_prep": ("social_mpc_rollout_prep_f32",),
     "tr_iter": ("social_mpc_propose_f32", "social_mpc_commit_f32"),
+    "sfm_scan": ("social_mpc_sfm_scan_f32",),
+    "rollout_sample": ("social_mpc_rollout_sample_f32",),
 }
 ROUNDS = 4
 REPS = 200
@@ -130,11 +138,12 @@ def captures(kind):
     def cap(cfg, batch, n_valid, near_goal=False):
         sc, poses = cs.make_batch(cfg, batch, "cuda", n_valid_people=n_valid)
         pose = cs.near_goal_every(sc, poses[0]) if near_goal else poses[0]
-        return cs.capture_iteration(cfg, cs.with_pose(sc, pose), make_carry(cfg, batch, device="cuda"))
+        c = cs.capture_iteration(cfg, cs.with_pose(sc, pose), make_carry(cfg, batch, device="cuda"))
+        return {**c, "cfg": cfg}
 
     social, obstacle = C.benchmark_social_config(), C.benchmark_obstacle_only_config()
     omni6, stress = C.benchmark_omni_6agents_config(), C.benchmark_stress_h36_config()
-    if kind == "tr_iter":
+    if kind in ("tr_iter", "sfm_scan", "rollout_sample"):
         return {
             "social_main": cap(social, cs.B_MAIN, 3),
             "obstacle_main": cap(obstacle, cs.B_MAIN, 0),
@@ -155,6 +164,7 @@ def captures(kind):
 
 def kernels(kind):
     """[(kernel, its wrapper on a capture, its plain version on a capture)]"""
+    from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
     from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
     from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
     from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
@@ -165,28 +175,16 @@ def kernels(kind):
     if kind == "rollout_prep":
         return [("rollout_prep", lambda c: K6.rollout_prep(*c["rollout_prep"]),
                  lambda c: K6.rollout_prep_plain(*c["rollout_prep"]))]
+    if kind == "sfm_scan":
+        return [("sfm_scan", lambda c: K5.project_people(*c["sfm"], **cs.sfm_keywords(c["cfg"])),
+                 lambda c: K5.project_people_plain(*c["sfm"], **cs.sfm_keywords(c["cfg"])))]
+    if kind == "rollout_sample":
+        return [("rollout_sample", lambda c: K6.rollout_sample(c["bicubic"][0], *c["rollout_prep"]),
+                 lambda c: cs.prep_then_sample(c["bicubic"][0], c["rollout_prep"]))]
     return [("propose", lambda c: K34.propose(c["lm_cfg"], *c["propose"]),
              lambda c: K34.propose_plain(c["lm_cfg"], *c["propose"])),
             ("commit", lambda c: K34.commit(c["lm_cfg"], *c["commit"]),
              lambda c: K34.commit_plain(c["lm_cfg"], *c["commit"]))]
-
-
-def bits_differ(got, ref):
-    """Number of elements whose bits differ (NaN against NaN counted equal)."""
-    import torch
-
-    n = 0
-    for a, b in zip(got, ref):
-        if a.dtype != b.dtype or a.shape != b.shape:
-            return float("inf")
-        if a.is_floating_point():
-            nan = torch.isnan(a)
-            n += int((nan != torch.isnan(b)).sum())
-            both = ~(nan | torch.isnan(b))
-            n += int((a.view(torch.int32) != b.view(torch.int32))[both].sum())
-        else:
-            n += int((a != b).sum())
-    return float(n)
 
 
 def error(kernel, got, ref):
@@ -194,7 +192,13 @@ def error(kernel, got, ref):
         return max(cs.norm_err(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))[0]
                    for a, b in zip(got, ref))
     if kernel in ("propose", "commit"):
-        return bits_differ(got, ref)
+        return cs.bits_differ(got, ref)
+    if kernel == "rollout_sample":
+        return cs.bits_differ([got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)])
+    if kernel == "sfm_scan":
+        if not bool((got[..., 3] == ref[..., 3]).all()):
+            return float("inf")
+        return cs.norm_err(got, ref)[0]
     share = 0.0
     for name, r in ref.items():
         atol = cs.K6_ATOL_ROWCOL if name in ("row", "col") else cs.K6_ATOL
@@ -204,7 +208,7 @@ def error(kernel, got, ref):
 
 
 def tolerance(kernel, cap):
-    if kernel in ("propose", "commit"):
+    if kernel in ("propose", "commit", "rollout_sample"):
         return 0.0
     if kernel == "fused_iter" and bool(cap["fused"][18].any()):
         return cs.TOL["fused_iter_people"]
@@ -223,20 +227,26 @@ def main():
     cs.emit({"ptxas": usage})
     cs.emit({"launch_floor_ms": cs.launch_floor_ms(REPS)})
     times, errs, tols = collections.defaultdict(list), {}, {}
+    full = _build.load()  # the checkout's library: every entry point
     order = list(libs)
+    if kind == "rollout_sample":  # the two launches it replaces, in turns with it
+        libs["k6_then_k1"] = full
+        order.append("k6_then_k1")
     try:
         for shape, cap in captures(kind).items():
             for kernel, run, plain in kernels(kind):
+                _build._lib = full
                 ref = plain(cap)
                 tols[(shape, kernel)] = tolerance(kernel, cap)
                 for rnd in range(ROUNDS):
                     for name in (order if rnd % 2 == 0 else order[::-1]):
                         _build._lib = libs[name]
+                        fn = (lambda: plain(cap)) if name == "k6_then_k1" else (lambda: run(cap))
                         if rnd == 0:
-                            errs[(shape, kernel, name)] = error(kernel, run(cap), ref)
-                        times[(shape, kernel, name)].append(cs.time_cuda(lambda: run(cap), REPS))
+                            errs[(shape, kernel, name)] = error(kernel, fn(), ref)
+                        times[(shape, kernel, name)].append(cs.time_cuda(fn, REPS))
     finally:
-        _build._lib = None
+        _build._lib = full
     torch.cuda.synchronize()
     table = [{"shape": s, "kernel": k, "variant": n, "ms": v, "min_ms": min(v),
               "err": errs[(s, k, n)], "tol": tols[(s, k)]} for (s, k, n), v in times.items()]
