@@ -8,7 +8,8 @@ configuration (three valid people per scenario) and on the obstacle-only one,
 B = 4096 scenarios with 120x120 grids, three ticks with the warm-start carry
 fed back, then one tick each of the six-agent and the stress-horizon
 configurations at B = 1024 — and the general paths: the debug-trace tick
-(the general LM iteration, kernel K7), a Jacobi-scaled solve, a latent-critic
+(the general LM iteration, K7's damped step) on the social and the
+stress-horizon configurations, a Jacobi-scaled solve, a latent-critic
 tick (the autodiff residual path) and the compacted warm-start tick — through
 the eight hand-written CUDA kernels (an evaluation's rollout and costmap
 sample run as one, rollout_sample), and checks them. Phases, each printing
@@ -33,10 +34,17 @@ one JSON line:
   main_path  one line per path: launch counts, status, bounds, cursor, the
              people projection; for the 3-tick paths agreement of 64
              scenarios with the port's plain path on the CPU in float32
-  debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks:
-             K7 launched once per LM iteration run, K3/K4 never; the trace's
-             invariants; every result equal to the plain tick's, bit for bit
+  debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks,
+             then stress36 (D = 12) at B = 1024, 1 tick: K7's damped step
+             launched once per LM iteration run, K3/K4 never; the trace's
+             invariants; every result equal to the plain tick's, bit for
+             bit; the first tick's solve through a caller's linear_solve
+             (K7's standalone solve in the plain composition) equal to it
+             bit for bit; device launches and busy ms per tick and per loop
+             iteration of both solves
   jacobi     the same prepared problems through lm_solve with Jacobi scaling
+             (the damped step with the scale), and through a caller's
+             linear_solve, bit for bit; launches and busy ms of both
   latent_tick  social config with pure_angle_weight and curvature_weight,
              B = 1024, one tick through the residual path (K1 launched by the
              differentiable costmap sample, K2 never); and the residual
@@ -48,7 +56,9 @@ one JSON line:
              and the social configuration, tick breakdown, launches, memory
   kernels    every kernel at the social main path's shapes (inputs captured from a
              real tick): error vs the plain version against a stated
-             tolerance, kernel / plain / library ms, the bound, launches;
+             tolerance, kernel / plain / library ms, the bound, launches (K7:
+             its damped step with and without the Jacobi scale and its
+             standalone solve under `entries`);
              beside them the launch floor, an almost empty kernel timed the
              same way
 
@@ -457,7 +467,7 @@ def near_goal_every(sc, pose, every=4):
 def capture_iteration(cfg, sc, carry, n_iters=3):
     """Inputs of K1-K7 as a real tick hands them over: the problem of this
     scenario batch, advanced `n_iters` LM iterations, then one more
-    iteration taken apart."""
+    iteration taken apart; the Jacobi scale from the problem's first JtJ."""
     from nav2_social_mpc_controller_tpu_torch.controller.controller import fov_filter, step_pre
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims, make_lm_config
     from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import build_value_grad
@@ -470,6 +480,7 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
                           prep.people_present, prep.costmap)
     b = prep.u0.shape[0]
     cost, g, jtj = vg(prep.u0)
+    jac_scale = lm.jacobi_scale(jtj)  # frozen at iteration 0, as lm_solve does
     st = lm.LMState(
         u=prep.u0, cost=cost, g=g, jtj=jtj,
         radius=torch.full((b,), lm_cfg.initial_radius, device=cost.device),
@@ -493,7 +504,10 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
         "lm_cfg": lm_cfg, "dims": dims, "bicubic": (win, row.contiguous(), col.contiguous()),
         "sfm": sfm_inputs(sc, people.state, prep), "rollout_prep": prep_in,
         "fused": fused_in, "propose": propose_in, "commit": commit_in,
-        # the damped normal equations the general iteration hands to K7
+        # the damped step of the general iteration takes propose's inputs
+        # (and the Jacobi scale); a caller's linear_solve gets the damped
+        # normal equations
+        "jac_scale": jac_scale,
         "spd_solve": tuple(t.contiguous() for t in cuda_iter.damped_system(
             lm_cfg, st.g, st.jtj, st.radius)),
     }
@@ -508,8 +522,10 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # sums in another order than the plain version, so they differ by float32
 # rounding of 16-term (K1) and ~150-term (K2) sums. K3/K4 are written with
 # round-to-nearest intrinsics that are never contracted and repeat the plain
-# version operation for operation: expected 0, gated at 1e-6; so is K7, which
-# shares K3's Cholesky solve (csrc/chol.cuh). K5 (SFM scan)
+# version operation for operation: expected 0, gated at 1e-6. K7 compiles
+# K3's bodies (csrc/damped_step.cuh) and chol.cuh's solve: its two entries are
+# held to equal bits with their plain versions (NaN in the same places), its
+# error the number of output elements whose bits differ, tolerance 0. K5 (SFM scan)
 # carries FMA contraction and CUDA's own atan2f/expf/sinf/cosf through up to
 # 39 steps of the pedestrian dynamics, and the angular velocity divides a yaw
 # difference by the time step; its t column (validity) must be exact. K2 with
@@ -526,7 +542,7 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # error is the number of output elements whose bits differ from K6's then
 # K1's on the card (NaN against NaN counted equal), tolerance 0.
 TOL = {"sfm_scan": 1e-4, "rollout_prep": 1.0, "bicubic": 1e-5, "fused_iter": 1e-5,
-       "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 1e-6,
+       "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 0,
        "rollout_sample": 0}
 K6_RTOL, K6_ATOL, K6_ATOL_ROWCOL = 2e-5, 1e-5, 2e-4
 
@@ -833,7 +849,7 @@ def check_propose(lm_cfg, args, reps):
     return {
         "shape": f"B={b} D={d}",
         "max_err": max(e[0] for e in errs), "max_abs_err": max(e[1] for e in errs),
-        "tol": TOL["propose"],
+        "tol": TOL["propose"], "bits_differ": bits_differ(got, ref),
         "ms": time_cuda(lambda: K.propose(lm_cfg, *args), reps),
         "host_ms": time_host(lambda: K.propose(lm_cfg, *args), reps),
         "plain_ms": time_cuda(lambda: K.propose_plain(lm_cfg, *args), 3, warm=1),
@@ -894,13 +910,32 @@ def check_commit(lm_cfg, args, reps):
     }
 
 
-def check_spd_solve(a, b, reps):
+def damped_step_bytes(args, jac_scale=None):
+    """Bytes K7's damped step must move: u, g, JtJ, radius, lower, upper and
+    the scale read once; u_new, delta and the model change written once."""
+    scale = () if jac_scale is None else (jac_scale,)
+    return nbytes(*args, *scale) + nbytes(args[0], args[0], args[3])
+
+
+def damped_step_bound(args, jac_scale=None):
+    """Least time of K7's damped step: damped_step_bytes against its
+    operations, as propose's (D^3/3 for the factorisation, 6 D^2 + 10 D for
+    the substitutions, damping, projection and model change; D^2 + 2 D more
+    for the scaling)."""
+    b, d = args[0].shape
+    flops = d**3 / 3.0 + 6.0 * d * d + 10.0 * d + (0 if jac_scale is None else d * d + 2.0 * d)
+    return bound(damped_step_bytes(args, jac_scale), b * flops)
+
+
+def check_spd_solve_system(a, b, reps):
+    """K7's standalone entry, spd_solve(a, b), against spd_solve_plain:
+    elements whose bits differ (NaN against NaN counted equal), device, host
+    and plain ms, the library's solve of the same systems, the bound."""
     from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
 
     got = K7.spd_solve(a, b)
     ref = K7.spd_solve_plain(a, b)
     torch.cuda.synchronize()
-    err = norm_err(got, ref)  # inf unless NaN sits in the same places on both sides
     n, d = b.shape
     # Bytes: a and b read once, x written once ((D*D + 2*D) * 4 per system).
     # Operations: D^3/3 for the factorisation, 2*D^2 for the substitutions.
@@ -914,11 +949,68 @@ def check_spd_solve(a, b, reps):
 
     return {
         "shape": f"N={n} D={d}", "non_finite_systems": int((~torch.isfinite(ref)).any(dim=1).sum()),
-        "max_err": err[0], "max_abs_err": err[1], "tol": TOL["spd_solve"],
+        "max_err": bits_differ([got], [ref]), "max_abs_err": norm_err(got, ref)[1],
+        "tol": TOL["spd_solve"],
         "ms": time_cuda(lambda: K7.spd_solve(a, b), reps),
         "host_ms": time_host(lambda: K7.spd_solve(a, b), reps),
         "plain_ms": time_cuda(lambda: K7.spd_solve_plain(a, b), 3, warm=1),
         "bound_ms": bnd, "bound_by": by, "library_ms": time_cuda(library, max(reps // 10, 3)),
+    }
+
+
+def check_spd_solve(lm_cfg, cap, reps):
+    """K7 at a capture: the damped step (the general iteration's entry)
+    without and with the Jacobi scale, each against damped_step_plain and
+    beside the parent's way of taking it (damped_system, the standalone
+    solve, the map-back and project_step: `composition_ms`); then the
+    standalone entry on the damped normal equations. The row's own numbers
+    are the unscaled damped step's, the debug tick's entry; `max_err` counts
+    the elements of all three whose bits differ from their plain versions."""
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
+
+    args = cap["propose"]
+    u, g, jtj, radius, lower, upper = args
+    b, d = u.shape
+
+    def composition(jac):
+        a, rhs = K.damped_system(lm_cfg, g, jtj, radius, jac)
+        step = K7.spd_solve(a.contiguous(), rhs.contiguous())
+        if jac is not None:
+            step = jac * step
+        return K.project_step(u, step, g, jtj, lower, upper)
+
+    entries = {}
+    for name, jac in (("damped_step", None), ("damped_step_jacobi", cap["jac_scale"])):
+        got = K.damped_step(lm_cfg, *args, jac)
+        ref = K.damped_step_plain(lm_cfg, *args, jac)
+        torch.cuda.synchronize()
+        bnd, by = damped_step_bound(args, jac)
+        entries[name] = {
+            "bits_differ": bits_differ(got, ref),
+            "bits_differ_from_composition": bits_differ(got, composition(jac)),
+            "max_abs_err": max(norm_err(x.reshape(b, -1), y.reshape(b, -1))[1]
+                               for x, y in zip(got, ref)),
+            "ms": time_cuda(lambda: K.damped_step(lm_cfg, *args, jac), reps),
+            "host_ms": time_host(lambda: K.damped_step(lm_cfg, *args, jac), reps),
+            "plain_ms": time_cuda(lambda: K.damped_step_plain(lm_cfg, *args, jac), 3, warm=1),
+            "composition_ms": time_cuda(lambda: composition(jac), max(reps // 10, 3)),
+            "bound_ms": bnd, "bound_by": by,
+        }
+    system = check_spd_solve_system(*cap["spd_solve"], reps)
+    entries["spd_solve"] = system
+    main = entries["damped_step"]
+    return {
+        "shape": f"B={b} D={d}",
+        "max_err": sum(e["bits_differ"] + e["bits_differ_from_composition"]
+                       for e in entries.values() if "bits_differ" in e) + system["max_err"],
+        "max_abs_err": max(main["max_abs_err"], entries["damped_step_jacobi"]["max_abs_err"],
+                           system["max_abs_err"]),
+        "tol": TOL["spd_solve"],
+        **{k: main[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
+        # the library's factorisation and solve of the damped system, as K3's row
+        "library_ms": system["library_ms"],
+        "entries": entries,
     }
 
 
@@ -956,7 +1048,7 @@ KERNEL_INFO = {
     },
     "spd_solve": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
-        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93", "redesigned": "PR 7",
     },
 }
 
@@ -979,12 +1071,15 @@ def check_all_kernels(cfg, cap, reps):
         "fused_iter": check_fused(cap["fused"], reps),
         "propose": check_propose(cap["lm_cfg"], cap["propose"], reps),
         "commit": check_commit(cap["lm_cfg"], cap["commit"], reps),
-        "spd_solve": check_spd_solve(*cap["spd_solve"], reps),
+        "spd_solve": check_spd_solve(cap["lm_cfg"], cap, reps),
     }
     for name, r in out.items():
         if not r["max_err"] <= r["tol"]:
             fail(f"kernel {name} disagrees with its plain version at {r['shape']}: "
-                 f"scale-normalised error {r['max_err']:.3e} > tolerance {r['tol']:.1e}")
+                 f"error {r['max_err']:.3e} > tolerance {r['tol']:.1e}")
+    if out["propose"]["bits_differ"] != 0:  # K3 compiles the damped step's bodies
+        fail(f"kernel propose: {out['propose']['bits_differ']:.0f} elements with other bits "
+             f"than its plain version at {out['propose']['shape']}")
     return out
 
 
@@ -1076,17 +1171,18 @@ def phase_shapes(dev):
     s70 = check_bicubic(win, row, col, reps=50)
     if not s70["max_err"] <= s70["tol"]:
         fail(f"kernel bicubic disagrees at S=70: {s70['max_err']:.3e} > {s70['tol']:.1e}")
-    # K7 on random SPD systems with a few that are not positive definite: NaN
-    # in the same places on both sides (norm_err is inf otherwise).
+    # K7's standalone solve on random SPD systems with a few that are not
+    # positive definite: the same bits, NaN in the same places on both sides.
     mixed = []
     for d in (6, 12):
         m = torch.randn((B_MAIN, d, d), device=dev, generator=gen)
         a = m @ m.transpose(1, 2) + 0.5 * torch.eye(d, device=dev)
         a[::97] = -a[::97]
-        r = check_spd_solve(a.contiguous(), torch.randn((B_MAIN, d), device=dev, generator=gen), reps=50)
+        r = check_spd_solve_system(
+            a.contiguous(), torch.randn((B_MAIN, d), device=dev, generator=gen), reps=50)
         if not r["max_err"] <= r["tol"] or r["non_finite_systems"] != len(range(0, B_MAIN, 97)):
-            fail(f"kernel spd_solve on random systems at D={d}: error {r['max_err']:.3e}, "
-                 f"{r['non_finite_systems']} non-finite systems")
+            fail(f"kernel spd_solve on random systems at D={d}: {r['max_err']:.0f} elements with "
+                 f"other bits, {r['non_finite_systems']} non-finite systems")
         mixed.append({"name": "spd_solve", "systems": "random SPD, every 97th negated", **r})
     # The rollout-sample kernel at the obstacle tick's shape and on a ragged
     # batch (the other default ticks' shapes are held with the people).
@@ -1522,16 +1618,69 @@ def same_results(where, a, b):
                  f"of {x.shape[0]} lanes")
 
 
-def phase_debug_tick(cfg, dev, sc, poses):
+def general_solve_vs_composition(where, cfg, lm_cfg, dev, sc, pose, trace_len):
+    """One tick's prepared problems solved by the general iteration twice:
+    through K7's damped step (default_linear_solve, one launch an
+    iteration) and through a caller's linear_solve that is K7's standalone
+    solve (the composition of plain damping, solve, map-back and projection
+    at full width). Fails unless both give the same bits (solution,
+    statistics and trace). Returns the launch counts of the first, the loop
+    iterations it ran, for each device launches and busy ms of the solve
+    (torch.profiler) and per iteration of the loop, and the first's result."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import build_value_grad
+    from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import spd_solve
+    from nav2_social_mpc_controller_tpu_torch.solver.lm import default_linear_solve, lm_solve
+
+    batch = pose.shape[0]
+    with torch.no_grad():
+        prep = step_pre(cfg, with_pose(sc, pose), make_carry(cfg, batch, device=dev)).prep
+        vg = build_value_grad(cfg, prep)
+
+        def solve(linear_solve):
+            return lm_solve(vg, prep.u0, prep.lower, prep.upper, lm_cfg,
+                            linear_solve=linear_solve, trace_len=trace_len)
+
+        def leaves(out):
+            return [out[0], *out[1], *(out[2] if trace_len else ())]
+
+        _build.reset_launch_counts()
+        fused = solve(default_linear_solve)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        composed = solve(spd_solve)  # a caller's solve: not default_linear_solve
+        torch.cuda.synchronize()
+        differ = bits_differ(leaves(fused), leaves(composed))
+        if differ != 0:
+            fail(f"{where}: the solve through the damped step and through a caller's "
+                 f"linear_solve (K7's standalone solve) differ in {differ:.0f} elements")
+        ran = loop_iterations(fused[1].iterations, lm_cfg.max_iterations)
+        profiles = {}
+        for name, ls in (("damped_step", default_linear_solve), ("composition", spd_solve)):
+            n_dev, dev_ms, _ = count_device_launches(lambda: solve(ls))
+            profiles[name] = {
+                "device_launches": n_dev, "device_busy_ms": dev_ms,
+                "device_launches_per_loop_iteration": None if n_dev is None else n_dev / ran,
+                "device_busy_ms_per_loop_iteration": None if dev_ms is None else dev_ms / ran,
+            }
+    return launches, ran, {"loop_iterations": ran, "bit_equal": True, **profiles}, fused
+
+
+def phase_debug_tick(name, cfg, dev, sc, poses):
     """The debug-trace tick at full width: `cfg` with debug_optimizer=True on
-    the batch the main path solved, 3 ticks with the carry fed back. The
-    general LM iteration launches K7 once per iteration the loop runs and
-    K3/K4 never; it repeats the default iteration's arithmetic, so every
-    result must equal the plain tick's bit for bit (the gate ROADMAP.md
-    defines — lanes that stopped after the same number of iterations within
-    1e-3 — is implied and checked first). Returns the launch counts."""
+    the batch the main path solved, the main path's ticks with the carry fed
+    back. The general LM iteration launches K7's damped step once per
+    iteration the loop runs and K3/K4 never; it repeats the default
+    iteration's arithmetic, so every result must equal the plain tick's bit
+    for bit (the gate ROADMAP.md defines — lanes that stopped after the same
+    number of iterations within 1e-3 — is implied and checked first). Then
+    the first tick's solve through a caller's linear_solve (K7's standalone
+    solve) against the damped step (general_solve_vs_composition). Returns
+    the launch counts."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step_batch
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import make_lm_config
 
     batch = sc.robot.pose.shape[0]
     dbg = replace_optimizer(cfg, debug_optimizer=True)
@@ -1543,74 +1692,83 @@ def phase_debug_tick(cfg, dev, sc, poses):
     _build.reset_launch_counts()
     outs, carry = run_ticks(step, sc, poses, carry0)
     launches = dict(_build.launch_counts)
-    check_launches("debug_tick", launches, DEBUG_PATH_KERNELS)
-    check_one_sample_per_evaluation("debug_tick", launches)
+    where = f"debug_tick {name}"
+    check_launches(where, launches, DEBUG_PATH_KERNELS)
+    check_one_sample_per_evaluation(where, launches)
 
     ran = sum(loop_iterations(aux.solve.iterations, t_len) for _, aux in outs)
     if launches["spd_solve"] != ran:
-        fail(f"debug_tick: spd_solve launched {launches['spd_solve']} times, the LM loops ran "
+        fail(f"{where}: spd_solve launched {launches['spd_solve']} times, the LM loops ran "
              f"{ran} iterations")
     apart_lanes, worst_same = 0, 0.0
     for t, ((cmd, aux), (cmd_p, aux_p)) in enumerate(zip(outs, plain_outs)):
-        check_tick_outputs(f"debug_tick tick {t}", dbg, cmd, aux)
+        check_tick_outputs(f"{where} tick {t}", dbg, cmd, aux)
         trace = aux.lm_trace
         if trace is None or tuple(trace.cost.shape) != (batch, t_len):
-            fail(f"debug_tick tick {t}: no (B, {t_len}) trace")
+            fail(f"{where} tick {t}: no (B, {t_len}) trace")
         iters = aux.solve.iterations.long()
         col = torch.arange(t_len, device=dev)[None, :]
         beyond = col >= iters[:, None]
         for field, buf in zip(trace._fields, trace):
             if bool(buf[beyond].any()):
-                fail(f"debug_tick tick {t}: trace.{field} is not zero beyond a lane's iteration count")
+                fail(f"{where} tick {t}: trace.{field} is not zero beyond a lane's iteration count")
         if not torch.equal(trace.cost[:, 0], aux.solve.initial_cost):
-            fail(f"debug_tick tick {t}: trace.cost[:, 0] is not the initial cost")
+            fail(f"{where} tick {t}: trace.cost[:, 0] is not the initial cost")
         # The cost falls exactly on accepted rows and stays on rejected ones.
         inside = (col[:, 1:] < iters[:, None])
         fell = trace.cost[:, 1:] < trace.cost[:, :-1]
         same = trace.cost[:, 1:] == trace.cost[:, :-1]
         if not bool((torch.where(trace.accepted[:, :-1], fell, same) | ~inside).all()):
-            fail(f"debug_tick tick {t}: the traced cost does not fall exactly on accepted rows")
+            fail(f"{where} tick {t}: the traced cost does not fall exactly on accepted rows")
         if not bool(trace.accepted.any(dim=1).all()):
-            fail(f"debug_tick tick {t}: a lane accepted no step")
+            fail(f"{where} tick {t}: a lane accepted no step")
         delta = torch.maximum((cmd.linear_x - cmd_p.linear_x).abs(),
                               (cmd.angular_z - cmd_p.angular_z).abs())
         same_iters = aux.solve.iterations == aux_p.solve.iterations
         apart_lanes += int((~same_iters).sum())
         worst_same = max(worst_same, float(delta[same_iters].max()))
         if not worst_same <= 1e-3:
-            fail(f"debug_tick tick {t}: a lane that stopped after the same number of iterations "
+            fail(f"{where} tick {t}: a lane that stopped after the same number of iterations "
                  f"as on the plain tick differs by {worst_same:.3e} > 1e-3")
-        same_results(f"debug_tick tick {t} vs the plain tick", (cmd, aux), (cmd_p, aux_p))
+        same_results(f"{where} tick {t} vs the plain tick", (cmd, aux), (cmd_p, aux_p))
     for x, y in zip(carry, plain_carry):
         if not torch.equal(x, y):
-            fail("debug_tick: the carry differs from the plain ticks' carry")
+            fail(f"{where}: the carry differs from the plain ticks' carry")
 
     def fresh():
         return make_carry(cfg, batch, device=dev)
 
     ms = time_ticks(step, sc, poses, fresh)
     n_dev, dev_ms = profile_last_tick(step, sc, poses, fresh)
+    _, _, vs_caller, _ = general_solve_vs_composition(
+        where, dbg, make_lm_config(dbg.optimizer), dev, sc, poses[0], t_len)
+    ran_last = loop_iterations(outs[-1][1].solve.iterations, t_len)
     emit({
-        "phase": "debug_tick", "config": "social + debug_optimizer", "batch": batch,
+        "phase": "debug_tick", "config": f"{name} + debug_optimizer", "batch": batch,
         "ticks": len(outs), "launches": launches, "lm_loop_iterations": ran,
         "ms_per_tick": float(np.mean(ms)), "ms_per_tick_min": float(np.min(ms)),
         "device_launches_per_tick": n_dev, "device_busy_ms_per_tick": dev_ms,
+        "lm_loop_iterations_last_tick": ran_last,
+        "device_launches_per_loop_iteration_last_tick": None if n_dev is None else n_dev / ran_last,
         "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean()) for _, a in outs],
         "vs_plain_tick": {"lanes_with_other_iteration_count": apart_lanes,
                           "cmd_delta_max_same_iterations": worst_same, "bit_equal": True},
+        "first_tick_solve_vs_caller_linear_solve": vs_caller,
     })
     return launches
 
 
 def phase_jacobi(cfg, dev, sc, pose):
     """A Jacobi-scaled solve of the prepared problems of one tick
-    (LMConfig(jacobi_scaling=True) through lm_solve: the general iteration on
-    the column-scaled system), beside the unscaled general solve. Gated: all
-    lanes usable, the solution inside its box. The share of lanes with the
-    unscaled solve's iteration count is printed, not gated (scaling is a
-    no-op only where the diagonal clamp binds in neither space, and
-    cap-bound lanes chatter at float32)."""
-    from nav2_social_mpc_controller_tpu_torch import _build
+    (LMConfig(jacobi_scaling=True) through lm_solve: the general iteration,
+    K7's damped step with the scale, once per loop iteration), beside the
+    unscaled general solve; and the same scaled solve through a caller's
+    linear_solve (K7's standalone solve in the plain composition), which must
+    give the same bits. Gated: all lanes usable, the solution inside its box.
+    The share of lanes with the unscaled solve's iteration count is printed,
+    not gated (scaling is a no-op only where the diagonal clamp binds in
+    neither space, and cap-bound lanes chatter at float32). Returns the
+    scaled solve's launch counts."""
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
         build_value_grad, make_lm_config,
@@ -1619,18 +1777,17 @@ def phase_jacobi(cfg, dev, sc, pose):
 
     batch = pose.shape[0]
     lm_cfg = make_lm_config(cfg.optimizer)
+    jac_cfg = lm_cfg._replace(jacobi_scaling=True)
+    launches, ran, vs_caller, (u_jac, s_jac) = general_solve_vs_composition(
+        "jacobi", cfg, jac_cfg, dev, sc, pose, 0)
     with torch.no_grad():
         prep = step_pre(cfg, with_pose(sc, pose), make_carry(cfg, batch, device=dev)).prep
         vg = build_value_grad(cfg, prep)
         u_gen, s_gen, _ = lm_solve(vg, prep.u0, prep.lower, prep.upper, lm_cfg,
                                    trace_len=lm_cfg.max_iterations)
-        _build.reset_launch_counts()
-        u_jac, s_jac = lm_solve(vg, prep.u0, prep.lower, prep.upper,
-                                lm_cfg._replace(jacobi_scaling=True))
         torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
-    if launches["spd_solve"] != loop_iterations(s_jac.iterations, lm_cfg.max_iterations):
-        fail(f"jacobi: spd_solve launched {launches['spd_solve']} times")
+    if launches["spd_solve"] != ran:
+        fail(f"jacobi: spd_solve launched {launches['spd_solve']} times, the loop ran {ran}")
     if launches["propose"] or launches["commit"]:
         fail("jacobi: the scaled solve went through propose/commit")
     if not bool(s_jac.usable.all()):
@@ -1640,6 +1797,7 @@ def phase_jacobi(cfg, dev, sc, pose):
     delta = (u_jac - u_gen).abs().max(dim=1).values
     emit({
         "phase": "jacobi", "batch": batch, "launches_spd_solve": launches["spd_solve"],
+        "launches": launches,
         "mean_lm_iterations": {"scaled": float(s_jac.iterations.float().mean()),
                                "unscaled": float(s_gen.iterations.float().mean())},
         "share_same_iteration_count": float((s_jac.iterations == s_gen.iterations).float().mean()),
@@ -1647,7 +1805,9 @@ def phase_jacobi(cfg, dev, sc, pose):
         "final_cost_rel_delta_p50": float(
             ((s_jac.final_cost - s_gen.final_cost).abs() / s_gen.final_cost.abs().clamp(min=1.0))
             .quantile(0.5)),
+        "solve_vs_caller_linear_solve": vs_caller,
     })
+    return launches
 
 
 # The residual path's (cost, g, JtJ) against the fused path's, scale-normalised
@@ -1833,28 +1993,30 @@ def main():
     omni6 = benchmark_omni_6agents_config()
     phase_main_path("omni6", omni6, dev, B_WIDE, omni6.n_agents, n_ticks=1, compare_cpu=False)
     stress36 = benchmark_stress_h36_config()
-    phase_main_path("stress36", stress36, dev, B_WIDE, stress36.n_agents, n_ticks=1,
-                    compare_cpu=False)
-    launches_debug = phase_debug_tick(social, dev, sc, poses)
-    phase_jacobi(social, dev, sc, poses[0])
+    _, sc36, poses36 = phase_main_path("stress36", stress36, dev, B_WIDE, stress36.n_agents,
+                                       n_ticks=1, compare_cpu=False)
+    launches_debug = phase_debug_tick("social", social, dev, sc, poses)
+    phase_debug_tick("stress36", stress36, dev, sc36, poses36)
+    launches_jacobi = phase_jacobi(social, dev, sc, poses[0])
     launches_latent = phase_latent_tick(social, dev)
     launches_compacted = phase_compacted_tick(social, dev, sc, poses)
     phase_timing([("obstacle", obstacle, 0), ("social", social, social.n_agents)], dev)
 
     # Every kernel at the social main path's shapes, inputs captured from a
-    # real tick. `launches` is the count on the kernel's own path: three
-    # social ticks, three debug ticks for K7, one latent tick for the
-    # standalone K1; the standalone K6 runs on no path (an evaluation runs
-    # it inside rollout_sample, which is held to it).
+    # real tick. `launches` is the count on the kernel's own paths: three
+    # social ticks, three debug ticks and the Jacobi-scaled solve for K7, one
+    # latent tick for the standalone K1; the standalone K6 runs on no path
+    # (an evaluation runs it inside rollout_sample, which is held to it).
     cap = capture_iteration(social, with_pose(sc, poses[0]), make_carry(social, B_MAIN, device=dev))
     res = check_all_kernels(social, cap, reps=200)
     by_path = {"social": launches, "obstacle": launches_obstacle, "debug": launches_debug,
-               "latent": launches_latent, "compacted": launches_compacted}
-    own_path = {k: "social" for k in res} | {"spd_solve": "debug", "bicubic": "latent",
+               "jacobi": launches_jacobi, "latent": launches_latent,
+               "compacted": launches_compacted}
+    own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": "latent",
                                              "rollout_prep": None}
     emit({"kernels": [
         {"name": k, **KERNEL_INFO[k], "path": own_path[k],
-         "launches": by_path[own_path[k]][k] if own_path[k] else 0,
+         "launches": sum(by_path[p][k] for p in own_path[k].split(", ")) if own_path[k] else 0,
          "launches_by_path": {p: n[k] for p, n in by_path.items()}, **v}
         for k, v in res.items()
     ], "launch_floor_ms": launch_floor_ms(200)})

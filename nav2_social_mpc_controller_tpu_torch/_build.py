@@ -1,8 +1,8 @@
 """Builds and loads the package's CUDA kernels.
 
 The sources under ``csrc/`` expose a plain C interface (no PyTorch headers),
-so each compiles in seconds (the headers ``chol.cuh``, ``bicubic.cuh`` and
-``rollout.cuh`` hold the code that two kernels share).
+so each compiles in seconds (the headers ``chol.cuh``, ``damped_step.cuh``,
+``bicubic.cuh`` and ``rollout.cuh`` hold the code that two kernels share).
 ``load()`` compiles every ``*.cu`` for Hopper
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
@@ -15,7 +15,8 @@ the trust-region ratio rho decides accept/reject.
 
 The launch counters live here too: each kernel wrapper adds one to its entry
 of ``launch_counts`` where it launches its kernel, and nowhere else, so a run
-can show that it really went through the kernels.
+can show that it really went through the kernels. K7's two entries, the
+damped step and the standalone solve, count under ``spd_solve``.
 """
 
 import ctypes
@@ -76,6 +77,9 @@ _SIGNATURES = {
     "social_mpc_sfm_scan_f32": [_P] * 8 + [_I] * 8 + [_F] * 14 + [_P],
     # a, b, x, N, D, stream
     "social_mpc_spd_solve_f32": [_P, _P, _P, _I, _I, _P],
+    # u, g, jtj, radius, lower, upper, jac_scale (or NULL), u_new, delta,
+    # model_change, B, D, min_diagonal, max_diagonal, stream
+    "social_mpc_damped_step_f32": [_P] * 10 + [_I, _I, _F, _F, _P],
 }
 
 

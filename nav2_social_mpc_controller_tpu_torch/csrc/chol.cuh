@@ -1,7 +1,7 @@
-// The unrolled Cholesky solve of K7 (spd_solve, spd_solve.cu), and the
-// rounding helpers of K3/K4 (tr_iter.cu, whose propose repeats this order of
-// operations one row per lane): A = L L^T, forward substitution L y = rhs,
-// back substitution L^T x = y, with reciprocal diagonals.
+// The unrolled Cholesky solve of K3 and K7 at D = 6 (damped_step.cuh, whose
+// D = 12 solve repeats this order of operations one row per lane) and the
+// rounding helpers of K3, K4 and K7: A = L L^T, forward substitution
+// L y = rhs, back substitution L^T x = y, with reciprocal diagonals.
 //
 // Every product, sum and difference is written with the round-to-nearest
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts

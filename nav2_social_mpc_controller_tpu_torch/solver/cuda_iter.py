@@ -1,5 +1,6 @@
 """K3 / K4 — the non-evaluation half of one LM iteration: wrappers, plain
-versions and launch counts for ``csrc/tr_iter.cu``.
+versions and launch counts for ``csrc/tr_iter.cu``; and K7's damped step
+(``csrc/spd_solve.cu``), the general iteration's counterpart of propose.
 
 Counterpart of the JAX package's ``solver/pallas_iter.py``:
 
@@ -9,6 +10,11 @@ Counterpart of the JAX package's ``solver/pallas_iter.py``:
   commit   (state..., trial results...) -> updated state
            = rho, accept/reject, radius & decrease-factor updates, frozen
            done lanes, the three tolerance stops, termination codes.
+
+  damped_step  (propose's inputs[, jac_scale]) -> propose's outputs
+           = damped system (in Jacobi column scaling when jac_scale is
+           given) + Cholesky solve + map-back + box projection + model
+           change, in one launch of K7.
 
 Reference semantics: the Ceres trust-region update rules
 (levenberg_marquardt_strategy.cc / trust_region_minimizer.cc).
@@ -30,6 +36,7 @@ from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import (
     KERNEL_DIMS as _KERNEL_DIMS,
     chol_solve_unrolled,
+    spd_solve_plain,
 )
 
 TERM_NO_CONVERGENCE = 0  # hit max_num_iterations (still usable, like Ceres)
@@ -46,8 +53,9 @@ def damped_system(cfg, g, jtj, radius, jac_scale=None):
     side -g (B, D), optionally in Ceres' Jacobi column scaling (JtJ and g
     scaled by jac_scale (B, D) first; the caller maps the step back). The
     damping multiplies by the reciprocal radius, exactly as propose_plain and
-    kernel K3 do, so a general iteration that solves this system with kernel
-    K7 takes bit for bit the step K3 takes."""
+    kernel K3 do, so a general iteration that solves this system with K7's
+    standalone solve takes bit for bit the step K3 and K7's damped step
+    take."""
     if jac_scale is not None:
         jtj = jtj * (jac_scale[:, :, None] * jac_scale[:, None, :])
         g = jac_scale * g
@@ -79,6 +87,54 @@ def project_step(u, step, g, jtj, lower, upper):
             row = row + jtj[:, i, j] * delta[:, j]
         dad = dad + delta[:, i] * row
     return u_new, delta, -dg - 0.5 * dad
+
+
+def damped_step_plain(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
+    """Plain PyTorch version of K7's damped step: damped_system, its
+    Cholesky solve, the map-back jac_scale * step and project_step, the
+    general iteration's composition exactly. Without jac_scale it is
+    propose_plain's function with the same bits."""
+    a, rhs = damped_system(cfg, g, jtj, radius, jac_scale)
+    step = spd_solve_plain(a, rhs)
+    if jac_scale is not None:
+        step = jac_scale * step
+    return project_step(u, step, g, jtj, lower, upper)
+
+
+def damped_step(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
+    """The damped step of the general LM iteration (see module docstring):
+    u/g/lower/upper (B, D), jtj (B, D, D), radius (B,), jac_scale (B, D) or
+    None -> u_new, delta (B, D), model_change (B,). One launch of K7 on CUDA
+    tensors (float32, D in {6, 12}; counted under ``spd_solve``); the plain
+    version on CPU tensors, at any D and dtype."""
+    if not u.is_cuda:
+        return damped_step_plain(cfg, u, g, jtj, radius, lower, upper, jac_scale)
+    b, d = u.shape
+    if d not in _KERNEL_DIMS:
+        raise ValueError(f"damped_step: kernel is built for D in {_KERNEL_DIMS}, got {d}")
+    f32 = torch.float32
+    spec = [("u", u, (b, d)), ("g", g, (b, d)), ("jtj", jtj, (b, d, d)),
+            ("radius", radius, (b,)), ("lower", lower, (b, d)), ("upper", upper, (b, d))]
+    if jac_scale is not None:
+        spec.append(("jac_scale", jac_scale, (b, d)))
+    for name, t, shape in spec:
+        _build.check_tensor("damped_step", name, t, f32, shape, u.device)
+    u_new = torch.empty_like(u)
+    delta = torch.empty_like(u)
+    model_change = torch.empty_like(radius)
+    lib = _build.load()
+    with torch.cuda.device(u.device):
+        err = lib.social_mpc_damped_step_f32(
+            u.data_ptr(), g.data_ptr(), jtj.data_ptr(), radius.data_ptr(),
+            lower.data_ptr(), upper.data_ptr(),
+            None if jac_scale is None else jac_scale.data_ptr(),
+            u_new.data_ptr(), delta.data_ptr(), model_change.data_ptr(),
+            b, d, cfg.min_diagonal, cfg.max_diagonal,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "damped_step")
+    _build.launch_counts["spd_solve"] += 1
+    return u_new, delta, model_change
 
 
 def propose_plain(cfg, u, g, jtj, radius, lower, upper):

@@ -4,9 +4,11 @@ plain version and launch count for ``csrc/spd_solve.cu``.
 Counterpart of the JAX package's ``solver/pallas_solve.py``. The damped
 normal equations of one solve are a D x D SPD system with D = 2 * n_blocks
 (6 for the benchmark configs, 12 for the H = 36 stress config);
-``spd_solve(a (N, D, D), b (N, D)) -> x (N, D)`` solves N of them at once.
-The general LM iteration (``solver/lm.py``: debug trace, Jacobi scaling, a
-caller's own ``linear_solve``) reaches it through ``default_linear_solve``.
+``spd_solve(a (N, D, D), b (N, D)) -> x (N, D)`` solves N of them at once:
+K7's standalone entry, for a caller's own ``linear_solve``. The general LM
+iteration's default (``solver/lm.py``: debug trace, Jacobi scaling) takes
+K7's other entry, the whole damped step in one launch
+(``solver/cuda_iter.py: damped_step``), on the same layouts.
 
 The plain version is the SAME unrolled arithmetic as the kernel, written as
 batched tensor operations with one (N,) tensor per matrix entry; kernel K3

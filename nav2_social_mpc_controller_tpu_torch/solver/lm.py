@@ -9,15 +9,24 @@ D = 2 * n_blocks variables advance together, one batched iteration at a time
 on the default call. A call that asks for the per-iteration trace, for
 Jacobi scaling or for its own ``linear_solve`` runs the GENERAL iteration
 
-    damped system -> linear_solve (default: K7) -> project -> value_grad
+    damped step (K7, one launch) -> value_grad -> commit's plain
+    arithmetic (+ a trace row)
+
+with ``default_linear_solve``; with a caller's ``linear_solve`` the damped
+step is its plain composition around that solve
+
+    damped system -> linear_solve -> map-back -> project -> value_grad
     -> commit's plain arithmetic (+ a trace row)
 
-whose default solve, kernel K7, factors the same system with the same
-arithmetic as K3 (``csrc/chol.cuh``): the general iteration damps with
+K7's damped step (``cuda_iter.damped_step``) is that composition in one
+launch: it factors the same system with the same arithmetic as K3
+(``csrc/damped_step.cuh``). The general iteration damps with
 ``clamp(diag) * (1/radius)`` as K3 does (the JAX package writes
-``clamp(diag) / radius``, one rounding apart), so with ``default_linear_solve``
-and no scaling a traced solve and an untraced solve give identical results
-bit for bit, on the CPU and on the card.
+``clamp(diag) / radius``, one rounding apart), so with
+``default_linear_solve`` and no scaling a traced solve and an untraced solve
+give identical results bit for bit, on the CPU and on the card; and a
+caller's ``linear_solve`` that is the standalone solve (``spd_solve``) gives
+the bits of the default one.
 
 Semantics reproduced from Ceres:
   * LM with diagonal damping: A = J^T J + (1/radius) * clamp(diag(J^T J)),
@@ -57,6 +66,7 @@ from nav2_social_mpc_controller_tpu_torch.solver.cuda_iter import (  # noqa: F40
     TERM_PARAMETER_TOL,
     commit,
     commit_with_aux,
+    damped_step,
     damped_system,
     project_step,
     propose,
@@ -126,8 +136,10 @@ class LMState(NamedTuple):
 
 def default_linear_solve(a, b):
     """Dense SPD solve of the damped normal equations, a (B, D, D), b (B, D)
-    -> (B, D): kernel K7 on a CUDA tensor, its plain version on a CPU
-    tensor (solver/cuda_solve.py)."""
+    -> (B, D): kernel K7's standalone solve on a CUDA tensor, its plain
+    version on a CPU tensor (solver/cuda_solve.py). As lm_solve's default it
+    selects K7's damped step instead, which forms, solves and projects the
+    same system in one launch with the same bits."""
     return spd_solve(a, b)
 
 
@@ -143,17 +155,29 @@ def lm_iteration_general(value_grad: Callable, lower, upper, cfg: LMConfig, line
                          jac_scale, st: LMState):
     """ONE batched trust-region iteration with the damped solve handed to
     `linear_solve` and, when jac_scale (B, D) is given, computed on the
-    column-scaled system. Returns (new state, CommitAux)."""
-    a, rhs = damped_system(cfg, st.g, st.jtj, st.radius, jac_scale)
-    step = linear_solve(a.contiguous(), rhs.contiguous())
-    if jac_scale is not None:
-        step = jac_scale * step
-    u_new, delta, model_change = project_step(st.u, step, st.g, st.jtj, lower, upper)
+    column-scaled system. With default_linear_solve the damped step is one
+    launch of K7. Returns (new state, CommitAux)."""
+    if linear_solve is default_linear_solve:
+        u_new, delta, model_change = damped_step(
+            cfg, st.u, st.g, st.jtj, st.radius, lower, upper, jac_scale)
+    else:
+        a, rhs = damped_system(cfg, st.g, st.jtj, st.radius, jac_scale)
+        step = linear_solve(a.contiguous(), rhs.contiguous())
+        if jac_scale is not None:
+            step = jac_scale * step
+        u_new, delta, model_change = project_step(st.u, step, st.g, st.jtj, lower, upper)
     new_cost, g_new, jtj_new = value_grad(u_new)
     state, aux = commit_with_aux(
         cfg, *st, u_new, delta, model_change, new_cost, g_new, jtj_new
     )
     return LMState(*state), aux
+
+
+def jacobi_scale(jtj0):
+    """Ceres' Jacobi column scale from J^T J at iteration 0 (B, D, D):
+    s_i = 1 / (1 + ||J col_i||), ||J col_i||^2 being its diagonal."""
+    diag0 = torch.diagonal(jtj0, dim1=1, dim2=2)
+    return 1.0 / (1.0 + torch.sqrt(torch.clamp(diag0, min=0.0)))
 
 
 def make_value_grad(residual_fn: Callable, d: int):
@@ -238,17 +262,13 @@ def lm_solve(
 
     The default call (no trace, default_linear_solve, no Jacobi scaling) runs
     kernels K3 and K4 around the evaluation; any other call runs the general
-    iteration, whose default solve is kernel K7."""
+    iteration, whose damped step with the default solve is kernel K7."""
     st = initial_state(value_grad, u0, cfg)
     initial_cost = st.cost
     general = trace_len > 0 or linear_solve is not default_linear_solve or cfg.jacobi_scaling
 
-    # Jacobi scale frozen at iteration 0, as Ceres does: ||J col_i||^2 at u0
-    # is diag(J^T J at u0).
-    jac_scale = None
-    if cfg.jacobi_scaling:
-        diag0 = torch.diagonal(st.jtj, dim1=1, dim2=2)
-        jac_scale = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag0, min=0.0)))
+    # Jacobi scale frozen at iteration 0, as Ceres does.
+    jac_scale = jacobi_scale(st.jtj) if cfg.jacobi_scaling else None
 
     trace = None
     if trace_len > 0:

@@ -2,7 +2,8 @@
 CARD, at small shapes chosen for their corner cases (border-clamped and NaN
 coordinates, masked steps and shrunk horizons, scenarios with and without
 valid people, an agent exactly on the robot, a system that is not positive
-definite, frozen done lanes, every termination code).
+definite, frozen done lanes, every termination code, views 4 bytes into
+their storage).
 
 These tests need an NVIDIA GPU and nvcc and skip where there is none. They
 import only torch, NumPy and the port, so on a machine with a card they run
@@ -18,8 +19,10 @@ kernel); K6 sums by warp scans, in another order, and is held to the JAX
 package's figures for its rollout kernel (rtol 2e-5, atol 1e-5; 2e-4 on
 row/col, which reach 64 cells), its copied controls exact; K3/K4 are written
 with round-to-nearest intrinsics and repeat the plain version operation for
-operation, and K7 and the plain versions keep chol.cuh's order of every sum,
-so K3, K4 and K7 are held to equality of bits (NaN in the same places).
+operation, and K7 (the damped step, which compiles K3's bodies with and
+without Jacobi scaling, and the standalone solve) and the plain versions keep
+chol.cuh's order of every sum, so K3, K4 and K7 are held to equality of bits
+(NaN in the same places).
 K5 (the SFM scan) carries float32 rounding through every step of the
 pedestrian dynamics: 1e-4 scale-normalised, its validity column exact; its
 branch form of the angle wrap equals the fmodf form bit for bit over every
@@ -626,7 +629,7 @@ def test_spd_solve_kernel_matches_plain(card, d):
     ref = K7.spd_solve_plain(a_t, b_t)
     torch.cuda.synchronize()
     assert torch.isnan(got[7]).all() and torch.isnan(ref[7]).all()
-    assert _norm_err(got, ref) == 0.0  # the same arithmetic, operation for operation
+    assert _same_bits(got, ref)  # the same arithmetic, operation for operation
     ok = np.arange(n) != 7
     x64 = np.linalg.solve(a[ok], b[ok][..., None])[..., 0]
     # float32 Cholesky of systems with condition numbers up to ~1e3
@@ -640,6 +643,112 @@ def test_spd_solve_refuses_other_sizes_on_the_card(card):
     with pytest.raises(ValueError, match="float32"):
         K7.spd_solve(torch.eye(6, device=card, dtype=torch.float64).expand(4, 6, 6).contiguous(),
                      torch.ones((4, 6), device=card, dtype=torch.float64))
+
+
+def _damped_case(card, b, d, scaled):
+    """propose's inputs of _trust_region_case and, when scaled, the Jacobi
+    scale lm_solve forms from JtJ."""
+    prop_in, _, _ = _trust_region_case(card, b, d)
+    return prop_in, (lm.jacobi_scale(prop_in[2]) if scaled else None)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "jacobi"])
+@pytest.mark.parametrize("b", [1, 31, 33, 4099])
+@pytest.mark.parametrize("d", [6, 12])
+def test_damped_step_kernel_matches_plain(card, d, b, scaled):
+    """K7's damped step bit for bit against damped_step_plain (the general
+    iteration's composition), one launch counted under spd_solve, at batches
+    that leave a block or a segment partly empty; lane 1 is not positive
+    definite and gives NaN."""
+    prop_in, jac = _damped_case(card, b, d, scaled)
+    before = _build.launch_counts["spd_solve"]
+    got = K34.damped_step(LM_CFG, *prop_in, jac)
+    ref = K34.damped_step_plain(LM_CFG, *prop_in, jac)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["spd_solve"] == before + 1
+    for x, y in zip(got, ref):
+        assert _same_bits(x, y)
+    if b > 1:
+        assert torch.isnan(got[1][1]).all(), "a negative pivot must flow on as NaN"
+        assert bool(torch.isfinite(got[0][0]).all())
+
+
+@pytest.mark.parametrize("d", [6, 12])
+def test_damped_step_kernel_without_scale_is_propose(card, d):
+    """Without jac_scale the damped step is K3's function: the same bits as
+    propose's kernel."""
+    prop_in, _ = _damped_case(card, 4099, d, False)
+    got = K34.damped_step(LM_CFG, *prop_in)
+    ref = K34.propose(LM_CFG, *prop_in)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        assert _same_bits(x, y)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "jacobi"])
+@pytest.mark.parametrize("d", [6, 12])
+def test_damped_step_kernel_ignores_batch_position_and_alignment(card, d, scaled):
+    """A permuted batch gives the permuted outputs, and views that start 4
+    bytes into their storage (the scalar loads at D = 6) give the same bits
+    as the plain version."""
+    b = 301
+    prop_in, jac = _damped_case(card, b, d, scaled)
+    args = (*prop_in, jac) if scaled else prop_in
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(d)).to(card)
+
+    def offset(x):
+        v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return v.copy_(x)
+
+    got = K34.damped_step(LM_CFG, *args)
+    moved = K34.damped_step(LM_CFG, *(x.index_select(0, perm).contiguous() for x in args))
+    shifted_args = tuple(map(offset, args))
+    assert shifted_args[2].data_ptr() % 16 != 0
+    shifted = K34.damped_step(LM_CFG, *shifted_args)
+    ref = K34.damped_step_plain(LM_CFG, *shifted_args)
+    torch.cuda.synchronize()
+    for x, y, z, r in zip(got, moved, shifted, ref):
+        assert _same_bits(y, x[perm])
+        assert _same_bits(z, r) and _same_bits(z, x)
+
+
+def test_damped_step_refuses_what_the_kernel_does_not_take(card):
+    prop_in, _ = _damped_case(card, 8, 6, False)
+    with pytest.raises(ValueError, match="float32"):
+        K34.damped_step(LM_CFG, *(x.double() for x in prop_in))
+    with pytest.raises(ValueError, match="jac_scale"):
+        K34.damped_step(LM_CFG, *prop_in, torch.ones((8, 5), device=card))
+    small = (prop_in[0][:, :5].contiguous(), prop_in[1][:, :5].contiguous(),
+             prop_in[2][:, :5, :5].contiguous(), prop_in[3], prop_in[4][:, :5].contiguous(),
+             prop_in[5][:, :5].contiguous())
+    with pytest.raises(ValueError, match="D in"):
+        K34.damped_step(LM_CFG, *small)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4099])
+@pytest.mark.parametrize("d", [6, 12])
+def test_spd_solve_kernel_bits_at_every_batch_and_alignment(card, d, n):
+    """The standalone solve on the damped step's layouts: bit for bit against
+    spd_solve_plain at batches that leave a block or a segment partly empty,
+    NaN in the same places for systems that are not positive definite, and
+    the same bits from views 4 bytes into their storage."""
+    rng = np.random.default_rng(10 * n + d)
+    m = rng.standard_normal((n, d, d))
+    a = np.einsum("bij,bkj->bik", m, m) + 0.5 * np.eye(d)
+    a[::7] = -a[::7]
+    a_t = torch.tensor(a.astype(np.float32), device=card)
+    b_t = torch.tensor(rng.standard_normal((n, d)).astype(np.float32), device=card)
+    got = K7.spd_solve(a_t, b_t)
+    ref = K7.spd_solve_plain(a_t, b_t)
+
+    def offset(x):
+        v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return v.copy_(x)
+
+    shifted = K7.spd_solve(offset(a_t), offset(b_t))
+    torch.cuda.synchronize()
+    assert _same_bits(got, ref) and _same_bits(shifted, ref)
+    assert torch.isnan(got[0]).all()
 
 
 def test_debug_and_compacted_steps_equal_the_plain_step_on_the_card(card):

@@ -175,29 +175,18 @@ def test_non_pd_system_is_rejected_and_done_lanes_are_bit_frozen():
         assert torch.equal(out[k][0], targs[k][0]), NAMES[k]
 
 
-def test_lm_solve_matches_jax_lm_solve():
-    """The batched LM loop on a small bounded least-squares problem against
-    the JAX package's lm_solve under vmap: same iterates, iteration counts
-    and termination codes in f64; lanes with a non-finite initial cost start
-    done and failed."""
+def _toy_problem(d, r):
+    """A small bounded least-squares batch, r residuals t + 0.1 t^3 of
+    t = A u - y per scenario; lane 5 has a non-finite initial cost. Returns
+    the NumPy arrays and the port's value_grad."""
     rng = np.random.default_rng(2)
-    b, d, r = 6, 6, 10
+    b = 6
     a = rng.standard_normal((b, r, d))
     y = rng.standard_normal((b, r))
     u0 = rng.uniform(-0.3, 0.3, (b, d))
     y[5, 0] = np.nan  # non-finite initial cost
     lower = np.full((b, d), -0.4)
     upper = np.full((b, d), 0.4)
-
-    def jax_one(a_, y_, u0_, lo, hi):
-        def res(u):
-            t = a_ @ u - y_
-            return t + 0.1 * t**3
-
-        return jlm.lm_solve(res, u0_, lo, hi, JCFG)
-
-    u_ref, st_ref = jax.vmap(jax_one)(*map(jnp.asarray, (a, y, u0, lower, upper)))
-
     ta, ty = _t(a), _t(y)
 
     def value_grad(u):
@@ -207,6 +196,28 @@ def test_lm_solve_matches_jax_lm_solve():
         return (0.5 * (res * res).sum(1), torch.einsum("brd,br->bd", jac, res),
                 torch.einsum("brd,bre->bde", jac, jac))
 
+    return (a, y, u0, lower, upper), value_grad
+
+
+def _jax_lm_solve(arrays, cfg):
+    def one(a_, y_, u0_, lo, hi):
+        def res(u):
+            t = a_ @ u - y_
+            return t + 0.1 * t**3
+
+        return jlm.lm_solve(res, u0_, lo, hi, cfg)
+
+    return jax.vmap(one)(*map(jnp.asarray, arrays))
+
+
+def test_lm_solve_matches_jax_lm_solve():
+    """The batched LM loop on a small bounded least-squares problem against
+    the JAX package's lm_solve under vmap: same iterates, iteration counts
+    and termination codes in f64; lanes with a non-finite initial cost start
+    done and failed."""
+    arrays, value_grad = _toy_problem(6, 10)
+    _, _, u0, lower, upper = arrays
+    u_ref, st_ref = _jax_lm_solve(arrays, JCFG)
     for k in (0, 1, 4):
         u, st = tlm.lm_solve(value_grad, _t(u0), _t(lower), _t(upper), TCFG, check_every=k)
         np.testing.assert_array_equal(st.iterations.numpy(), np.asarray(st_ref.iterations))
@@ -216,18 +227,23 @@ def test_lm_solve_matches_jax_lm_solve():
         np.testing.assert_allclose(st.final_cost.numpy()[:5], np.asarray(st_ref.final_cost)[:5], rtol=1e-9)
     assert not st.usable[5] and st.iterations[5] == 0 and st.iterations[:5].min() > 0
     assert st.iterations.dtype == torch.int32 and st.usable.dtype == torch.bool
-    # Jacobi scaling (refused until the general iteration was ported): the
-    # scaled solve agrees with the JAX package's scaled solve.
-    u_js_ref, st_js_ref = jax.vmap(
-        lambda a_, y_, u0_, lo, hi: jlm.lm_solve(
-            lambda u: (a_ @ u - y_) + 0.1 * (a_ @ u - y_) ** 3, u0_, lo, hi,
-            JCFG._replace(jacobi_scaling=True))
-    )(*map(jnp.asarray, (a, y, u0, lower, upper)))
+
+
+@pytest.mark.parametrize("d,r", [(6, 10), (12, 20)])
+def test_jacobi_scaled_lm_solve_matches_jax_lm_solve(d, r):
+    """Jacobi scaling (the general iteration, its damped step K7's on the
+    card and its plain version here) against the JAX package's scaled solve
+    in f64: iteration counts and termination codes equal, iterates within
+    1e-8."""
+    arrays, value_grad = _toy_problem(d, r)
+    _, _, u0, lower, upper = arrays
+    u_js_ref, st_js_ref = _jax_lm_solve(arrays, JCFG._replace(jacobi_scaling=True))
     u_js, st_js = tlm.lm_solve(
         value_grad, _t(u0), _t(lower), _t(upper), TCFG._replace(jacobi_scaling=True))
     np.testing.assert_array_equal(st_js.iterations.numpy(), np.asarray(st_js_ref.iterations))
     np.testing.assert_array_equal(st_js.termination.numpy(), np.asarray(st_js_ref.termination))
     np.testing.assert_allclose(u_js.numpy()[:5], np.asarray(u_js_ref)[:5], atol=1e-8)
+    assert not st_js.usable[5] and bool(st_js.usable[:5].all())
 
 
 def test_check_tensor_refuses_what_the_kernels_do_not_take():

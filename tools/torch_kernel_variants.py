@@ -6,15 +6,19 @@ other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds them at.
 
 Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
 `csrc/rollout_prep.cu` (K6), of `csrc/tr_iter.cu` (K3 propose and K4
-commit), of `csrc/sfm_scan.cu` (K5) or of `csrc/rollout_sample.cu` (K6's
-rollout with K1's sample), exporting the same C entry points; the kind is
-told by those entry points. The source in the checkout is added as `shipped` (a parent's source
+commit), of `csrc/sfm_scan.cu` (K5), of `csrc/rollout_sample.cu` (K6's
+rollout with K1's sample) or of `csrc/spd_solve.cu` (K7), exporting the same
+C entry points; the kind is told by those entry points. A K7 variant may
+lack the damped-step entry (as the parent's file does): its damped step is
+then timed as the plain composition around its solve, damped_system, the
+solve, the map-back and project_step. The source in the checkout is added as `shipped` (a parent's source
 comes from `git show <commit>:<path>` before the call; a variant file must
 lie inside the copy of the repo, e.g. in a git-ignored directory). The
 variants against which `csrc/tr_iter.cu`'s and `csrc/sfm_scan.cu`'s designs
 were chosen are kept in `tools/tr_iter_variants/` and
 `tools/sfm_scan_variants/` (those of `csrc/rollout_sample.cu` in
-`tools/rollout_sample_variants/`), each named in its first line. Every
+`tools/rollout_sample_variants/`, those of `csrc/spd_solve.cu` in
+`tools/spd_solve_variants/`), each named in its first line. Every
 variant is built with `_build.NVCC_FLAGS` into its own library (all nvcc runs
 started together), the wrappers are pointed at each in turn, and every
 kernel of every variant is timed with `chip_smoke.time_cuda` over 4 rounds,
@@ -30,9 +34,10 @@ K2 and K6 at six shapes:
   stress36_all_valid    stress horizon (D = 12, S = 39), B = 1024, likewise
   stress36_people_free  stress horizon, B = 1024, no person
 
-K3 and K4 (both timed in each turn), K5 and the rollout sample at the four
-default ticks' shapes, one width of the compaction ladder and a ragged
-batch:
+K3 and K4 (both timed in each turn), K5, the rollout sample and K7 (its
+damped step without and with the Jacobi scale, and its standalone solve of
+the damped system, all three timed in each turn) at the four default ticks'
+shapes, one width of the compaction ladder and a ragged batch:
 
   social_main           social config, B = 4096, D = 6, 3 valid people
   obstacle_main         obstacle config, B = 4096, D = 6
@@ -47,7 +52,8 @@ usage per variant, the launch floor (`time_cuda` of an empty
 per round), min_ms, err, tol}]}, where err is K2's scale-normalised error
 against its plain version, K6's share of its allowance, or for K3/K4 the
 number of output elements whose bits differ from the plain version's (NaN
-against NaN counted equal; tolerance 0), K5's scale-normalised error against
+against NaN counted equal; tolerance 0; so for K7's three), K5's
+scale-normalised error against
 its plain version (inf where its t column differs), and for the rollout
 sample the number of elements whose bits differ from K6 then K1 on the card,
 which are also timed, as `k6_then_k1`, in every turn; then the nvidia-smi
@@ -74,7 +80,10 @@ KINDS = {
     "tr_iter": ("social_mpc_propose_f32", "social_mpc_commit_f32"),
     "sfm_scan": ("social_mpc_sfm_scan_f32",),
     "rollout_sample": ("social_mpc_rollout_sample_f32",),
+    "spd_solve": ("social_mpc_spd_solve_f32",),
 }
+# entry points a variant of the kind may lack (timed otherwise, see kernels())
+OPTIONAL = {"spd_solve": ("social_mpc_damped_step_f32",)}
 ROUNDS = 4
 REPS = 200
 
@@ -122,7 +131,9 @@ def build_all(kind, variants):
         usage[name] = cs.ptxas_usage(log)
         lib = ctypes.CDLL(so)
         fns = {}
-        for entry in KINDS[kind]:
+        for entry in KINDS[kind] + OPTIONAL.get(kind, ()):
+            if entry not in KINDS[kind] and not hasattr(lib, entry):
+                continue
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
@@ -143,7 +154,7 @@ def captures(kind):
 
     social, obstacle = C.benchmark_social_config(), C.benchmark_obstacle_only_config()
     omni6, stress = C.benchmark_omni_6agents_config(), C.benchmark_stress_h36_config()
-    if kind in ("tr_iter", "sfm_scan", "rollout_sample"):
+    if kind in ("tr_iter", "sfm_scan", "rollout_sample", "spd_solve"):
         return {
             "social_main": cap(social, cs.B_MAIN, 3),
             "obstacle_main": cap(obstacle, cs.B_MAIN, 0),
@@ -167,8 +178,25 @@ def kernels(kind):
     from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
     from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
     from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
+    from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
 
+    if kind == "spd_solve":
+        def step(c, jac):
+            if hasattr(_build._lib, "social_mpc_damped_step_f32"):
+                return K34.damped_step(c["lm_cfg"], *c["propose"], jac)
+            u, g, jtj, radius, lower, upper = c["propose"]
+            a, rhs = K34.damped_system(c["lm_cfg"], g, jtj, radius, jac)
+            x = K7.spd_solve(a.contiguous(), rhs.contiguous())
+            return K34.project_step(u, x if jac is None else jac * x, g, jtj, lower, upper)
+
+        return [("damped_step", lambda c: step(c, None),
+                 lambda c: K34.damped_step_plain(c["lm_cfg"], *c["propose"])),
+                ("damped_step_jacobi", lambda c: step(c, c["jac_scale"]),
+                 lambda c: K34.damped_step_plain(c["lm_cfg"], *c["propose"], c["jac_scale"])),
+                ("spd_solve", lambda c: K7.spd_solve(*c["spd_solve"]),
+                 lambda c: K7.spd_solve_plain(*c["spd_solve"]))]
     if kind == "fused_iter":
         return [("fused_iter", lambda c: K2.fused_cost_g_jtj(*c["fused"]),
                  lambda c: K2.fused_cost_g_jtj_plain(*c["fused"]))]
@@ -191,8 +219,10 @@ def error(kernel, got, ref):
     if kernel == "fused_iter":
         return max(cs.norm_err(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))[0]
                    for a, b in zip(got, ref))
-    if kernel in ("propose", "commit"):
+    if kernel in ("propose", "commit", "damped_step", "damped_step_jacobi"):
         return cs.bits_differ(got, ref)
+    if kernel == "spd_solve":
+        return cs.bits_differ([got], [ref])
     if kernel == "rollout_sample":
         return cs.bits_differ([got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)])
     if kernel == "sfm_scan":
@@ -208,7 +238,8 @@ def error(kernel, got, ref):
 
 
 def tolerance(kernel, cap):
-    if kernel in ("propose", "commit", "rollout_sample"):
+    if kernel in ("propose", "commit", "rollout_sample", "damped_step", "damped_step_jacobi",
+                  "spd_solve"):
         return 0.0
     if kernel == "fused_iter" and bool(cap["fused"][18].any()):
         return cs.TOL["fused_iter_people"]
