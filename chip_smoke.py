@@ -54,11 +54,33 @@ one JSON line:
              iterations x width and ms/tick of both
   timing     ms/tick and solves/s at B = 1024 and B = 4096 for the obstacle
              and the social configuration, tick breakdown, launches, memory
+  single_step  make_step (one robot, a batch of one) for the social,
+             obstacle, omni6 and stress36 configs, 8 seeds, 2 ticks each:
+             command, status, LM iterations, termination and carry equal to
+             the same scenario's lane of a B = 1024 tick bit for bit; the
+             warm single-robot tick latency (min, p50, p90 on the host
+             clock, from tensors and from NumPy) and one profiled tick
+  controller SocialMPCController over 6 ticks of a 12 m straight plan with
+             the robot teleported 1.2 m a tick: a monotone, advancing plan
+             cursor, reset by set_plan; the windows checked once
+  native     the g++-built scenario generator (must be available): 4,096
+             social scenarios timed, one tick on them
+  sim        the closed-loop simulator on those 4,096 scenarios, 40 ticks:
+             finite poses, commands in bounds, the STATUS_OK share; lanes 0
+             and 1 equal to B = 1 simulations over 10 ticks bit for bit; the
+             two scenarios of tests/test_simulator.py; ms per simulated tick
+             and the people update's share
+  stream     ControllerLoop at 20 Hz for 3 s driving make_step: ticks,
+             missed, overruns (reported; no tick at all fails)
+  cli        python -m nav2_social_mpc_controller_tpu_torch config, step,
+             step --debug-optimizer, sim --ticks 40, bench --batch 4096
+             --iters 10 in subprocesses: exit 0, the JAX CLI's keys, cuda
   kernels    every kernel at the social main path's shapes (inputs captured from a
              real tick): error vs the plain version against a stated
              tolerance, kernel / plain / library ms, the bound, launches (K7:
              its damped step with and without the Jacobi scale and its
-             standalone solve under `entries`);
+             standalone solve under `entries`; `launches_by_path` adds the
+             single_step, controller, sim and stream paths);
              beside them the launch floor, an almost empty kernel timed the
              same way
 
@@ -1967,6 +1989,434 @@ def phase_compacted_tick(cfg, dev, sc, poses, capacity_frac=0.25):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the runtime surface: one robot's tick, the controller object, the
+# closed-loop simulator, the 20 Hz loop, the CLI, the native generator
+# ---------------------------------------------------------------------------
+
+SINGLE_STEP_SEEDS = 8
+SINGLE_STEP_TIMED_TICKS = 30
+
+
+def lane(tree, i):
+    """Scenario i of a batched tree, unbatched (views on the device)."""
+    return type(tree)(*(lane(x, i) if isinstance(x, tuple) else x[i] for x in tree))
+
+
+def host_ms_stats(ms):
+    return {"ticks": len(ms), "min": float(np.min(ms)), "p50": float(np.percentile(ms, 50)),
+            "p90": float(np.percentile(ms, 90)), "mean": float(np.mean(ms))}
+
+
+def phase_single_step(configs, dev):
+    """make_step (one robot, a batch of one) on the card: for each config,
+    SINGLE_STEP_SEEDS scenarios of a wide batch (B_WIDE, two ticks with the
+    carry fed back) run one by one; command, status, LM iterations,
+    termination and the carry must equal the same scenario's lane of the
+    wide tick bit for bit (every kernel works scenario by scenario, so a
+    launch of one live scenario must compute what a full launch does). Then
+    the warm single-robot tick latency on the host clock, from tensors on
+    the card and from NumPy (what the controller object pays to hand its
+    inputs over every tick), and one profiled tick. Returns the launch
+    counts of the single-robot ticks."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step, make_step_batch,
+    )
+    from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy, to_numpy
+    from nav2_social_mpc_controller_tpu_torch.solver.lm import DEFAULT_CHECK_EVERY
+
+    launches = {k: 0 for k in _build.launch_counts}
+    cells = []
+    for name, cfg, n_valid in configs:
+        sc, poses = make_batch(cfg, B_WIDE, dev, n_valid_people=n_valid)
+        poses = poses[:2]
+        step_w = make_step_batch(cfg, device=dev)
+        carry_w = make_carry(cfg, B_WIDE, device=dev)
+        wide = []
+        for pose in poses:
+            cmd_w, aux_w, carry_w = step_w(with_pose(sc, pose), carry_w)
+            wide.append((cmd_w, aux_w, carry_w))
+        step = make_step(cfg, device=dev)
+        _build.reset_launch_counts()
+        for i in range(SINGLE_STEP_SEEDS):
+            carry = make_carry(cfg, device=dev)
+            for t, pose in enumerate(poses):
+                cmd, aux, carry = step(lane(with_pose(sc, pose), i), carry)
+                cmd_w, aux_w, carry_w = wide[t]
+                pairs = {
+                    "linear_x": (cmd.linear_x, cmd_w.linear_x[i]),
+                    "angular_z": (cmd.angular_z, cmd_w.angular_z[i]),
+                    "status": (aux.status, aux_w.status[i]),
+                    "iterations": (aux.solve.iterations, aux_w.solve.iterations[i]),
+                    "termination": (aux.solve.termination, aux_w.solve.termination[i]),
+                    "final_cost": (aux.solve.final_cost, aux_w.solve.final_cost[i]),
+                    "cmds": (aux.cmds, aux_w.cmds[i]),
+                    "people_proj": (aux.people_proj, aux_w.people_proj[i]),
+                }
+                pairs.update({f"carry.{f}": (x, y[i])
+                              for f, x, y in zip(carry._fields, carry, carry_w)})
+                for what, (x, y) in pairs.items():
+                    if not torch.equal(x, y):
+                        fail(f"single_step {name}: seed {i} tick {t}: {what} of the B = 1 tick "
+                             f"differs from its lane of the B = {B_WIDE} tick")
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        check_launches(f"single_step {name}", got, DEFAULT_PATH_KERNELS)
+        check_one_sample_per_evaluation(f"single_step {name}", got)
+        for k, v in got.items():
+            launches[k] += v
+        cells.append({"config": name, "seeds": SINGLE_STEP_SEEDS, "ticks": len(poses),
+                      "wide_batch": B_WIDE, "bit_equal": True, "launches": got})
+
+    # Latency of one robot's warm tick (social), the carry fed back, the
+    # robot riding its plan; from tensors already on the card, then from
+    # NumPy leaves (host -> device copy of the grids every tick).
+    name, cfg, n_valid = configs[0]
+    sc, _ = make_batch(cfg, 1, dev, n_valid_people=n_valid)
+    one = lane(sc, 0)
+    one_np = to_numpy(one)
+    step = make_step(cfg, device=dev)
+    n_pts = int(one.path.n)
+
+    def ride(k):
+        i = min(k, n_pts - 1)
+        return torch.cat([one.path.points[i], one.path.yaw[i:i + 1]])
+
+    def timed(inputs, n):
+        ms, iters = [], []
+        carry = make_carry(cfg, device=dev)
+        for k in range(n):
+            scen = inputs(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, aux, carry = step(scen, carry)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            iters.append(int(aux.solve.iterations))
+        return ms, iters
+
+    def from_tensors(k):
+        return one._replace(robot=one.robot._replace(pose=ride(k)))
+
+    def from_numpy(k):
+        return one_np._replace(robot=one_np.robot._replace(pose=ride(k).cpu().numpy()))
+
+    timed(from_tensors, 8)  # warm-up
+    ms_t, iters_t = timed(from_tensors, SINGLE_STEP_TIMED_TICKS)
+    ms_n, _ = timed(from_numpy, SINGLE_STEP_TIMED_TICKS)
+    conv = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scenario_from_numpy(one_np, device=dev)
+        torch.cuda.synchronize()
+        conv.append((time.perf_counter() - t0) * 1e3)
+    carry = make_carry(cfg, device=dev)
+    for k in range(3):
+        _, _, carry = step(from_tensors(k), carry)
+    n_dev, dev_ms, top = count_device_launches(lambda: step(from_tensors(3), carry))
+    np_bytes = sum(np.asarray(x).nbytes for x in
+                   (one_np.costmap.data, one_np.esdf.distances, one_np.esdf.indexes))
+    emit({"phase": "single_step", "cells": cells,
+          "latency": {
+              "config": name, "host_ms_tensor_input": host_ms_stats(ms_t),
+              "host_ms_numpy_input": host_ms_stats(ms_n),
+              "numpy_to_device_ms": host_ms_stats(conv), "grid_bytes_copied": int(np_bytes),
+              "mean_lm_iterations": float(np.mean(iters_t)),
+              "lm_host_syncs_per_tick": float(np.mean(
+                  [-(-i // DEFAULT_CHECK_EVERY) for i in iters_t])),
+              "device_launches_one_tick": n_dev, "device_busy_ms_one_tick": dev_ms,
+              "top_device_kernels": top,
+              "meets_50_ms": bool(np.percentile(ms_t, 90) <= 50.0),
+          }})
+    return launches
+
+
+def straight_plan(cfg, length_m=12.0):
+    """tests/test_host_controller.py's plan: max_path_points poses along x."""
+    from nav2_social_mpc_controller_tpu_torch.core.types import PathInput
+
+    pts = np.zeros((cfg.max_path_points, 2), np.float32)
+    pts[:, 0] = np.linspace(0.0, length_m, cfg.max_path_points)
+    return PathInput(points=pts, yaw=np.zeros(cfg.max_path_points, np.float32),
+                     n=np.int32(cfg.max_path_points))
+
+
+def phase_controller(cfg, dev):
+    """SocialMPCController on the card over tests/test_host_controller.py's
+    protocol: 6 ticks along a 12 m straight plan, the robot teleported
+    1.2 m a tick. The plan cursor must be monotone and advance; set_plan
+    resets it and keeps the warm start; the windows are checked once.
+    Returns the launch counts."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller import controller as ctl
+    from nav2_social_mpc_controller_tpu_torch.core.types import RobotState
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario
+
+    checks = []
+    real = ctl.validate_scenario_windows
+    ctl.validate_scenario_windows = lambda *a: (checks.append(1), real(*a))[1]
+    try:
+        ctrl = ctl.SocialMPCController(cfg, device=dev)
+        ctrl.activate()
+        plan = straight_plan(cfg)
+        ctrl.set_plan(plan)
+        sc = make_scenario(cfg, seed=0, n_valid_people=0)
+        pose = np.zeros(3, np.float32)
+        starts, ms = [0], []
+        _build.reset_launch_counts()
+        for _ in range(6):
+            sc_t = sc._replace(robot=RobotState(pose=pose, speed=np.array([0.3, 0.0], np.float32)))
+            t0 = time.perf_counter()
+            cmd, aux = ctrl.compute_velocity_commands(sc_t)
+            starts.append(int(aux.plan_start_index))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            v, w, opt = cmd.linear_x, cmd.angular_z, cfg.optimizer  # bounds in float32
+            if not bool((v >= opt.v_min) & (v <= opt.v_max) & (w >= opt.w_min) & (w <= opt.w_max)):
+                fail(f"controller: command ({float(v)}, {float(w)}) non-finite or out of bounds")
+            pose = pose + np.array([1.2, 0.0, 0.0], np.float32)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        if not all(b >= a for a, b in zip(starts, starts[1:])) or not starts[-1] > starts[1]:
+            fail(f"controller: the plan cursor is not monotone or did not advance: {starts}")
+        prev_n = int(ctrl._carry.prev_n)
+        ctrl.set_plan(plan)
+        if int(ctrl._carry.plan_start) != 0 or int(ctrl._carry.prev_n) != prev_n:
+            fail("controller: set_plan did not reset the cursor or lost the warm start")
+        if len(checks) != 1:
+            fail(f"controller: the windows were checked {len(checks)} times in 6 ticks, not once")
+    finally:
+        ctl.validate_scenario_windows = real
+    check_launches("controller", launches, DEFAULT_PATH_KERNELS)
+    emit({"phase": "controller", "cursors": starts, "window_checks": len(checks),
+          "host_ms_per_tick": ms, "launches": launches})
+    return launches
+
+
+SIM_TICKS = 40
+SIM_LANE_TICKS = 10
+
+
+def phase_native(cfg, dev):
+    """The native (g++) scenario generator: it must be available; a batch
+    of B_MAIN social scenarios, timed cold (the build on a fresh checkout
+    included) and warm; one tick on it. Returns the NumPy batch."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step_batch
+    from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
+    from nav2_social_mpc_controller_tpu_torch.runtime import esdf, scenario_native
+
+    t0 = time.perf_counter()
+    ok = scenario_native.native_available() and esdf.native_available()
+    build_s = time.perf_counter() - t0
+    if not ok:
+        fail("native: the g++-built scenario generator or ESDF builder is not available")
+    gen_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sc_np = scenario_native.generate_scenario_batch(cfg, B_MAIN, base_seed=0,
+                                                        n_valid_people=cfg.n_agents)
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    sc = scenario_from_numpy(sc_np, device=dev)
+    torch.cuda.synchronize()
+    to_dev_ms = (time.perf_counter() - t0) * 1e3
+    if sc.esdf.indexes.dtype != torch.int32 or sc.path.n.dtype != torch.int32:
+        fail("native: integer leaves did not arrive as int32")
+    cmd, aux, _ = make_step_batch(cfg, device=dev)(sc, make_carry(cfg, B_MAIN, device=dev))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(cmd.linear_x).all() & torch.isfinite(cmd.angular_z).all()):
+        fail("native: non-finite command on the native batch")
+    emit({"phase": "native", "batch": B_MAIN, "build_and_load_s": build_s,
+          "generate_ms": gen_ms, "to_device_ms": to_dev_ms,
+          "status_ok_share": float((aux.status == 0).float().mean()),
+          "usable_share": float(aux.solve.usable.float().mean())})
+    return sc_np
+
+
+def phase_sim(cfg, dev, sc_np):
+    """The closed-loop simulator on the card: a campaign of B_MAIN native
+    social scenarios for SIM_TICKS ticks (finite poses, commands in their
+    bounds, the STATUS_OK share), lanes 0 and 1 equal bit for bit to B = 1
+    simulations of those scenarios over SIM_LANE_TICKS ticks, and the two
+    behavioral scenarios of tests/test_simulator.py. Returns the launch
+    counts of the campaign."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.core.config import benchmark_obstacle_only_config
+    from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
+    from nav2_social_mpc_controller_tpu_torch.runtime.simulator import (
+        advance_people, make_simulate, simulate,
+    )
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario
+
+    opt = cfg.optimizer
+    sc = scenario_from_numpy(sc_np, device=dev)
+    simulate(cfg, head(sc, 64, dev), 2, device=dev)  # warm
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulate(cfg, sc, SIM_TICKS, device=dev)
+    torch.cuda.synchronize()
+    campaign_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    check_launches("sim", launches, DEFAULT_PATH_KERNELS)
+    if not bool(torch.isfinite(res.robot_traj).all()):
+        fail("sim: a robot pose is not finite")
+    v, w = res.cmds[..., 0], res.cmds[..., 1]
+    if not bool(((v >= opt.v_min) & (v <= opt.v_max) & (w >= opt.w_min) & (w <= opt.w_max)).all()):
+        fail("sim: a command left v in [v_min, v_max], w in [w_min, w_max]")
+
+    # The people update alone, on the campaign's final state, timed the same way.
+    pose, speed = res.robot_traj[:, -1].contiguous(), res.cmds[:, -1].contiguous()
+    people = sc.people._replace(state=res.people_traj[:, -1].contiguous())
+    ppl_ms = []
+    for _ in range(SIM_TICKS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        advance_people(cfg, people, pose, speed, sc.esdf, 0.05)
+        torch.cuda.synchronize()
+        ppl_ms.append((time.perf_counter() - t1) * 1e3)
+
+    # Lanes 0 and 1 against their own B = 1 simulations.
+    for i in (0, 1):
+        one = make_simulate(cfg, SIM_LANE_TICKS, device=dev)(lane(sc, i))
+        pairs = {"robot_traj": (one.robot_traj, res.robot_traj[i, :SIM_LANE_TICKS + 1]),
+                 "people_traj": (one.people_traj, res.people_traj[i, :SIM_LANE_TICKS + 1]),
+                 "cmds": (one.cmds, res.cmds[i, :SIM_LANE_TICKS]),
+                 "status": (one.status, res.status[i, :SIM_LANE_TICKS])}
+        for what, (x, y) in pairs.items():
+            if not torch.equal(x, y):
+                fail(f"sim: lane {i}'s {what} differs from its B = 1 simulation")
+
+    # tests/test_simulator.py's two scenarios.
+    obstacle = benchmark_obstacle_only_config()
+    sc_o = make_scenario(obstacle, seed=0, n_valid_people=0, path_kind="straight",
+                         with_obstacles=False)
+    r_o = make_simulate(obstacle, 40, device=dev)(sc_o)
+    goal = torch.tensor(sc_o.path.points[int(sc_o.path.n) - 1])
+    closed = float(torch.linalg.norm(torch.tensor(sc_o.robot.pose[0:2]) - goal)
+                   - torch.linalg.norm(r_o.robot_traj[-1, 0:2].cpu() - goal))
+    if not closed >= 0.5 or not bool((r_o.status == 0).all()):
+        fail(f"sim obstacle: closed {closed:.3f} m toward the goal (>= 0.5 needed), "
+             f"statuses {r_o.status.tolist()}")
+    sc_s = make_scenario(cfg, seed=3, n_valid_people=3, path_kind="straight")
+    r_s = make_simulate(cfg, 30, device=dev)(sc_s)
+    if not bool(torch.isfinite(r_s.robot_traj).all()) or not float(r_s.min_people_dist) > 0.2:
+        fail(f"sim social: minimum people distance {float(r_s.min_people_dist):.3f} m <= 0.2")
+
+    tick_ms = campaign_s * 1e3 / SIM_TICKS
+    emit({"phase": "sim", "batch": sc.robot.pose.shape[0], "ticks": SIM_TICKS,
+          "ms_per_simulated_tick": tick_ms,
+          "people_update_ms": host_ms_stats(ppl_ms),
+          "people_update_share": float(np.mean(ppl_ms)) / tick_ms,
+          "status_ok_share": float((res.status == 0).float().mean()),
+          "min_people_dist_p50": float(res.min_people_dist.median()),
+          "lanes_bit_equal_to_b1": [0, 1], "lane_ticks": SIM_LANE_TICKS,
+          "obstacle_progress_m": closed, "social_min_people_dist": float(r_s.min_people_dist),
+          "launches": launches})
+    return launches
+
+
+def phase_stream(cfg, dev, seconds=3.0):
+    """ControllerLoop at 20 Hz for `seconds`, driving make_step on the card
+    from NumPy sensor snapshots (people through a LatestValueCache).
+    Overruns are reported, not failed; no tick at all fails. Returns the
+    launch counts."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step
+    from nav2_social_mpc_controller_tpu_torch.runtime.stream import ControllerLoop, LatestValueCache
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario
+
+    sc = make_scenario(cfg, seed=0, n_valid_people=cfg.n_agents)
+    step = make_step(cfg, device=dev)
+    step(sc, make_carry(cfg, device=dev))  # warm
+    people = LatestValueCache(sc.people)
+    cmds = []
+    _build.reset_launch_counts()
+    loop = ControllerLoop(step, make_carry(cfg, device=dev),
+                          lambda: sc._replace(people=people.get()[0]),
+                          lambda cmd, aux: cmds.append(float(cmd.linear_x)),
+                          frequency_hz=20.0).start()
+    time.sleep(seconds)
+    loop.stop()
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if loop.ticks == 0:
+        fail("stream: the 20 Hz loop made no tick")
+    if not all(np.isfinite(cmds)):
+        fail("stream: a non-finite command")
+    check_launches("stream", launches, DEFAULT_PATH_KERNELS)
+    emit({"phase": "stream", "frequency_hz": 20.0, "seconds": seconds, "ticks": loop.ticks,
+          "missed": loop.missed, "overruns": loop.overruns, "launches": launches})
+    return launches
+
+
+# The JSON keys the JAX package's CLI prints (its cmd_step / cmd_sim /
+# cmd_bench); the port's CLI prints them and its platform.
+CLI_KEYS = {
+    "step": {"linear_x", "linear_y", "angular_z", "status", "lm_iterations", "initial_cost",
+             "final_cost", "termination", "usable"},
+    "sim": {"ticks", "goal_dist_final", "min_people_dist", "mean_v", "max_v", "max_abs_w",
+            "status_ok_frac", "robot_final_pose"},
+    "bench": {"metric", "value", "unit", "batch", "iters", "batch_latency_ms", "warmup_s",
+              "platform"},
+}
+
+
+def phase_cli():
+    """`python -m nav2_social_mpc_controller_tpu_torch` in subprocesses, on
+    the card: config, step, step --debug-optimizer and sim --ticks 40 side
+    by side, then bench --batch B_MAIN --iters 10 alone. Each must exit 0
+    and print JSON with the JAX CLI's keys and the CUDA platform."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {
+        "config": ["config"],
+        "step": ["step", "--config", "social"],
+        "step_debug": ["step", "--debug-optimizer"],
+        "sim": ["sim", "--ticks", "40"],
+        "bench": ["bench", "--batch", str(B_MAIN), "--iters", "10"],
+    }
+    out = {}
+
+    def start(argv):
+        return subprocess.Popen([sys.executable, "-m", "nav2_social_mpc_controller_tpu_torch",
+                                 *argv], cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(name, proc, t0):
+        try:
+            so, se = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"cli {name}: no result within 300 s")
+        if proc.returncode != 0:
+            fail(f"cli {name}: exit code {proc.returncode}: {se[-2000:]}")
+        res = json.loads(so)
+        kind = name.split("_")[0]
+        if kind != "config":
+            missing = CLI_KEYS[kind] - set(res)
+            if missing or res.get("platform") != "cuda":
+                fail(f"cli {name}: keys {sorted(missing)} missing or platform "
+                     f"{res.get('platform')!r} is not cuda")
+        elif res.get("optimizer", {}).get("control_horizon") != 18:
+            fail("cli config: not the social config")
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     **({} if kind == "config" else
+                        {k: res[k] for k in sorted(res) if k not in ("iterations",)}),
+                     **({"iterations_rows": len(res["iterations"])} if "iterations" in res else {})}
+
+    t0 = time.perf_counter()
+    procs = {name: start(argv) for name, argv in runs.items() if name != "bench"}
+    for name, proc in procs.items():
+        finish(name, proc, t0)
+    if out["step_debug"].get("iterations_rows", 0) != out["step_debug"]["lm_iterations"]:
+        fail("cli step --debug-optimizer: no trace row per LM iteration")
+    t1 = time.perf_counter()
+    finish("bench", start(runs["bench"]), t1)
+    emit({"phase": "cli", "runs": out})
+
+
 def main():
     t_start = time.perf_counter()
     dev_info, smi = phase_device()
@@ -2001,6 +2451,15 @@ def main():
     launches_latent = phase_latent_tick(social, dev)
     launches_compacted = phase_compacted_tick(social, dev, sc, poses)
     phase_timing([("obstacle", obstacle, 0), ("social", social, social.n_agents)], dev)
+    launches_single = phase_single_step(
+        [("social", social, social.n_agents), ("obstacle", obstacle, 0),
+         ("omni6", omni6, omni6.n_agents), ("stress36", stress36, stress36.n_agents)], dev)
+    launches_controller = phase_controller(social, dev)
+    sc_native = phase_native(social, dev)
+    launches_sim = phase_sim(social, dev, sc_native)
+    del sc_native
+    launches_stream = phase_stream(social, dev)
+    phase_cli()
 
     # Every kernel at the social main path's shapes, inputs captured from a
     # real tick. `launches` is the count on the kernel's own paths: three
@@ -2011,7 +2470,9 @@ def main():
     res = check_all_kernels(social, cap, reps=200)
     by_path = {"social": launches, "obstacle": launches_obstacle, "debug": launches_debug,
                "jacobi": launches_jacobi, "latent": launches_latent,
-               "compacted": launches_compacted}
+               "compacted": launches_compacted, "single_step": launches_single,
+               "controller": launches_controller, "sim": launches_sim,
+               "stream": launches_stream}
     own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": "latent",
                                              "rollout_prep": None}
     emit({"kernels": [

@@ -1,4 +1,6 @@
-"""Controller facade: the batched per-tick step function.
+"""Controller facade: the per-tick step function on a batch of scenarios,
+its single-scenario wrapper, and a stateful host wrapper mirroring the
+nav2_core::Controller lifecycle API.
 
 Reference parity target: SocialMPCController (social_mpc_controller.cpp).
 The 20 Hz computeVelocityCommands orchestration (:162-257) becomes a
@@ -10,10 +12,13 @@ with the warm-start memory (TrajectoryMemory singleton) as an explicit carry
 and the degradation ladder (SURVEY.md section 5.3) as per-scenario status
 codes. ``make_step_batch`` is the workhorse entry point: thousands of
 independent solves per call, on the card unless the caller asks for the CPU.
+``make_step`` runs one robot's tick as a batch of one, and
+``SocialMPCController`` drives it tick by tick.
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
@@ -38,9 +43,14 @@ from nav2_social_mpc_controller_tpu_torch.core.types import (
     ControllerCarry,
     Scenario,
     StepAux,
+    carry_from_numpy,
     resolve_device,
+    scenario_from_numpy,
 )
-from nav2_social_mpc_controller_tpu_torch.core.validate import make_window_validator
+from nav2_social_mpc_controller_tpu_torch.core.validate import (
+    make_window_validator,
+    validate_scenario_windows,
+)
 from nav2_social_mpc_controller_tpu_torch.solver.batched import lm_solve_batch_compacted
 from nav2_social_mpc_controller_tpu_torch.utils.angles import shortest_angular_distance
 
@@ -69,15 +79,38 @@ def fov_filter(cfg: SocialMPCConfig, people: AgentsState, robot_pose, costmap) -
     return AgentsState(state=torch.where(keep[..., None], st, invalid))
 
 
-def make_carry(cfg: SocialMPCConfig, batch: int, device="cuda", dtype=torch.float32) -> ControllerCarry:
-    """Fresh warm-start memory for `batch` scenarios, sized for this config."""
+def prune_plan(path, start: int):
+    """Erase the first `start` poses from a (host-side, NumPy) plan, keeping
+    the static buffer shape: remaining poses shift to the front, the tail
+    holds the last valid pose, and the count shrinks (path_handler.cpp:100
+    erases plan_.poses.begin()..transformation_begin from the stored plan)."""
+    start = int(start)
+    n = int(path.n)
+    if start <= 0 or n <= 0:
+        return path
+    start = min(start, n - 1)  # never erase the whole plan
+    p = path.points.shape[0]
+    n_new = n - start
+    src = np.minimum(start + np.arange(p), start + n_new - 1)
+    src = np.clip(src, 0, p - 1)
+    return path._replace(
+        points=np.asarray(path.points)[src],
+        yaw=np.asarray(path.yaw)[src],
+        n=np.int32(n_new),
+    )
+
+
+def make_carry(cfg: SocialMPCConfig, batch=None, device="cuda", dtype=torch.float32) -> ControllerCarry:
+    """Fresh warm-start memory for `batch` scenarios, sized for this config;
+    with batch=None, the unbatched carry of one scenario (for make_step)."""
     dev = resolve_device(device)
     dims = ProblemDims.from_config(cfg)
+    lead = () if batch is None else (batch,)
     return ControllerCarry(
-        prev_path=torch.zeros((batch, dims.maxsize, 3), dtype=dtype, device=dev),
-        prev_cmds=torch.zeros((batch, dims.maxsize, 2), dtype=dtype, device=dev),
-        prev_n=torch.zeros((batch,), dtype=torch.int32, device=dev),
-        plan_start=torch.zeros((batch,), dtype=torch.int32, device=dev),
+        prev_path=torch.zeros(lead + (dims.maxsize, 3), dtype=dtype, device=dev),
+        prev_cmds=torch.zeros(lead + (dims.maxsize, 2), dtype=dtype, device=dev),
+        prev_n=torch.zeros(lead, dtype=torch.int32, device=dev),
+        plan_start=torch.zeros(lead, dtype=torch.int32, device=dev),
     )
 
 
@@ -200,7 +233,8 @@ def step_post(cfg: SocialMPCConfig, ctx: StepContext, carry: ControllerCarry, u_
     return cmd, aux, new_carry
 
 
-def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
+def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
+                    validate: bool = True):
     """The batched step closure for `cfg`: step(scenario, carry) ->
     (ControlCommand, StepAux, ControllerCarry), all with a leading batch axis.
 
@@ -220,15 +254,19 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
     tick's optimum. The batch checks (obstacle- and
     ESDF-window exactness against the ACTUAL grid resolutions) run once per
     distinct input buffer (identity-cached), so steady-state ticks that reuse
-    scenario buffers pay no host synchronisation."""
-    return _checked(cfg, device, dtype, lambda scenario, carry: step(cfg, scenario, carry))
+    scenario buffers pay no host synchronisation. ``validate=False`` opts
+    out for callers that validated at construction (the built-in generators
+    already do)."""
+    return _checked(cfg, device, dtype, lambda scenario, carry: step(cfg, scenario, carry),
+                    validate)
 
 
-def _checked(cfg: SocialMPCConfig, device, dtype, fn):
+def _checked(cfg: SocialMPCConfig, device, dtype, fn, validate: bool = True):
     """fn(scenario, carry) behind the call-boundary checks (device, dtype,
-    window exactness), with autograd's reverse mode off."""
+    and, with `validate`, window exactness), with autograd's reverse mode
+    off."""
     dev = resolve_device(device)
-    check = make_window_validator(cfg)
+    check = make_window_validator(cfg) if validate else None
 
     def run(scenario: Scenario, carry: ControllerCarry):
         pose = scenario.robot.pose
@@ -237,7 +275,8 @@ def _checked(cfg: SocialMPCConfig, device, dtype, fn):
                 f"the step was built for {dev.type}/{dtype} but the scenario "
                 f"is on {pose.device}/{pose.dtype}"
             )
-        check(scenario)
+        if check is not None:
+            check(scenario)
         with torch.no_grad():
             return fn(scenario, carry)
 
@@ -245,7 +284,7 @@ def _checked(cfg: SocialMPCConfig, device, dtype, fn):
 
 
 def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
-                              device="cuda", dtype=torch.float32):
+                              device="cuda", dtype=torch.float32, validate: bool = True):
     """Batched step with converged-lane compaction in the LM solve
     (solver/batched.py): step_pre -> the width-ladder solver -> step_post.
     Per-lane results are identical to make_step_batch's; the gain is that a
@@ -266,4 +305,104 @@ def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
         )
         return step_post(cfg, ctx, carry, u_flat, stats)
 
-    return _checked(cfg, device, dtype, run)
+    return _checked(cfg, device, dtype, run, validate)
+
+
+def first_lane(tree):
+    """The first (only) scenario of a batched tree: every tensor leaf loses
+    its leading axis; None stays None."""
+    if isinstance(tree, torch.Tensor):
+        return tree[0]
+    if isinstance(tree, tuple):
+        leaves = (first_lane(x) for x in tree)
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return tree
+
+
+def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
+    """Single-scenario step closure: step(scenario, carry) -> (cmd, aux,
+    carry') for ONE unbatched scenario and its unbatched carry
+    (make_carry(cfg) with batch=None), the results unbatched too.
+
+    The scenario's leaves may be NumPy (or array-like) or tensors; NumPy
+    leaves are copied to `device` on every call (what a robot's tick pays to
+    hand its sensor data over), tensors already on `device` are used as they
+    are. It runs as a batch of one through the batched step (the same code
+    and kernels: every kernel works scenario by scenario, so the result is
+    the same scenario's lane of a wider batch). Like the JAX package's
+    make_step, it does not check the windows (validate_scenario_windows;
+    SocialMPCController checks once, on its first tick)."""
+    dev = resolve_device(device)
+    batched = make_step_batch(cfg, device=dev, dtype=dtype, validate=False)
+
+    def run(scenario: Scenario, carry: ControllerCarry):
+        if np.ndim(scenario.robot.pose) != 1 or np.ndim(carry.prev_path) != 2:
+            raise ValueError(
+                "make_step takes one unbatched scenario and carry (robot.pose of shape "
+                "(3,), prev_path (maxsize, 3)); use make_step_batch for a batch"
+            )
+        sc = scenario_from_numpy(scenario, device=dev, dtype=dtype)
+        return first_lane(batched(sc, carry_from_numpy(carry, device=dev, dtype=dtype)))
+
+    return run
+
+
+class SocialMPCController:
+    """Stateful host wrapper with nav2_core::Controller-shaped lifecycle API
+    (social_mpc_controller.hpp:70-113). Holds the global plan and the
+    warm-start carry; compute_velocity_commands drives make_step on
+    `device` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self._step = make_step(cfg, self.device, dtype)
+        self._carry = make_carry(cfg, None, self.device, dtype)
+        self._plan = None
+        self._active = False
+        self._windows_validated = False
+
+    # Lifecycle (configure happens in __init__)
+    def activate(self):
+        self._active = True
+
+    def deactivate(self):
+        self._active = False
+
+    def cleanup(self):
+        self._plan = None
+        self._carry = make_carry(self.cfg, None, self.device, self.dtype)
+
+    def set_plan(self, path):
+        """setPlan (social_mpc_controller.cpp:260-263): installing a new plan
+        replaces the stored one (path_handler.cpp:110-113), so the
+        plan-advance cursor resets; the warm-start memory persists (the
+        reference's TrajectoryMemory is a process singleton)."""
+        self._plan = path
+        self._carry = self._carry._replace(
+            plan_start=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    def set_speed_limit(self, speed_limit: float, percentage: bool):
+        """setSpeedLimit — a deliberate no-op, faithfully reproducing the
+        reference's dead-store implementation (social_mpc_controller.cpp:265-285)."""
+
+    def compute_velocity_commands(self, scenario: Scenario) -> Tuple[ControlCommand, StepAux]:
+        if not self._windows_validated:
+            # Hard exactness check of the two windows against the actual
+            # grid resolutions (core/validate.py), once: later ticks run the
+            # unchecked step and pay no host synchronisation for it.
+            validate_scenario_windows(
+                self.cfg, scenario.costmap.resolution, scenario.esdf.resolution
+            )
+            self._windows_validated = True
+        if self._plan is not None:
+            scenario = scenario._replace(path=self._plan)
+        cmd, aux, self._carry = self._step(scenario, self._carry)
+        # Plan pruning — the reference ERASES [begin(), transformation_begin)
+        # from its plan copy every tick (path_handler.cpp:100) — is the
+        # carry's plan_start cursor, advanced to aux.plan_start_index; the
+        # next tick's search window starts from that pruned head (prune_plan
+        # is the host utility for drivers that shrink their plan buffers;
+        # they must then reset the cursor, e.g. via set_plan).
+        return cmd, aux

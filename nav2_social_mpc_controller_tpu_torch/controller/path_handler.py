@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from nav2_social_mpc_controller_tpu_torch.core.types import PathInput
+from nav2_social_mpc_controller_tpu_torch.models.motion import prefix_sum
 
 
 class WindowedPlan(NamedTuple):
@@ -54,7 +55,7 @@ def transform_global_plan(
 
     dseg = path.points[:, 1:] - path.points[:, :-1]
     seg = torch.sqrt((dseg * dseg).sum(-1))
-    cum = torch.cat([seg.new_zeros((b, 1)), torch.cumsum(seg, dim=1)], dim=1)
+    cum = torch.cat([seg.new_zeros((b, 1)), prefix_sum(seg)], dim=1)
     if start is None:
         start = torch.zeros((b,), dtype=torch.int32, device=dev)
     start = start.long()[:, None]

@@ -165,14 +165,25 @@ def resolve_device(device) -> torch.device:
 
 
 def _leaf(x, device, dtype):
-    """One NumPy-like leaf -> tensor (a copy): floats to `dtype`, integers
-    to int32, bools stay bool."""
+    """One leaf (NumPy, array-like or tensor) -> tensor on `device`: floats
+    to `dtype`, integers to int32, bools stay bool. NumPy leaves are copied;
+    a tensor that is already right is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bool:
+            return x.to(device)
+        if x.is_floating_point():
+            return x.to(device=device, dtype=dtype)
+        return x.to(device=device, dtype=torch.int32)
     a = np.asarray(x)
     if a.dtype == np.bool_:
         return torch.tensor(a, device=device)
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a.astype(np.int32), device=device)
     return torch.tensor(a, device=device).to(dtype)
+
+
+def _ndim(x) -> int:
+    return x.ndim if isinstance(x, torch.Tensor) else np.asarray(x).ndim
 
 
 def _convert(tree, template, device, dtype, add_batch):
@@ -188,20 +199,20 @@ def _convert(tree, template, device, dtype, add_batch):
 
 
 def scenario_from_numpy(sc_np, device="cuda", dtype=torch.float32) -> Scenario:
-    """A Scenario with NumPy (or array-like) leaves -> this package's
-    Scenario on `device`. Accepts any NamedTuple with the same field order,
-    in particular the JAX package's. A single unbatched scenario gets a
-    leading batch axis of 1."""
+    """A Scenario with NumPy (or array-like, or tensor) leaves -> this
+    package's Scenario on `device`. Accepts any NamedTuple with the same
+    field order, in particular the JAX package's. A single unbatched
+    scenario gets a leading batch axis of 1."""
     dev = resolve_device(device)
-    add_batch = np.asarray(sc_np.robot.pose).ndim == 1
+    add_batch = _ndim(sc_np.robot.pose) == 1
     return _convert(sc_np, Scenario, dev, dtype, add_batch)
 
 
 def carry_from_numpy(carry_np, device="cuda", dtype=torch.float32) -> ControllerCarry:
-    """A ControllerCarry with NumPy leaves -> tensors (batch axis added when
-    the input is a single unbatched carry)."""
+    """A ControllerCarry with NumPy (or tensor) leaves -> tensors (batch
+    axis added when the input is a single unbatched carry)."""
     dev = resolve_device(device)
-    add_batch = np.asarray(carry_np.prev_path).ndim == 2
+    add_batch = _ndim(carry_np.prev_path) == 2
     return _convert(tuple(carry_np)[:4], ControllerCarry, dev, dtype, add_batch)
 
 

@@ -19,11 +19,17 @@ the window covers the relevant reachable set:
     agent has drifted at most people_desired_vel * dt * (S-1) from the
     window centre, plus 1 cell of floor() slack (models/sfm.py).
 
-Grid resolution is scenario data on the device, so the checks read it back
-once per distinct input buffer (identity-cached), never once per tick.
+Grid resolution is scenario data on the device, so the batched step's
+checks read it back once per distinct input buffer (identity-cached), never
+once per tick; ``validate_scenario_windows`` / ``validate_batch_windows`` are
+the same checks for host boundaries (scenario generators, the controller's
+first tick). The JAX package's ``check_costmap_bf16_exact`` guards its TPU
+bf16 dot mode, which the port does not have, and has no counterpart here.
 """
 
 import math
+
+import numpy as np
 
 FRONT_OFFSET = 0.25  # "size of jackal" heading offset (obstacle_cost_function.hpp:152)
 
@@ -73,11 +79,35 @@ def check_obstacle_window(cfg, resolution: float) -> None:
         )
 
 
+def _resolution(x) -> float:
+    """A resolution (a Python or NumPy number, or a tensor of any shape) as
+    one float: the smallest, which needs the largest window."""
+    if hasattr(x, "detach"):  # a torch.Tensor, on any device
+        return float(x.detach().min())
+    return float(np.min(np.asarray(x)))
+
+
+def validate_scenario_windows(cfg, costmap_resolution, esdf_resolution) -> None:
+    """Hard check at a host boundary: raises ValueError when a configured
+    window is smaller than its exactness bound at these resolutions (floats,
+    arrays or tensors; an array counts by its smallest element). Windows set
+    to 0 and non-positive resolutions are not checked."""
+    check_obstacle_window(cfg, _resolution(costmap_resolution))
+    check_esdf_window(cfg, _resolution(esdf_resolution))
+
+
+def validate_batch_windows(cfg, scenario) -> None:
+    """validate_scenario_windows for a (batched or single) Scenario with
+    NumPy or tensor leaves: the smallest resolution of the batch binds."""
+    validate_scenario_windows(cfg, scenario.costmap.resolution, scenario.esdf.resolution)
+
+
 def make_window_validator(cfg):
-    """Identity-cached boundary check: returns check(scenario) that runs the
-    window checks once per distinct set of input buffers, so steady-state ticks that reuse scenario buffers pay no
-    host synchronisation. The cache HOLDS the keyed tensors (not just their
-    ids), so a freed buffer's id cannot be recycled by a new, never-checked
+    """Identity-cached validate_batch_windows: returns check(scenario) that
+    runs the window checks once per distinct set of resolution buffers, so
+    steady-state ticks that reuse scenario buffers pay no host
+    synchronisation. The cache HOLDS the keyed tensors (not just their ids),
+    so a freed buffer's id cannot be recycled by a new, never-checked
     tensor. Tensors are mutable: a caller that overwrites a checked buffer
     in place takes the check upon itself."""
     cache = {}
@@ -87,8 +117,7 @@ def make_window_validator(cfg):
         key = tuple(id(t) for t in held)
         if key in cache:
             return
-        check_obstacle_window(cfg, float(scenario.costmap.resolution.min()))
-        check_esdf_window(cfg, float(scenario.esdf.resolution.min()))
+        validate_batch_windows(cfg, scenario)
         if len(cache) >= 1024:  # bound the cache for long campaigns
             cache.clear()
         cache[key] = held

@@ -52,6 +52,19 @@ def expand_blocks(u, block_idx):
     return torch.gather(u, 1, idx)
 
 
+def prefix_sum(x, dim: int = 1):
+    """torch.cumsum(x, dim), summed strictly left to right in every row
+    whatever the batch width (on the CPU float32 accumulates in double, as
+    torch.cumsum does there), so that one scenario's sums are the same bits
+    alone as in any batch. On CUDA torch.cumsum takes CUB's device scan when
+    the tensor holds a single row, and otherwise a blocked tree scan whose
+    block width grows as the rows get fewer (so rows longer than 32 are
+    associated otherwise); along a dimension that is not the last, each row
+    is one thread's sequential loop. Hence the trailing axis of two."""
+    dim = dim % x.ndim
+    return torch.cumsum(torch.stack([x, x], dim=-1), dim=dim)[..., 0]
+
+
 def rollout_poses(pose0, u, dt: float, block_idx):
     """Integrate the unicycle model under block-constant controls.
 
@@ -62,10 +75,10 @@ def rollout_poses(pose0, u, dt: float, block_idx):
     the recurrence is three prefix sums."""
     vw = expand_blocks(u, block_idx)  # (B, S, 2)
     th0 = pose0[:, 2:3]
-    th = th0 + dt * torch.cumsum(vw[..., 1], dim=1)
+    th = th0 + dt * prefix_sum(vw[..., 1])
     th_prev = torch.cat([th0, th[:, :-1]], dim=1)
-    x = pose0[:, 0:1] + dt * torch.cumsum(vw[..., 0] * torch.cos(th_prev), dim=1)
-    y = pose0[:, 1:2] + dt * torch.cumsum(vw[..., 0] * torch.sin(th_prev), dim=1)
+    x = pose0[:, 0:1] + dt * prefix_sum(vw[..., 0] * torch.cos(th_prev))
+    y = pose0[:, 1:2] + dt * prefix_sum(vw[..., 0] * torch.sin(th_prev))
     traj = torch.stack([x, y, th], dim=-1)
     return torch.cat([pose0[:, None, :], traj], dim=1)
 

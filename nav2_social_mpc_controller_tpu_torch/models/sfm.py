@@ -1,5 +1,6 @@
-"""K5 — the Social Force Model people projection: wrapper, plain version and
-launch count for ``csrc/sfm_scan.cu``.
+"""The Social Force Model: the library's forces and update, and K5 — the
+people projection: wrapper, plain version and launch count for
+``csrc/sfm_scan.cu``.
 
 Counterpart of the JAX package's ``models/sfm.py`` (``project_people``) and
 ``models/sfm_pallas.py`` (the whole scan as one kernel). Reference parity
@@ -26,6 +27,12 @@ agent's starting cell, which changes nothing while the agent stays inside
 it (core/validate.py holds the sizing rule). No table is cropped for it —
 the index grid is read directly.
 
+``desired_force``, ``obstacle_force``, ``pairwise_social_force``,
+``group_forces`` and ``sfm_update`` are the SFM library (sfm.hpp) in plain
+PyTorch, batched over scenarios — what the closed-loop simulator's
+pedestrians run (runtime/simulator.py); the projection's plain version
+repeats their arithmetic inline, in the kernel's order.
+
 ``project_people`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; there is no fallback on the card. The kernel
 gives a group of scenarios a block: force warps that compute the pair
@@ -33,6 +40,7 @@ forces on parallel lanes and an agent warp for the rest of each agent's
 step; ``scan_geometry`` chooses the groups.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -135,6 +143,112 @@ def _cell(q, origin, resolution, n: int):
     stand for every out-of-range cell (NaN counts as out of range)."""
     c = torch.floor((q - origin) / resolution)
     return torch.nan_to_num(c, nan=-1.0).clamp(-1.0, float(n)).long()
+
+
+def desired_force(pos, vel, goal, has_goal, goal_radius, desired_speed, params: SFMParams):
+    """computeDesiredForce (sfm.hpp:188-203), elementwise over leading axes:
+    pos/vel/goal (..., 2), has_goal (...) bool, desired_speed (...).
+    Returns (force (..., 2), desired_direction (..., 2))."""
+    diff = goal - pos
+    dist = _norm(diff)
+    pursuing = has_goal & (dist > goal_radius)
+    direction = diff / dist.clamp(min=_EPS_DIR)[..., None]
+    f_goal = (
+        params.force_factor_desired
+        * (direction * desired_speed[..., None] - vel)
+        / params.relaxation_time
+    )
+    f_stop = -vel / params.relaxation_time
+    force = torch.where(pursuing[..., None], f_goal, f_stop)
+    direction = torch.where(pursuing[..., None], direction, torch.zeros_like(direction))
+    return force, direction
+
+
+def obstacle_force(pos, obstacle_entry, has_obstacle, radius, params: SFMParams):
+    """computeObstacleForce (sfm.hpp:205-235) for a single obstacles1 entry
+    per agent, elementwise over leading axes.
+
+    obstacle_entry holds the computeObstacle() output: apos - obstacle_world.
+    The SFM then computes minDiff = pos - entry (== the obstacle's world
+    position when entry was built from the same pos — replicated verbatim)."""
+    min_diff = pos - obstacle_entry
+    dist = _norm(min_diff) - radius
+    direction, _ = _safe_normalize(min_diff)
+    force = (
+        params.force_factor_obstacle
+        * torch.exp(-dist / params.force_sigma_obstacle)[..., None]
+        * direction
+    )
+    return torch.where(has_obstacle[..., None], force, torch.zeros_like(force))
+
+
+def group_forces(positions, valid, group_id, desired_direction, radius, params: SFMParams):
+    """computeGroupForce (sfm.hpp:325-393), non-_PAPER_VERSION_ branch.
+
+    The reference projection never activates it (groupId = -1 for every
+    projected agent), but it is part of the SFM library surface. Entities
+    share a group iff group_id matches and >= 0; groups need >= 2 members.
+    positions/desired_direction (B, M, 2); valid (B, M) bool; group_id
+    (B, M) integer; radius (B, M). Returns (B, M, 2) total group force."""
+    m = positions.shape[-2]
+    dtype = positions.dtype
+    eye = torch.eye(m, dtype=torch.bool, device=positions.device)
+    same = (
+        (group_id[..., :, None] == group_id[..., None, :])
+        & (group_id[..., None, :] >= 0)
+        & valid[..., None, :]
+        & valid[..., :, None]
+    )
+    count = same.sum(-1)
+    in_group = count >= 2
+    members = torch.where(same[..., None], positions[..., None, :, :], 0.0)
+    center = members.sum(-2) / count.clamp(min=1)[..., None].to(dtype)
+
+    # Gaze: center of the OTHER members (sfm.hpp:340-341)
+    cnt_f = count.to(dtype)
+    com_others = (cnt_f[..., None] * center - positions) / (cnt_f - 1.0).clamp(min=1.0)[..., None]
+    rel = com_others - positions
+    elem = (desired_direction * rel).sum(-1)
+    denom = _norm(desired_direction) * _norm(rel)
+    com_angle = wrap_to_pi(torch.arccos(torch.clamp(elem / denom.clamp(min=_EPS_DIR), -1.0, 1.0)))
+    dd_sq = (desired_direction * desired_direction).sum(-1).clamp(min=_EPS_DIR)
+    gaze_f = params.force_factor_group_gaze * (elem / dd_sq)[..., None] * desired_direction
+    gaze = torch.where((com_angle > math.pi / 2)[..., None], gaze_f, torch.zeros_like(gaze_f))
+
+    # Coherence (softened tanh version, sfm.hpp:371-376)
+    rel_c = center - positions
+    dist_c = _norm(rel_c)
+    max_dist = (cnt_f - 1.0) / 2.0
+    soft = params.force_factor_group_coherence * (torch.tanh(dist_c - max_dist) + 1.0) / 2.0
+    coherence = rel_c * soft[..., None]
+
+    # Repulsion (sfm.hpp:379-388)
+    diff = positions[..., :, None, :] - positions[..., None, :, :]
+    d = _norm(diff)
+    close = same & (d < (radius[..., :, None] + radius[..., None, :])) & ~eye
+    repulsion = params.force_factor_group_repulsion * torch.where(close[..., None], diff, 0.0).sum(-2)
+
+    total = gaze + coherence + repulsion
+    return torch.where(in_group[..., None], total, torch.zeros_like(total))
+
+
+def sfm_update(pos, vel, yaw, global_force, desired_speed, goal, has_goal, goal_radius, dt):
+    """updatePosition (sfm.hpp:525-573) — Euler velocity update with speed
+    clamp, yaw from velocity, angular velocity from yaw delta, goal pop.
+    Elementwise over leading axes. Returns the tuple
+    (pos', vel', yaw', lv', av', has_goal')."""
+    vel = vel + global_force * dt
+    speed = _norm(vel)
+    over = speed > desired_speed
+    vel = torch.where(
+        over[..., None], vel / speed.clamp(min=_EPS_DIR)[..., None] * desired_speed[..., None], vel
+    )
+    new_yaw = wrap_to_pi(torch.atan2(vel[..., 1], vel[..., 0]))
+    av = wrap_to_pi(new_yaw - yaw) / dt
+    pos = pos + vel * dt
+    lv = _norm(vel)
+    reached = has_goal & (_norm(goal - pos) <= goal_radius)
+    return pos, vel, new_yaw, lv, av, has_goal & ~reached
 
 
 def pairwise_social_force(positions, velocities, valid, params: SFMParams):

@@ -23,7 +23,7 @@ from nav2_social_mpc_controller_tpu_torch.core.types import (
     RobotState,
     Scenario,
 )
-from nav2_social_mpc_controller_tpu_torch.core.validate import check_obstacle_window
+from nav2_social_mpc_controller_tpu_torch.core.validate import validate_scenario_windows
 
 
 def make_path(n_points: int, max_points: int, kind: str, rng, dtype=np.float32):
@@ -150,7 +150,7 @@ def make_scenario(
         else None
     )
     esdf = make_esdf(h, w, obstacle_cells=obs_cells, dtype=dtype)
-    check_obstacle_window(cfg, float(costmap.resolution))
+    validate_scenario_windows(cfg, costmap.resolution, esdf.resolution)
     return Scenario(path=path, robot=robot, people=people, costmap=costmap, esdf=esdf)
 
 

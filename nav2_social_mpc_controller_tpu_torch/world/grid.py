@@ -8,8 +8,9 @@ offset (obstacle_cost_function.hpp:160-163). Grid2D clamps out-of-range
 rows/cols to the border; the interpolator is a cubic Hermite (Catmull-Rom)
 spline in each axis.
 
-The ESDF nearest-obstacle lookup lives with its only caller, the SFM people
-projection (models/sfm.py).
+``esdf_nearest_obstacle_diff`` is the whole-grid ESDF lookup of
+Optimizer::computeObstacle, as the closed-loop simulator's pedestrians use
+it; the SFM people projection (models/sfm.py) has its own, windowed copy.
 """
 
 import torch
@@ -123,3 +124,28 @@ def sample_costmap(costmap_data, origin, resolution, point_xy):
     Evaluate(row = y_grid, col = x_grid). Differentiable in point_xy."""
     col, row = costmap_world_to_grid(point_xy, origin, resolution)
     return _BicubicSample.apply(costmap_data, row.contiguous(), col.contiguous())[0]
+
+
+def esdf_nearest_obstacle_diff(distances, indexes, origin, resolution, point_xy):
+    """Vector from the nearest obstacle cell to the query point, replicating
+    Optimizer::computeObstacle (optimizer.cpp:688-727).
+
+    Steps: world -> (xcell, ycell) via floor; flat index xcell + ycell*W;
+    gather the nearest-obstacle flat index; index -> obstacle cell -> world
+    coords at the cell CORNER (cell*res + origin, reference :719-720);
+    return diff = point - obstacle (and an in-bounds flag instead of the
+    reference's exceptions).
+
+    distances (B, H, W); indexes (B, H, W) int32; origin (B, 2); resolution
+    (B,); point_xy (B, N, 2). Returns (diff (B, N, 2), in_bounds (B, N)
+    bool)."""
+    b, h, w = distances.shape
+    cell = torch.floor((point_xy - origin[:, None, :]) / resolution[:, None, None]).long()
+    xcell, ycell = cell[..., 0], cell[..., 1]
+    in_bounds = (xcell >= 0) & (xcell < w) & (ycell >= 0) & (ycell < h)
+    xc = xcell.clamp(0, w - 1)
+    yc = ycell.clamp(0, h - 1)
+    ob_idx = torch.gather(indexes.reshape(b, h * w).long(), 1, yc * w + xc).clamp(0, h * w - 1)
+    ob = torch.stack([ob_idx % w, ob_idx // w], dim=-1).to(point_xy.dtype)
+    obstacle = ob * resolution[:, None, None] + origin[:, None, :]
+    return point_xy - obstacle, in_bounds

@@ -9,6 +9,10 @@ JAX package's pipeline, evaluated by both."""
 
 import dataclasses
 import functools
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -237,3 +241,24 @@ def check_value_grad_with_people(batch, dtype):
         np.testing.assert_array_equal(cost_off[~bt["present"]], cost[~bt["present"]])
         assert (cost_off[bt["present"]] <= cost[bt["present"]]).all()
         assert (cost_off[bt["present"]] < cost[bt["present"]]).any()
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_scalar_cpu_child(code):
+    """Run `code` in a child Python on ATen's scalar CPU kernels
+    (ATEN_CPU_CAPABILITY=default) and return the JSON object of its last
+    output line. Bit equality of one scenario's lane across batch widths
+    holds on those kernels only: with the vectorised ones, an element that
+    falls into a vector's scalar tail takes libm's sin/cos/atan2 instead of
+    the SIMD ones, which can differ in the last bit, and which elements of a
+    lane fall into the tail depends on the batch width. On the card every
+    elementwise kernel computes each element alike (chip_smoke.py holds the
+    same property there in float32)."""
+    env = dict(os.environ, ATEN_CPU_CAPABILITY="default",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
