@@ -75,12 +75,25 @@ one JSON line:
   cli        python -m nav2_social_mpc_controller_tpu_torch config, step,
              step --debug-optimizer, sim --ticks 40, bench --batch 4096
              --iters 10 in subprocesses: exit 0, the JAX CLI's keys, cuda
+  distributed  make_distributed_step in a world of one (NCCL, TCP
+             rendezvous on a free port) on the social main path's batch,
+             3 ticks: everything bit-equal to make_step_batch, the metrics
+             the local sums and mean; ms/tick of both in turns
+  checkpoint a carry on the card saved and restored bit for bit; an .npz in
+             the JAX package's layout restores to the same tensors
+  campaign   the CLI's multihost: 2 gloo ranks on the one card x 2,048
+             social scenarios, 3 ticks checkpointed every tick, then resumed
+             for a 4th; the ranks' snapshots bit-equal to one 4,096-scenario
+             process run 4 ticks; wall time, solves/s, generation time
+  dryrun     the CLI's dryrun --devices 2 --backend gloo: bit-equal to one
+             process; beside it, multihost with NCCL and two ranks on the
+             one card must fail the run
   kernels    every kernel at the social main path's shapes (inputs captured from a
              real tick): error vs the plain version against a stated
              tolerance, kernel / plain / library ms, the bound, launches (K7:
              its damped step with and without the Jacobi scale and its
              standalone solve under `entries`; `launches_by_path` adds the
-             single_step, controller, sim and stream paths);
+             single_step, controller, sim, stream and distributed paths);
              beside them the launch floor, an almost empty kernel timed the
              same way
 
@@ -99,6 +112,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2417,6 +2431,240 @@ def phase_cli():
     emit({"phase": "cli", "runs": out})
 
 
+# Scenario data parallelism (parallel/, runtime/campaign.py, the CLI's
+# dryrun and multihost).
+CAMPAIGN_TICKS = 3  # then resumed for one tick more
+
+
+def start_cli(argv):
+    """Start `python -m nav2_social_mpc_controller_tpu_torch *argv` from the
+    checkout; finish_cli waits for it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "nav2_social_mpc_controller_tpu_torch", *argv],
+                            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return argv, proc, time.perf_counter()
+
+
+def finish_cli(started, timeout):
+    """(exit code, stdout, stderr, wall seconds) of a start_cli run; killed
+    and failed after `timeout` seconds."""
+    argv, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{' '.join(argv[:3])}: no result within {timeout} s")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def run_cli(argv, timeout):
+    return finish_cli(start_cli(argv), timeout)
+
+
+def last_json(where, rc, out, err):
+    if rc != 0:
+        fail(f"{where}: exit code {rc}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_distributed(cfg, dev, sc, poses):
+    """make_distributed_step in a world of one (NCCL over a TCP rendezvous
+    on a free port) on the social main path's batch, N_TICKS ticks with the
+    carry fed back, the launch counts set to 0 just before and read just
+    after: command, aux and carry equal to make_step_batch's on the same
+    inputs bit for bit, the metrics the local sums and mean. Then ms/tick of
+    both, warm, host clock, in turns (plain, distributed, distributed,
+    plain, twice): the difference is what the all_reduce and its sync cost.
+    Returns (launch counts, the last carry)."""
+    import torch.distributed as dist
+
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step_batch,
+    )
+    from nav2_social_mpc_controller_tpu_torch.core.types import tree_leaves
+    from nav2_social_mpc_controller_tpu_torch.parallel import multihost
+    from nav2_social_mpc_controller_tpu_torch.parallel.mesh import make_distributed_step
+    from nav2_social_mpc_controller_tpu_torch.runtime.campaign import find_free_port
+
+    batch = sc.robot.pose.shape[0]
+    backend = multihost.initialize(f"localhost:{find_free_port()}", 1, 0, backend="nccl",
+                                   device=dev, timeout_s=120)
+    try:
+        mesh = multihost.make_global_mesh(dev)
+        dstep = make_distributed_step(cfg, mesh)
+        step = make_step_batch(cfg, device=dev)
+
+        def run_dist():
+            carry, outs = make_carry(cfg, batch, device=dev), []
+            for pose in poses:
+                cmd, aux, carry, metrics = dstep(with_pose(sc, pose), carry)
+                outs.append((cmd, aux, metrics))
+            torch.cuda.synchronize()
+            return outs, carry
+
+        run_dist()  # warm: the NCCL communicator is made at the first all_reduce
+        _build.reset_launch_counts()
+        outs_d, carry_d = run_dist()
+        launches = dict(_build.launch_counts)
+        check_launches("distributed", launches, DEFAULT_PATH_KERNELS)
+        check_one_sample_per_evaluation("distributed", launches)
+        outs_u, carry_u = run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev))
+        for t, ((cmd_d, aux_d, m), (cmd_u, aux_u)) in enumerate(zip(outs_d, outs_u)):
+            for a, b in zip(tree_leaves((cmd_d, aux_d)), tree_leaves((cmd_u, aux_u))):
+                if not torch.equal(a, b):
+                    fail(f"distributed tick {t}: an output differs from make_step_batch's")
+            check_tick_outputs(f"distributed tick {t}", cfg, cmd_d, aux_d)
+            want = {"n_scenarios": batch, "n_usable": int(aux_u.solve.usable.sum()),
+                    "n_status_ok": int((aux_u.status == 0).sum()),
+                    "total_iterations": int(aux_u.solve.iterations.sum())}
+            seen = {k: int(getattr(m, k)) for k in want}
+            if seen != want or not torch.equal(m.mean_final_cost, aux_u.solve.final_cost.mean()):
+                fail(f"distributed tick {t}: metrics {seen} / {float(m.mean_final_cost)}, local "
+                     f"{want} / {float(aux_u.solve.final_cost.mean())}")
+        if not all(torch.equal(a, b) for a, b in zip(carry_d, carry_u)):
+            fail("distributed: the carry differs from make_step_batch's")
+
+        def per_tick_ms(run):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            return (time.perf_counter() - t0) * 1e3 / len(poses)
+
+        ms = {"plain": [], "distributed": []}
+        for _ in range(2):
+            for kind in ("plain", "distributed", "distributed", "plain"):
+                ms[kind].append(per_tick_ms(
+                    run_dist if kind == "distributed"
+                    else lambda: run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev))))
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "distributed", "config": "social", "batch": batch, "ticks": len(poses),
+          "world_size": 1, "backend": backend, "bit_equal_to_make_step_batch": True,
+          "metrics_last_tick": {k: float(getattr(outs_d[-1][2], k))
+                                for k in outs_d[-1][2]._fields},
+          "ms_per_tick": ms, "ms_per_tick_median": {k: float(np.median(v)) for k, v in ms.items()},
+          "launches": launches})
+    return launches, carry_d
+
+
+def phase_checkpoint(cfg, carry):
+    """A carry on the card saved and restored is bit-equal; an .npz in the
+    JAX package's layout (leaf_0..leaf_3, written here with NumPy) restores
+    to the same tensors."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry
+    from nav2_social_mpc_controller_tpu_torch.utils.checkpoint import restore_carry, save_carry
+
+    like = make_carry(cfg, carry.prev_n.shape[0], device=carry.prev_n.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_carry(os.path.join(tmp, "carry"), carry)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_carry(path, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        np.savez(os.path.join(tmp, "jax.npz"),
+                 **{f"leaf_{i}": x.cpu().numpy() for i, x in enumerate(carry)})
+        from_npz = restore_carry(os.path.join(tmp, "jax"), like)
+        size = os.path.getsize(path)
+    for what, got in (("restored", back), ("restored from .npz", from_npz)):
+        for f, a, b in zip(carry._fields, got, carry):
+            if a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"checkpoint: {what} {f} is not the saved carry's")
+    emit({"phase": "checkpoint", "batch": int(carry.prev_n.shape[0]), "bytes": size,
+          "save_s": save_s, "restore_s": restore_s, "bit_equal": True, "npz_bit_equal": True})
+
+
+def phase_campaign(cfg, dev):
+    """The CLI's campaign in subprocesses on the card: 2 ranks (gloo, both
+    on cuda:0) x B_MAIN / 2 scenarios for CAMPAIGN_TICKS ticks checkpointed
+    every tick, then resumed for one tick more; the two ranks' final
+    snapshots, concatenated in rank order, equal bit for bit one in-process
+    run of the same B_MAIN scenarios (rank 0's seeds, then rank 1's) for
+    CAMPAIGN_TICKS + 1 uninterrupted ticks with the same pose jitter."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step_batch,
+    )
+    from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
+
+    per_rank = B_MAIN // 2
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "carry")
+        common = ["multihost", "--processes", "2", "--backend", "gloo", "--per-device-batch",
+                  str(per_rank), "--checkpoint", base, "--timeout", "240"]
+        for name, extra in (("first", ["--ticks", str(CAMPAIGN_TICKS), "--checkpoint-every", "1"]),
+                            ("resumed", ["--ticks", str(CAMPAIGN_TICKS + 1), "--resume"])):
+            rc, out, err, wall = run_cli(common + extra, timeout=300)
+            s = last_json(f"campaign {name}", rc, out, err)
+            runs[name] = {"wall_s": wall, **s}
+        s1, s2 = runs["first"], runs["resumed"]
+        want = {"global_batch": B_MAIN, "processes": 2, "devices": 2, "n_scenarios": B_MAIN,
+                "platform": torch.device(dev).type, "backend": "gloo"}
+        for name, s in runs.items():
+            if any(s.get(k) != v for k, v in want.items()) or "n_usable" not in s \
+                    or "n_status_ok" not in s:
+                fail(f"campaign {name}: summary {s} is not {want} with n_usable, n_status_ok")
+        if (s1["ticks"], s1["resumed_from_tick"]) != (CAMPAIGN_TICKS, 0) or \
+                (s2["ticks"], s2["resumed_from_tick"]) != (1, CAMPAIGN_TICKS):
+            fail(f"campaign: ticks / resumed_from_tick {s1['ticks']}/{s1['resumed_from_tick']}, "
+                 f"{s2['ticks']}/{s2['resumed_from_tick']}")
+        got = [torch.load(f"{base}.proc{r}.pt", weights_only=True) for r in range(2)]
+
+    # One process, the same scenarios, uninterrupted.
+    t0 = time.perf_counter()
+    parts = [make_scenario_batch(cfg, per_rank, base_seed=s, n_valid_people=cfg.n_agents,
+                                 grid_hw=(64, 64)) for s in (0, 100_000)]
+    generate_s = time.perf_counter() - t0
+    sc = scenario_from_numpy(type(parts[0])(*(
+        type(a)(*(np.concatenate([x, y]) for x, y in zip(a, b)))
+        for a, b in zip(*parts))), device=dev)
+    step = make_step_batch(cfg, device=dev)
+    carry = make_carry(cfg, B_MAIN, device=dev)
+    for t in range(CAMPAIGN_TICKS + 1):
+        eps = float(np.float32(1e-6 * t))
+        _, _, carry = step(with_pose(sc, sc.robot.pose + eps), carry)
+    torch.cuda.synchronize()
+    for i, ref in enumerate(carry):
+        if not torch.equal(torch.cat([got[0][f"leaf_{i}"], got[1][f"leaf_{i}"]]), ref.cpu()):
+            fail(f"campaign: the resumed ranks' {carry._fields[i]} differs from one "
+                 f"uninterrupted {B_MAIN}-scenario process")
+
+    emit({"phase": "campaign", "config": "social", "per_rank_batch": per_rank,
+          "runs": {k: {kk: v[kk] for kk in ("wall_s", "elapsed_s", "solves_per_s", "ticks",
+                                             "resumed_from_tick", "n_scenarios", "n_usable",
+                                             "n_status_ok", "mean_lm_iters", "generate_s")}
+                   for k, v in runs.items()},
+          "resumed_bit_equal_to_one_process": True, "reference_generate_s": generate_s})
+
+
+def phase_dryrun(dev):
+    """`dryrun --devices 2 --backend gloo` on the card: two ranks, one
+    scenario each, bit-equal to one process's make_step_batch. Beside it,
+    a campaign of two ranks on the one card with NCCL must fail (NCCL
+    refuses two ranks on one card), not be switched to gloo."""
+    dryrun = start_cli(["dryrun", "--devices", "2", "--backend", "gloo", "--timeout", "240"])
+    nccl = start_cli(["multihost", "--processes", "2", "--backend", "nccl",
+                      "--per-device-batch", "8", "--ticks", "1", "--timeout", "120"])
+    rc, out, err, wall = finish_cli(dryrun, timeout=300)
+    res = last_json("dryrun", rc, out, err)
+    if res.get("dryrun") != "ok" or res.get("devices") != 2 or \
+            res.get("platform") != torch.device(dev).type:
+        fail(f"dryrun: {res}")
+    rc, _, err, nccl_wall = finish_cli(nccl, timeout=180)
+    if rc == 0:
+        fail("multihost: NCCL with two ranks on one card ran (switched or shared?)")
+    lines = err.splitlines()
+    dup = [ln.strip() for ln in lines if "Duplicate GPU" in ln]
+    emit({"phase": "dryrun", "seconds": wall, **res,
+          "nccl_two_ranks_one_card": {"exit_code": rc, "seconds": nccl_wall,
+                                      "duplicate_gpu_reported": bool(dup),
+                                      "error": (dup[0] if dup else err.strip()[-300:])[:300]}})
+
+
 def main():
     t_start = time.perf_counter()
     dev_info, smi = phase_device()
@@ -2460,6 +2708,11 @@ def main():
     del sc_native
     launches_stream = phase_stream(social, dev)
     phase_cli()
+    launches_distributed, carry_distributed = phase_distributed(social, dev, sc, poses)
+    phase_checkpoint(social, carry_distributed)
+    del carry_distributed
+    phase_campaign(social, dev)
+    phase_dryrun(dev)
 
     # Every kernel at the social main path's shapes, inputs captured from a
     # real tick. `launches` is the count on the kernel's own paths: three
@@ -2472,7 +2725,7 @@ def main():
                "jacobi": launches_jacobi, "latent": launches_latent,
                "compacted": launches_compacted, "single_step": launches_single,
                "controller": launches_controller, "sim": launches_sim,
-               "stream": launches_stream}
+               "stream": launches_stream, "distributed": launches_distributed}
     own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": "latent",
                                              "rollout_prep": None}
     emit({"kernels": [

@@ -19,8 +19,12 @@ Entry points:
   runtime.scenario_native.generate_scenario_batch  native (g++) scenario
       batches; runtime.esdf.build_esdf the native ESDF
   world.transforms                             SE(2) frames and grid rebases
+  parallel.mesh.make_distributed_step          the batched step over
+      torch.distributed ranks (parallel.multihost.initialize first)
+  runtime.campaign.run_campaign                multi-process campaigns with
+      checkpoint/resume (utils.checkpoint)
   python -m nav2_social_mpc_controller_tpu_torch  the CLI: step, sim, bench,
-      config
+      dryrun, config, multihost
 Every entry point runs on the card unless the caller passes ``device="cpu"``
 (the CLI: ``--platform cpu``); asking for the card where there is none
 raises.

@@ -10,21 +10,33 @@ Subcommands:
           runtime/simulator.py) — prints behavioral metrics
   bench   batched-throughput measurement: B scenarios, a warm tick, then
           --iters ticks
+  dryrun  N ranks, one scenario each, through the distributed step, held
+          against the batched step over the same N scenarios in one process
   config  load + resolve a config and dump it as JSON
+  multihost  multi-process scenario campaign (BASELINE config 5) with
+          warm-start carry and checkpoint/resume
 
 Everything runs on the card (CUDA) and raises where there is none, unless
---platform cpu asks for the CPU (the kernels' plain versions).
+--platform cpu asks for the CPU (the kernels' plain versions). A rank of
+`dryrun` and `multihost` is one process with one device: several ranks on
+one card take --backend gloo (NCCL refuses two ranks on one card), ranks
+with a card each NCCL, the default on the card.
 
 Examples:
   python -m nav2_social_mpc_controller_tpu_torch step --config social
   python -m nav2_social_mpc_controller_tpu_torch sim --ticks 120 --people 3
   python -m nav2_social_mpc_controller_tpu_torch bench --batch 4096 --iters 10
   python -m nav2_social_mpc_controller_tpu_torch config --yaml params.yaml
+  python -m nav2_social_mpc_controller_tpu_torch dryrun --devices 2 --backend gloo
+  python -m nav2_social_mpc_controller_tpu_torch multihost --processes 2 --backend gloo \
+      --per-device-batch 2048 --ticks 10 --checkpoint /tmp/carry --checkpoint-every 5
+  torchrun --nproc-per-node 4 -m nav2_social_mpc_controller_tpu_torch multihost --ticks 100
 """
 
 import argparse
 import dataclasses
 import json
+import sys
 import time
 
 
@@ -194,6 +206,189 @@ def cmd_config(args):
     print(json.dumps(dataclasses.asdict(cfg), indent=2))
 
 
+def _rank_tail(args):
+    """The flags every spawned rank gets from its parent (subcommand's own
+    flags come first)."""
+    tail = ["--config", args.config, "--people", str(args.people), "--seed", str(args.seed)]
+    if args.yaml:
+        tail += ["--yaml", args.yaml]
+    if args.platform:
+        tail += ["--platform", args.platform]
+    if args.backend:
+        tail += ["--backend", args.backend]
+    return tail
+
+
+def _run_local_cluster(args, command, tail, processes):
+    """Spawn the ranks, report every failed one on stderr, print rank 0's
+    last output line (its result); exit 1 unless every rank exited 0."""
+    from nav2_social_mpc_controller_tpu_torch.runtime import campaign
+
+    results = campaign.spawn_local_cluster(tail, processes, port=args.port,
+                                           timeout=args.timeout, command=command)
+    for rank, (rc, _, err) in enumerate(results):
+        if rc != 0:
+            sys.stderr.write(f"--- rank {rank} (rc {rc}) ---\n{err[-3000:]}\n")
+    lines = results[0][1].strip().splitlines()
+    print(lines[-1] if lines else "{}")
+    if not all(rc == 0 for rc, _, _ in results):
+        raise SystemExit(1)
+
+
+def _join_world(args, dev):
+    """Initialise this process's group: a spawned rank joins its parent's
+    rendezvous, a process with --coordinator the one named, a process
+    started by torchrun torch's env:// rendezvous; anything else runs as a
+    world of one (and says so). Returns the backend."""
+    from nav2_social_mpc_controller_tpu_torch.parallel import multihost
+    from nav2_social_mpc_controller_tpu_torch.runtime.campaign import find_free_port
+
+    if args.worker or args.coordinator:
+        return multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                                    backend=args.backend, device=dev)
+    if multihost.launched_by_torchrun():
+        return multihost.initialize(backend=args.backend, device=dev)
+    sys.stderr.write(f"{args.command}: no --coordinator, --processes or torchrun rendezvous; "
+                     "running as a world of one\n")
+    return multihost.initialize(f"localhost:{find_free_port()}", 1, 0,
+                                backend=args.backend, device=dev)
+
+
+def cmd_dryrun(args):
+    """N ranks (spawned here, one scenario each) run the distributed step on
+    N scenarios; rank 0 gathers every rank's rows and holds them against
+    make_step_batch over the same N scenarios in one process: bit for bit on
+    the card (float32); on the CPU in float64 within the JAX dryrun's
+    tolerance (rtol 1e-5, atol 1e-6), status equal."""
+    dev = _device(args)
+    if not args.worker:
+        tail = ["--devices", str(args.devices), *_rank_tail(args)]
+        _run_local_cluster(args, "dryrun", tail, args.devices)
+        return
+    import torch.distributed as dist
+
+    _join_world(args, dev)
+    try:
+        _dryrun_rank(args, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_rank(args, dev):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry,
+        make_step_batch,
+    )
+    from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy, tree_leaves
+    from nav2_social_mpc_controller_tpu_torch.parallel.mesh import (
+        gather_batch,
+        make_distributed_step,
+        make_mesh,
+        shard_batch,
+    )
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
+
+    cfg = _named_config(args.config, args.yaml)
+    mesh = make_mesh(dev)
+    n = mesh.world_size
+    sys.stderr.write(f"[rank {mesh.rank}] backend {dist.get_backend()}, device {mesh.device}\n")
+    on_card = mesh.device.type == "cuda"
+    dtype = torch.float32 if on_card else torch.float64
+    sc = scenario_from_numpy(
+        make_scenario_batch(cfg, n, base_seed=args.seed, n_valid_people=args.people,
+                            grid_hw=(64, 64), dtype=np.float32 if on_card else np.float64),
+        device=mesh.device, dtype=dtype)
+    carry = make_carry(cfg, n, device=mesh.device, dtype=dtype)
+    cmd, aux, new_carry, metrics = make_distributed_step(cfg, mesh, dtype)(
+        shard_batch(mesh, sc), shard_batch(mesh, carry))
+    got = gather_batch(mesh, (cmd, aux.status, aux.solve.iterations, new_carry))
+    if mesh.rank != 0:
+        return
+    cmd_u, aux_u, carry_u = make_step_batch(cfg, device=mesh.device, dtype=dtype)(sc, carry)
+    want = (cmd_u, aux_u.status, aux_u.solve.iterations, carry_u)
+    if on_card:
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want))):
+            raise SystemExit("dryrun: the distributed results differ from one process's")
+    else:
+        for a, b in ((got[0].linear_x, cmd_u.linear_x), (got[0].angular_z, cmd_u.angular_z)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+        if not torch.equal(got[1], aux_u.status):
+            raise SystemExit("dryrun: the distributed status differs from one process's")
+    expect = {"n_scenarios": n, "n_usable": int(aux_u.solve.usable.sum()),
+              "total_iterations": int(aux_u.solve.iterations.sum())}
+    seen = {k: int(getattr(metrics, k)) for k in expect}
+    if seen != expect:
+        raise SystemExit(f"dryrun: fleet metrics {seen}, one process's {expect}")
+    print(json.dumps({"dryrun": "ok", "devices": n, **_platform(mesh.device)}))
+
+
+def cmd_multihost(args):
+    """Multi-process campaign runner (BASELINE config 5): a scenario fleet
+    over every rank with warm-start carry + checkpoint/resume.
+
+    Modes:
+      default         torchrun's env:// rendezvous where torchrun started
+                      the process (one process per card on every host);
+                      else a world of one
+      --processes N   a local cluster: spawn N ranks here (on one card:
+                      --backend gloo)
+      --worker        internal: a spawned rank
+    """
+    import torch.distributed as dist
+
+    from nav2_social_mpc_controller_tpu_torch.runtime import campaign
+
+    dev = _device(args)
+    if args.processes and not args.worker:
+        tail = ["--ticks", str(args.ticks), "--per-device-batch", str(args.per_device_batch),
+                *_rank_tail(args)]
+        if args.checkpoint:
+            tail += ["--checkpoint", args.checkpoint]
+        if args.checkpoint_every:
+            tail += ["--checkpoint-every", str(args.checkpoint_every)]
+        if args.resume:
+            tail += ["--resume"]
+        _run_local_cluster(args, "multihost", tail, args.processes)
+        return
+    _join_world(args, dev)
+    try:
+        summary = campaign.run_campaign(
+            _named_config(args.config, args.yaml),
+            ticks=args.ticks,
+            per_device_batch=args.per_device_batch,
+            n_people=args.people,
+            seed=args.seed,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+            log=lambda m: sys.stderr.write(m + "\n"),
+            device=dev,
+        )
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(summary))
+
+
+def _add_ranks(p):
+    """Flags of the subcommands that run several ranks."""
+    p.add_argument("--backend", default=None, choices=[None, "nccl", "gloo"],
+                   help="process-group backend (default: nccl on the card, gloo on the CPU); "
+                        "ranks that share one card need gloo")
+    p.add_argument("--port", type=int, default=0,
+                   help="rendezvous port of a local cluster (0 = pick an ephemeral port)")
+    p.add_argument("--timeout", type=float, default=540.0,
+                   help="seconds a local cluster may take before every rank is killed")
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous (with --num-processes, --process-id)")
+    p.add_argument("--num-processes", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--process-id", type=int, default=None, help=argparse.SUPPRESS)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="social-mpc-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -217,9 +412,29 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=5)
     p.set_defaults(fn=cmd_bench)
 
+    p = sub.add_parser("dryrun", help="multi-rank dry run against one process")
+    _add_common(p)
+    _add_ranks(p)
+    p.add_argument("--devices", type=int, default=8, help="ranks to spawn, one scenario each")
+    p.set_defaults(fn=cmd_dryrun)
+
     p = sub.add_parser("config", help="resolve + dump a config as JSON")
     _add_common(p)
     p.set_defaults(fn=cmd_config)
+
+    p = sub.add_parser("multihost", help="multi-process scenario campaign (BASELINE config 5)")
+    _add_common(p)
+    _add_ranks(p)
+    p.add_argument("--ticks", type=int, default=10)
+    p.add_argument("--per-device-batch", type=int, default=8,
+                   help="scenarios per rank (one device per rank: the JAX CLI's "
+                        "--devices-per-process has no counterpart)")
+    p.add_argument("--checkpoint", default=None, help="carry checkpoint base path")
+    p.add_argument("--checkpoint-every", type=int, default=0, help="ticks between snapshots")
+    p.add_argument("--resume", action="store_true", help="restore carry from --checkpoint")
+    p.add_argument("--processes", type=int, default=0,
+                   help="spawn a local cluster of N ranks")
+    p.set_defaults(fn=cmd_multihost)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -7,6 +7,9 @@ so each compiles in seconds (the headers ``chol.cuh``, ``damped_step.cuh``,
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
 opens it with ``ctypes`` and declares every entry point's ``argtypes``.
+Each build compiles into a directory of its own and renames the finished
+library into place, so processes that build at once on a fresh tree (the
+ranks of a campaign) never link or open each other's half-written files.
 It runs at first use, never at import: importing the package needs neither
 ``nvcc`` nor a card. A failed build raises; nothing falls back.
 
@@ -23,6 +26,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -118,16 +122,24 @@ def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into build/libsocial_mpc_kernels.so (if stale) and
     return its path. With verbose=True, ptxas prints each kernel's registers
     and spills to the returned log (see ``last_build_log``)."""
-    global last_build_log
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     if not _stale(lib_path):
         return lib_path
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="objects.", dir=BUILD_DIR) as obj_dir:
+        _compile_and_link(nvcc, obj_dir, lib_path, verbose)
+    return lib_path
+
+
+def _compile_and_link(nvcc: str, obj_dir: str, lib_path: str, verbose: bool) -> None:
+    """Compile every source into `obj_dir` (this build's own), link them
+    into a file of `obj_dir` and rename it onto `lib_path`."""
+    global last_build_log
     extra = ("-Xptxas", "-v") if verbose else ()
     procs = []
     for src in sources():
-        obj = os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + ".o")
+        obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -141,7 +153,7 @@ def build(verbose: bool = False) -> str:
     last_build_log = "\n".join(log)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{last_build_log}")
-    tmp = lib_path + f".{os.getpid()}.tmp"
+    tmp = os.path.join(obj_dir, LIB_NAME)
     link = subprocess.run(
         [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in procs]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -149,7 +161,6 @@ def build(verbose: bool = False) -> str:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib_path)
-    return lib_path
 
 
 def load():

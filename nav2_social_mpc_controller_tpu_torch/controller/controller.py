@@ -46,6 +46,7 @@ from nav2_social_mpc_controller_tpu_torch.core.types import (
     carry_from_numpy,
     resolve_device,
     scenario_from_numpy,
+    tree_map,
 )
 from nav2_social_mpc_controller_tpu_torch.core.validate import (
     make_window_validator,
@@ -311,12 +312,7 @@ def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
 def first_lane(tree):
     """The first (only) scenario of a batched tree: every tensor leaf loses
     its leading axis; None stays None."""
-    if isinstance(tree, torch.Tensor):
-        return tree[0]
-    if isinstance(tree, tuple):
-        leaves = (first_lane(x) for x in tree)
-        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
-    return tree
+    return tree_map(lambda x: x[0] if isinstance(x, torch.Tensor) else x, tree)
 
 
 def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):

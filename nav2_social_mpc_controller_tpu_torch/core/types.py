@@ -218,10 +218,27 @@ def carry_from_numpy(carry_np, device="cuda", dtype=torch.float32) -> Controller
 
 def to_numpy(tree):
     """Inverse of the converters: any (nested) NamedTuple or tuple of tensors
-    -> the same structure with NumPy leaves on the host."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    if isinstance(tree, tuple):  # StepAux.lm_trace (an LMTrace or None) included
-        leaves = (to_numpy(x) for x in tree)
+    -> the same structure with NumPy leaves on the host (other leaves, and
+    None, as they are)."""
+    return tree_map(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def tree_map(fn, tree):
+    """fn applied to every leaf of a (nested) NamedTuple or tuple, the
+    structure kept; None stays None (StepAux.lm_trace without a trace)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        leaves = [tree_map(fn, x) for x in tree]
         return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
-    return tree
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a (nested) NamedTuple or tuple in field order, depth
+    first, None skipped: the order jax.tree.flatten gives the JAX package's
+    trees of the same structure."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves

@@ -82,13 +82,24 @@ def test_bench_on_the_cpu(capsys):
     assert out["metric"] == "social_mpc_solves_per_s_H18_obstacle"
 
 
+def test_dryrun_on_the_cpu(capsys):
+    """2 gloo ranks, one scenario each, held against make_step_batch over the
+    same 2 scenarios in one process (float64, the JAX dryrun's tolerance)."""
+    out = _run(capsys, main, ["dryrun", "--devices", "2", "--platform", "cpu",
+                              "--timeout", "200"])
+    assert out == {"dryrun": "ok", "devices": 2, "platform": "cpu"}
+
+
 def test_requires_subcommand():
     with pytest.raises(SystemExit):
         main([])
 
 
 @pytest.mark.parametrize("argv", [["step"], ["sim", "--ticks", "1"],
-                                  ["bench", "--batch", "1", "--iters", "1"]])
+                                  ["bench", "--batch", "1", "--iters", "1"],
+                                  ["dryrun", "--devices", "2"],
+                                  ["multihost", "--ticks", "1"],
+                                  ["multihost", "--processes", "2", "--backend", "gloo"]])
 def test_runs_on_the_card_by_default(argv):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default does not raise here")
