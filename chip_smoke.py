@@ -12,8 +12,11 @@ configurations at B = 1024 — and the general paths: the debug-trace tick
 stress-horizon configurations, a Jacobi-scaled solve, a latent-critic
 tick (the autodiff residual path) and the compacted warm-start tick — through
 the eight hand-written CUDA kernels (an evaluation's rollout and costmap
-sample run as one, rollout_sample), and checks them. Phases, each printing
-one JSON line:
+sample run as one, rollout_sample), and checks them. ``make_step_batch``
+(and with it ``make_step``, the controller, the simulator, the loop, the
+distributed step and the CLI) replays its tick as CUDA graphs on the card;
+the ``graph`` phase holds it against the eager tick (``capture=False``).
+Phases, each printing one JSON line:
 
   device     the card (torch + nvidia-smi name and power limit)
   build      nvcc build of csrc/*.cu into the package's build/ directory;
@@ -34,6 +37,14 @@ one JSON line:
   main_path  one line per path: launch counts, status, bounds, cursor, the
              people projection; for the 3-tick paths agreement of 64
              scenarios with the port's plain path on the CPU in float32
+  graph      the captured tick against the eager tick on the four main
+             paths' batches (the carry fed back) and at B = 1 (make_step, 8
+             seeds x 2 ticks): every output and the carry bit for bit, the
+             kernels' launch counts equal, the device kernels of a tick
+             counted by torch.profiler equal; host-side launches per tick of
+             both; the single-robot tick of both in turns; ms/tick at B =
+             1024 and 4096 (obstacle, social) in turns, capture seconds,
+             device memory
   debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks,
              then stress36 (D = 12) at B = 1024, 1 tick: K7's damped step
              launched once per LM iteration run, K3/K4 never; the trace's
@@ -52,8 +63,10 @@ one JSON line:
   compacted_tick  warm_start_mode="previous_solution", B = 4096, 3 ticks:
              make_step_batch_compacted equal to make_step_batch bit for bit;
              iterations x width and ms/tick of both
-  timing     ms/tick and solves/s at B = 1024 and B = 4096 for the obstacle
-             and the social configuration, tick breakdown, launches, memory
+  timing     ms/tick and solves/s of the captured tick at B = 1024 and B =
+             4096 for the obstacle and the social configuration, capture
+             seconds, the eager stages' breakdown, launches, memory (the
+             eager tick's peak beside it)
   single_step  make_step (one robot, a batch of one) for the social,
              obstacle, omni6 and stress36 configs, 8 seeds, 2 ticks each:
              command, status, LM iterations, termination and carry equal to
@@ -99,7 +112,8 @@ one JSON line:
 
 ``python3 chip_smoke.py --lm-sync-sweep`` runs, instead of the phases after
 ``build``, the one measurement behind the LM loop's ``DEFAULT_CHECK_EVERY``:
-ms/tick by how often the loop asks the device whether every lane is done.
+ms/tick by how often the loop asks the device whether every lane is done, on
+the eager and on the captured tick, at B = 1, 1024 and 4096.
 
 Any failed check raises: the exit code is then not 0 and no ``ok`` line is
 printed. Without a CUDA device the script exits with code 1 at once. The last
@@ -1346,6 +1360,8 @@ def loop_iterations(iterations, max_iterations):
     iteration) that finds every lane done, or at the cap."""
     from nav2_social_mpc_controller_tpu_torch.solver.lm import DEFAULT_CHECK_EVERY as every
 
+    if every <= 0:  # the loop never asks: it runs to the cap
+        return max_iterations
     return min(max_iterations, -(-int(iterations.max()) // every) * every)
 
 
@@ -1470,11 +1486,11 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
     return launches, sc, poses
 
 
-def count_device_launches(fn, top=8):
-    """Device kernels one call of fn() starts, from torch.profiler: (their
-    number, their summed device time in ms, the `top` kernels by device time
-    as [name, count, ms]); (None, None, None) if the profiler records no
-    device activity on this machine."""
+def device_activity(fn):
+    """[name, count, device ms] of every device activity (kernels and
+    copies) one call of fn() starts, from torch.profiler, largest first;
+    empty if the profiler records no device activity on this machine. A
+    CUDA graph's replay lists each of its kernels and copies."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1486,15 +1502,49 @@ def count_device_launches(fn, top=8):
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
         if str(getattr(ev, "device_type", "")).endswith("CUDA") and dev_us > 0:
-            rows.append([ev.key[:72], ev.count, dev_us / 1e3])
+            rows.append([ev.key, ev.count, dev_us / 1e3])
+    rows.sort(key=lambda r: -r[2])
+    return rows
+
+
+def count_device_launches(fn, top=8):
+    """Device launches one call of fn() starts, from torch.profiler: (their
+    number, kernels and copies, their summed device time in ms, the `top`
+    by device time as [name, count, ms]); (None, None, None) if the profiler
+    records no device activity on this machine."""
+    rows = device_activity(fn)
     if not rows:
         return None, None, None
-    rows.sort(key=lambda r: -r[2])
-    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows),
+            [[name[:72], n, ms] for name, n, ms in rows[:top]])
+
+
+def is_copy(name):
+    """A device copy: a memcpy or memset (a CUDA graph's memcpy node may be
+    listed as a kernel named memcpy32_post), or ATen's copy kernel (a
+    copy_ or clone between layouts that a memcpy cannot do)."""
+    return name.lower().startswith(("memcpy", "memset")) or "direct_copy_kernel" in name
+
+
+def count_kernels_and_copies(fn):
+    """(device kernels, device copies, busy ms, {kernel name: count}) of one
+    call of fn(), from torch.profiler; fails if the profiler records no
+    device activity."""
+    rows = device_activity(fn)
+    if not rows:
+        fail("torch.profiler recorded no device activity")
+    by_name = {}
+    for name, n, _ in rows:
+        if not is_copy(name):
+            by_name[name] = by_name.get(name, 0) + n
+    copies = sum(r[1] for r in rows if is_copy(r[0]))
+    return sum(by_name.values()), copies, sum(r[2] for r in rows), by_name
 
 
 def phase_timing(configs, dev):
-    """`configs`: (name, cfg, valid people per scenario) of each path timed."""
+    """`configs`: (name, cfg, valid people per scenario) of each path timed:
+    make_step_batch's tick (captured), beside it the eager tick's peak
+    memory and the eager stages' breakdown."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
         make_carry, make_step_batch, step_post, step_pre,
@@ -1512,6 +1562,11 @@ def phase_timing(configs, dev):
     for name, cfg, n_valid_people, batch in [
             (*c, batch) for c in configs for batch in (1024, B_MAIN)]:
         sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid_people)
+        eager = make_step_batch(cfg, device=dev, capture=False)
+        torch.cuda.reset_peak_memory_stats()
+        run_ticks(eager, sc, poses, make_carry(cfg, batch, device=dev))
+        peak_eager = torch.cuda.max_memory_allocated()
+        del eager
         step = make_step_batch(cfg, device=dev)
         # Twelve warm-up ticks: after only three, the timed ticks at B = 4096
         # came out 1.5x slower than the same ticks later in the same process.
@@ -1529,7 +1584,8 @@ def phase_timing(configs, dev):
         per_tick = {k: v / N_TICKS for k, v in _build.launch_counts.items()}
         peak = torch.cuda.max_memory_allocated()
         aux = outs[-1][1]
-        # breakdown of the last (warm) tick by stage, host clock around syncs
+        # breakdown of the last (warm) tick by stage, host clock around
+        # syncs: the eager tick's stage functions
         scen = with_pose(sc, poses[-1])
         carry_in = run_ticks(step, sc, poses[:-1], make_carry(cfg, batch, device=dev))[1]
         stages = {"tick_head": [], "solve": [], "tick_tail": []}
@@ -1544,7 +1600,9 @@ def phase_timing(configs, dev):
         n_dev, dev_ms, top_kernels = count_device_launches(lambda: step(scen, carry_in))
         ms = float(np.mean(ticks))
         cells.append({
-            "config": name, "batch": batch, "ms_per_tick": ms, "solves_per_s": batch / ms * 1e3,
+            "config": name, "batch": batch, "captured": step.captured,
+            "capture_s": step.tick.capture_seconds,
+            "ms_per_tick": ms, "solves_per_s": batch / ms * 1e3,
             "ms_per_tick_p50": float(np.median(ticks)), "ms_per_tick_min": float(np.min(ticks)),
             "mean_lm_iterations": float(aux.solve.iterations.float().mean()),
             "max_lm_iterations": int(aux.solve.iterations.max()),
@@ -1553,54 +1611,272 @@ def phase_timing(configs, dev):
             "device_launches_per_tick": n_dev, "device_busy_ms_per_tick": dev_ms,
             "top_device_kernels": top_kernels,
             "breakdown_min_ms": {k: float(np.min(v)) for k, v in stages.items()},
-            "peak_device_memory_bytes": peak,
+            "peak_device_memory_bytes": peak, "peak_device_memory_bytes_eager": peak_eager,
         })
     emit({"phase": "timing", "cells": cells})
 
 
-def phase_lm_sync_sweep(cfg, dev, policies=(0, 1, 4, 8)):
-    """ms/tick with lm_solve(check_every=k) for each k, timed in turns
-    (forwards, backwards, forwards) so that no policy always runs first. The
-    results of a tick do not depend on k (done lanes are frozen bit for bit)."""
+def phase_lm_sync_sweep(configs, dev, policies=(0, 1, 4, 8)):
+    """ms/tick with lm_solve(check_every=k) for each k, on the eager tick and
+    on the captured tick (controller/graph.py's GraphTick with the same k,
+    whose chunks hold k iterations), timed in turns (forwards, backwards,
+    forwards) so that no policy always runs first; at B = 1 (one robot),
+    1024 and 4096. The results of a tick do not depend on k (done lanes are
+    frozen bit for bit). `configs`: (name, cfg, valid people per scenario)."""
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
         make_carry, step_post, step_pre,
     )
+    from nav2_social_mpc_controller_tpu_torch.controller.graph import GraphTick
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims, make_lm_config
     from nav2_social_mpc_controller_tpu_torch.ops.fused_iter import build_value_grad
     from nav2_social_mpc_controller_tpu_torch.solver.lm import lm_solve
 
-    dims = ProblemDims.from_config(cfg)
-    lm_cfg = make_lm_config(cfg.optimizer)
+    def eager_tick(cfg, k):
+        dims = ProblemDims.from_config(cfg)
+        lm_cfg = make_lm_config(cfg.optimizer)
 
-    def tick(k, scen, carry):
-        ctx = step_pre(cfg, scen, carry)
-        p = ctx.prep
-        vg = build_value_grad(cfg, dims, p.rows, p.n_rows, p.people_proj, p.people_present,
-                              p.costmap)
-        u, stats = lm_solve(vg, p.u0, p.lower, p.upper, lm_cfg, check_every=k)
-        return step_post(cfg, ctx, carry, u, stats)
+        def tick(scen, carry):
+            ctx = step_pre(cfg, scen, carry)
+            p = ctx.prep
+            vg = build_value_grad(cfg, dims, p.rows, p.n_rows, p.people_proj, p.people_present,
+                                  p.costmap)
+            u, stats = lm_solve(vg, p.u0, p.lower, p.upper, lm_cfg, check_every=k)
+            return step_post(cfg, ctx, carry, u, stats)
+        return tick
 
     cells = []
     with torch.no_grad():
-        for batch in (1024, B_MAIN):
-            sc, poses = make_batch(cfg, batch, dev)
-            ticks = {k: [] for k in policies}
-            for rnd in range(4):  # round 0 warms up and is not kept
+        for (name, cfg, n_valid), mode, batch in [
+                (c, m, b) for c in configs for m in ("eager", "captured")
+                for b in (1, B_WIDE, B_MAIN)]:
+            sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid)
+            ticks, iters = {k: [] for k in policies}, []
+            steps = {k: eager_tick(cfg, k) if mode == "eager" else GraphTick(cfg, dev, k)
+                     for k in policies}
+            for rnd in range(4):  # round 0 warms up (and captures) and is not kept
                 for k in policies[:: 1 if rnd % 2 == 0 else -1]:
                     carry = make_carry(cfg, batch, device=dev)
                     for pose in poses:
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        _, _, carry = tick(k, with_pose(sc, pose), carry)
+                        _, aux, carry = steps[k](with_pose(sc, pose), carry)
                         torch.cuda.synchronize()
                         if rnd > 0:
                             ticks[k].append((time.perf_counter() - t0) * 1e3)
+                        iters.append(float(aux.solve.iterations.float().mean()))
             cells.append({
-                "batch": batch,
+                "config": name, "tick": mode, "batch": batch,
+                "mean_lm_iterations": float(np.mean(iters)),
                 "mean_ms_per_tick": {str(k): float(np.mean(v)) for k, v in ticks.items()},
                 "min_ms_per_tick": {str(k): float(np.min(v)) for k, v in ticks.items()},
+                "max_ms_per_tick": {str(k): float(np.max(v)) for k, v in ticks.items()},
             })
     emit({"phase": "lm_sync_sweep", "ticks_per_policy": 9, "cells": cells})
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted field name, tensor) of every leaf of a (nested) NamedTuple."""
+    for field, x in zip(tree._fields, tree):
+        if isinstance(x, tuple):
+            yield from named_leaves(x, f"{prefix}{field}.")
+        elif x is not None:
+            yield f"{prefix}{field}", x
+
+
+def same_bits(where, got, want, parts=("cmd", "aux", "carry")):
+    """Fail unless two results, trees named by `parts`, agree in every leaf
+    bit for bit (commands, status, cursor, iterations, termination, costs,
+    paths, the people projection, the carry)."""
+    for part, a, b in zip(parts, got, want):
+        for (name, x), (_, y) in zip(named_leaves(a, f"{part}."), named_leaves(b, f"{part}.")):
+            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"{where}: {name} of the captured tick differs from the eager tick's")
+
+
+GRAPH_TIMED_ROUNDS = 3
+
+
+def stage_device_ms(step, reps=20):
+    """Device ms of each stage graph of the one program `step`'s captured
+    tick holds (head, each chunk size, tail), replayed back to back as
+    time_cuda times a kernel. Direct replays: the launch counts stay."""
+    prog, = step.tick._programs.values()
+    stages = [("head", prog.head), *((f"chunk_{n}", c) for n, c in prog.chunks.items()),
+              ("tail", prog.tail)]
+    return {name: time_cuda(stage.graph.replay, reps) for name, stage in stages}
+
+
+def trajectorize_alone(cfg, sc, pose, reps=20):
+    """The trajectorizer's 30-step loop of small launches by itself, on the
+    tick's plan and pose: its device kernels (profiler) and the device ms of
+    its own CUDA graph, replayed as time_cuda times a kernel; what a
+    trajectorizer kernel could save of the captured tick."""
+    from nav2_social_mpc_controller_tpu_torch.controller.trajectorizer import trajectorize
+
+    def run():
+        return trajectorize(cfg.trajectorizer, sc.path, pose)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    kernels, _, busy, _ = count_kernels_and_copies(run)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return {"kernels": kernels, "busy_ms": busy, "graph_ms": time_cuda(graph.replay, reps)}
+
+
+def host_launches_per_tick(tick, n_ticks):
+    """What the host launched a tick for the captured tick: graph replays,
+    input copies, output clones, and per done check a reduction and a copy
+    to the host."""
+    h = tick.host_launches
+    return (h["graph_replays"] + h["input_copies"] + h["output_clones"]
+            + 2 * h["done_checks"]) / n_ticks
+
+
+def phase_graph(paths, dev):
+    """The captured tick (make_step_batch's default on the card, CUDA graphs
+    replayed) against the eager tick (capture=False), on the four configs.
+
+    `paths`: (name, cfg, valid people, scenario batch, per-tick poses) at the
+    main paths' shapes, the carry fed back: every output and the carry bit
+    for bit; the kernels' launch counts equal (a replay adds its capture's
+    tally); the device kernels of one tick, counted by torch.profiler, equal
+    (the captured tick adds copies only: inputs in, the LM state written
+    back, outputs cloned); host-side launches per tick of both. Then B = 1
+    (make_step), SINGLE_STEP_SEEDS seeds x 2 ticks each, bit for bit, and
+    the single-robot tick of both in turns; then ms/tick at B = 1024 and
+    4096 (obstacle, social) in turns, capture seconds and device memory."""
+    import gc
+
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step, make_step_batch,
+    )
+
+    cells = []
+    for name, cfg, n_valid, sc, poses in paths:
+        batch = sc.robot.pose.shape[0]
+        steps = {"eager": make_step_batch(cfg, device=dev, capture=False),
+                 "captured": make_step_batch(cfg, device=dev)}
+        if steps["eager"].captured or not steps["captured"].captured:
+            fail(f"graph {name}: make_step_batch does not capture the default tick on the card")
+        outs, launches = {}, {}
+        for kind, step in steps.items():
+            run_ticks(step, sc, poses[:1], make_carry(cfg, batch, device=dev))  # capture, warm
+            if kind == "captured":
+                step.tick.reset_host_launches()
+            _build.reset_launch_counts()
+            outs[kind] = run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev))
+            launches[kind] = dict(_build.launch_counts)
+        for t, (got, want) in enumerate(zip(outs["captured"][0], outs["eager"][0])):
+            same_bits(f"graph {name} B = {batch} tick {t}", got, want)
+        same_bits(f"graph {name} B = {batch}", (outs["captured"][1],), (outs["eager"][1],),
+                  parts=("carry",))
+        if launches["captured"] != launches["eager"]:
+            fail(f"graph {name}: kernel launches {launches['captured']} captured, "
+                 f"{launches['eager']} eager")
+        check_launches(f"graph {name}", launches["captured"], DEFAULT_PATH_KERNELS)
+        host = host_launches_per_tick(steps["captured"].tick, len(poses))
+        carry = make_carry(cfg, batch, device=dev)
+        prof = {kind: count_kernels_and_copies(lambda: step(with_pose(sc, poses[0]), carry))
+                for kind, step in steps.items()}
+        if prof["captured"][3] != prof["eager"][3]:
+            got, want = prof["captured"][3], prof["eager"][3]
+            diff = {k[:160]: [want.get(k, 0), got.get(k, 0)] for k in set(got) | set(want)
+                    if got.get(k, 0) != want.get(k, 0)}
+            fail(f"graph {name}: the profiler counts {prof['captured'][0]} device kernels in "
+                 f"a captured tick, {prof['eager'][0]} in an eager tick; by name [eager, "
+                 f"captured]: {json.dumps(diff)}")
+        stages = stage_device_ms(steps["captured"])
+        cells.append({
+            "config": name, "batch": batch, "ticks": len(poses), "bit_equal": True,
+            "stage_device_ms": stages,
+            "trajectorize": trajectorize_alone(cfg, sc, poses[0]),
+            "launches": launches["captured"],
+            "device_kernels_one_tick": {k: v[0] for k, v in prof.items()},
+            "device_copies_one_tick": {k: v[1] for k, v in prof.items()},
+            "device_busy_ms_one_tick": {k: v[2] for k, v in prof.items()},
+            "host_launches_per_tick": {"eager": sum(prof["eager"][:2]), "captured": host},
+            "host_operations": dict(steps["captured"].tick.host_launches),
+            "capture_s": steps["captured"].tick.capture_seconds,
+        })
+        del steps, outs
+
+    # One robot: make_step of both against each other, seed by seed.
+    single = []
+    for name, cfg, n_valid, _, _ in paths:
+        sc, poses = make_batch(cfg, SINGLE_STEP_SEEDS, dev, n_valid_people=n_valid)
+        steps = {"eager": make_step(cfg, device=dev, capture=False),
+                 "captured": make_step(cfg, device=dev)}
+        if not steps["captured"].captured:
+            fail("graph: make_step does not capture its tick on the card")
+        for i in range(SINGLE_STEP_SEEDS):
+            res = {}
+            for kind, step in steps.items():
+                carry, res[kind] = make_carry(cfg, device=dev), []
+                for pose in poses[:2]:
+                    cmd, aux, carry = step(lane(with_pose(sc, pose), i), carry)
+                    res[kind].append((cmd, aux, carry))
+            for t, (got, want) in enumerate(zip(res["captured"], res["eager"])):
+                same_bits(f"graph {name} B = 1 seed {i} tick {t}", got, want)
+        single.append(name)
+    name, cfg, n_valid, _, _ = paths[0]
+    sc, _ = make_batch(cfg, 1, dev, n_valid_people=n_valid)
+    one = lane(sc, 0)
+    n_pts = int(one.path.n)
+    steps = {"eager": make_step(cfg, device=dev, capture=False),
+             "captured": make_step(cfg, device=dev)}
+    ms = {k: [] for k in steps}
+    for kind in ("eager", "captured", "captured", "eager") * 2:
+        carry = make_carry(cfg, device=dev)
+        for k in range(30):
+            i = min(k, n_pts - 1)
+            scen = one._replace(robot=one.robot._replace(
+                pose=torch.cat([one.path.points[i], one.path.yaw[i:i + 1]])))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, carry = steps[kind](scen, carry)
+            torch.cuda.synchronize()
+            if k >= 5:
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+    one_robot = {"config": name, **{k: host_ms_stats(v) for k, v in ms.items()},
+                 "stage_device_ms": stage_device_ms(steps["captured"]),
+                 "trajectorize": trajectorize_alone(cfg, sc, sc.robot.pose)}
+    del steps
+
+    # ms/tick of both in turns; capture seconds; device memory of each.
+    timing = []
+    for name, cfg, n_valid, batch in [(n, c, v, b) for n, c, v, _, _ in paths[:2]
+                                      for b in (B_WIDE, B_MAIN)]:
+        sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid)
+        steps, memory = {}, {}
+        for kind in ("eager", "captured"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            steps[kind] = make_step_batch(cfg, device=dev, capture=kind == "captured")
+            run_ticks(steps[kind], sc, poses, make_carry(cfg, batch, device=dev))
+            peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.empty_cache()  # what stays reserved is the step's own
+            memory[kind] = {"peak_allocated_bytes": peak,
+                            "held_bytes": torch.cuda.memory_reserved() - base_reserved}
+        ms = {k: [] for k in steps}
+        for _ in range(GRAPH_TIMED_ROUNDS):
+            for kind in ("eager", "captured", "captured", "eager"):
+                ms[kind] += time_ticks(steps[kind], sc, poses,
+                                       lambda: make_carry(cfg, batch, device=dev), rounds=1)
+        timing.append({"config": name, "batch": batch,
+                       "ms_per_tick": {k: host_ms_stats(v) for k, v in ms.items()},
+                       "capture_s": steps["captured"].tick.capture_seconds, "memory": memory})
+        del steps
+    emit({"phase": "graph", "cells": cells, "single_step_bit_equal": single,
+          "single_step_seeds": SINGLE_STEP_SEEDS, "single_robot_ms": one_robot,
+          "timing": timing})
 
 
 def time_ticks(step, sc, poses, fresh_carry, rounds=2):
@@ -2009,7 +2285,7 @@ def phase_compacted_tick(cfg, dev, sc, poses, capacity_frac=0.25):
 # ---------------------------------------------------------------------------
 
 SINGLE_STEP_SEEDS = 8
-SINGLE_STEP_TIMED_TICKS = 30
+SINGLE_STEP_TIMED_TICKS = 100
 
 
 def lane(tree, i):
@@ -2134,7 +2410,7 @@ def phase_single_step(configs, dev):
                    (one_np.costmap.data, one_np.esdf.distances, one_np.esdf.indexes))
     emit({"phase": "single_step", "cells": cells,
           "latency": {
-              "config": name, "host_ms_tensor_input": host_ms_stats(ms_t),
+              "config": name, "captured": step.captured, "host_ms_tensor_input": host_ms_stats(ms_t),
               "host_ms_numpy_input": host_ms_stats(ms_n),
               "numpy_to_device_ms": host_ms_stats(conv), "grid_bytes_copied": int(np_bytes),
               "mean_lm_iterations": float(np.mean(iters_t)),
@@ -2360,7 +2636,8 @@ def phase_stream(cfg, dev, seconds=3.0):
     if not all(np.isfinite(cmds)):
         fail("stream: a non-finite command")
     check_launches("stream", launches, DEFAULT_PATH_KERNELS)
-    emit({"phase": "stream", "frequency_hz": 20.0, "seconds": seconds, "ticks": loop.ticks,
+    emit({"phase": "stream", "captured": step.captured, "frequency_hz": 20.0,
+          "seconds": seconds, "ticks": loop.ticks,
           "missed": loop.missed, "overruns": loop.overruns, "launches": launches})
     return launches
 
@@ -2679,7 +2956,9 @@ def main():
 
     obstacle = benchmark_obstacle_only_config()
     if sys.argv[1:] == ["--lm-sync-sweep"]:
-        phase_lm_sync_sweep(obstacle, dev)
+        social = benchmark_social_config()
+        phase_lm_sync_sweep([("obstacle", obstacle, 0), ("social", social, social.n_agents)],
+                            dev)
         print(smi, flush=True)
         return 0
     if sys.argv[1:]:
@@ -2687,12 +2966,19 @@ def main():
     phase_shapes(dev)
     social = benchmark_social_config()
     launches, sc, poses = phase_main_path("social", social, dev, B_MAIN, social.n_agents)
-    launches_obstacle, _, _ = phase_main_path("obstacle", obstacle, dev, B_MAIN, 0)
+    launches_obstacle, sc_obstacle, poses_obstacle = phase_main_path(
+        "obstacle", obstacle, dev, B_MAIN, 0)
     omni6 = benchmark_omni_6agents_config()
-    phase_main_path("omni6", omni6, dev, B_WIDE, omni6.n_agents, n_ticks=1, compare_cpu=False)
+    _, sc_omni6, poses_omni6 = phase_main_path("omni6", omni6, dev, B_WIDE, omni6.n_agents,
+                                               n_ticks=1, compare_cpu=False)
     stress36 = benchmark_stress_h36_config()
     _, sc36, poses36 = phase_main_path("stress36", stress36, dev, B_WIDE, stress36.n_agents,
                                        n_ticks=1, compare_cpu=False)
+    phase_graph([("social", social, social.n_agents, sc, poses),
+                 ("obstacle", obstacle, 0, sc_obstacle, poses_obstacle),
+                 ("omni6", omni6, omni6.n_agents, sc_omni6, poses_omni6),
+                 ("stress36", stress36, stress36.n_agents, sc36, poses36)], dev)
+    del sc_obstacle, sc_omni6
     launches_debug = phase_debug_tick("social", social, dev, sc, poses)
     phase_debug_tick("stress36", stress36, dev, sc36, poses36)
     launches_jacobi = phase_jacobi(social, dev, sc, poses[0])

@@ -76,7 +76,7 @@ def fov_filter(cfg: SocialMPCConfig, people: AgentsState, robot_pose, costmap) -
     keep = people.valid & in_map & (rel.abs() < cfg.fov_angle)
 
     invalid = torch.zeros_like(st)
-    invalid[..., AGENT_T] = -1.0
+    invalid[..., AGENT_T].fill_(-1.0)  # a fill, no copy from the host (controller/graph.py)
     return AgentsState(state=torch.where(keep[..., None], st, invalid))
 
 
@@ -207,7 +207,7 @@ def step_post(cfg: SocialMPCConfig, ctx: StepContext, carry: ControllerCarry, u_
     seed_n = (ctx.traj_n_steps + 1).clamp(max=dims.maxsize)
     need_seed = (carry.prev_n == 0) & ctx.traj_ok
     seed_path = ctx.traj_poses[:, : dims.maxsize]
-    seed_cmds = ctx.traj_cmds[:, : dims.maxsize][..., [0, 2]]
+    seed_cmds = ctx.traj_cmds[:, : dims.maxsize][..., 0::2]  # [vx, wz]
     base_path = torch.where(need_seed[:, None, None], seed_path, carry.prev_path)
     base_cmds = torch.where(need_seed[:, None, None], seed_cmds, carry.prev_cmds)
     base_n = torch.where(need_seed, seed_n, carry.prev_n)
@@ -235,7 +235,7 @@ def step_post(cfg: SocialMPCConfig, ctx: StepContext, carry: ControllerCarry, u_
 
 
 def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
-                    validate: bool = True):
+                    validate: bool = True, capture: bool = True):
     """The batched step closure for `cfg`: step(scenario, carry) ->
     (ControlCommand, StepAux, ControllerCarry), all with a leading batch axis.
 
@@ -257,12 +257,45 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
     distinct input buffer (identity-cached), so steady-state ticks that reuse
     scenario buffers pay no host synchronisation. ``validate=False`` opts
     out for callers that validated at construction (the built-in generators
-    already do)."""
-    return _checked(cfg, device, dtype, lambda scenario, carry: step(cfg, scenario, carry),
+    already do).
+
+    With ``capture`` (the default), a config whose solve is the default LM
+    iteration (no debug_optimizer, no latent critic: all four benchmark
+    configs) gets the staged tick of controller/graph.py: on CUDA recorded
+    as CUDA graphs at the first call with each input signature and replayed
+    after, the port's counterpart of the JAX package's jax.jit; on the CPU
+    the same stages run as plain functions. ``capture=False``, and every
+    other config, runs the tick eagerly from Python, the reference the
+    graphs are held to. The returned step's ``captured`` says which runs."""
+    dev = resolve_device(device)
+    if capture:
+        # graph.py builds on this module's step_pre / step_post
+        from nav2_social_mpc_controller_tpu_torch.controller import graph
+
+        if graph.capturable(cfg):
+            return _checked(cfg, dev, dtype, graph.GraphTick(cfg, dev), validate)
+    return _checked(cfg, dev, dtype, lambda scenario, carry: step(cfg, scenario, carry),
                     validate)
 
 
-def _checked(cfg: SocialMPCConfig, device, dtype, fn, validate: bool = True):
+class StepFunction:
+    """step(scenario, carry) -> (cmd, aux, carry'): `run` with the tick it
+    drives as `tick` (a graph.GraphTick for the staged tick). ``captured``
+    says whether the tick replays CUDA graphs."""
+
+    def __init__(self, run, tick):
+        self._run = run
+        self.tick = tick
+
+    @property
+    def captured(self) -> bool:
+        return bool(getattr(self.tick, "captured", False))
+
+    def __call__(self, scenario, carry):
+        return self._run(scenario, carry)
+
+
+def _checked(cfg: SocialMPCConfig, device, dtype, fn, validate: bool = True) -> StepFunction:
     """fn(scenario, carry) behind the call-boundary checks (device, dtype,
     and, with `validate`, window exactness), with autograd's reverse mode
     off."""
@@ -281,7 +314,7 @@ def _checked(cfg: SocialMPCConfig, device, dtype, fn, validate: bool = True):
         with torch.no_grad():
             return fn(scenario, carry)
 
-    return run
+    return StepFunction(run, fn)
 
 
 def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
@@ -315,7 +348,8 @@ def first_lane(tree):
     return tree_map(lambda x: x[0] if isinstance(x, torch.Tensor) else x, tree)
 
 
-def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
+def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
+              capture: bool = True):
     """Single-scenario step closure: step(scenario, carry) -> (cmd, aux,
     carry') for ONE unbatched scenario and its unbatched carry
     (make_carry(cfg) with batch=None), the results unbatched too.
@@ -327,9 +361,10 @@ def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
     and kernels: every kernel works scenario by scenario, so the result is
     the same scenario's lane of a wider batch). Like the JAX package's
     make_step, it does not check the windows (validate_scenario_windows;
-    SocialMPCController checks once, on its first tick)."""
+    SocialMPCController checks once, on its first tick). ``capture`` is
+    make_step_batch's: the batch of one replays CUDA graphs on the card."""
     dev = resolve_device(device)
-    batched = make_step_batch(cfg, device=dev, dtype=dtype, validate=False)
+    batched = make_step_batch(cfg, device=dev, dtype=dtype, validate=False, capture=capture)
 
     def run(scenario: Scenario, carry: ControllerCarry):
         if np.ndim(scenario.robot.pose) != 1 or np.ndim(carry.prev_path) != 2:
@@ -340,7 +375,7 @@ def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32):
         sc = scenario_from_numpy(scenario, device=dev, dtype=dtype)
         return first_lane(batched(sc, carry_from_numpy(carry, device=dev, dtype=dtype)))
 
-    return run
+    return StepFunction(run, batched.tick)
 
 
 class SocialMPCController:

@@ -135,7 +135,7 @@ def format_to_optimize(
     t = (i.to(xy.dtype) * cfg.trajectorizer.time_step)[None, :].expand(xy.shape[0], -1)
 
     cmd_prev_idx = (i - 1).clamp(0, ref_cmds.shape[1] - 1)
-    cur_cmd = ref_cmds[:, cmd_prev_idx][..., [0, 2]]  # (v = linear.x, w = angular.z)
+    cur_cmd = ref_cmds[:, cmd_prev_idx][..., 0::2]  # (v = linear.x, w = angular.z)
     blend_cmd = has_prev & ((i[None, :] - 1) < prev_n)
     prev_cmd = carry.prev_cmds[:, (i - 1).clamp(0, carry.prev_cmds.shape[1] - 1)]
     vw = torch.where(blend_cmd[:, :, None], ccw * cur_cmd + (1.0 - ccw) * prev_cmd, cur_cmd)
@@ -365,10 +365,10 @@ def optimize_prepare(
         # b from the previous tick's own block-b optimum. prev_cmds holds the
         # block-expanded commands, so the step at each block start carries
         # that block's value.
-        starts = np.minimum(
-            np.arange(dims.n_blocks) * dims.block_length, carry.prev_cmds.shape[1] - 1
+        starts = (torch.arange(dims.n_blocks, device=rows.device) * dims.block_length).clamp(
+            max=carry.prev_cmds.shape[1] - 1
         )
-        u_prev = carry.prev_cmds[:, torch.as_tensor(starts, device=rows.device)]  # (B, NB, 2)
+        u_prev = carry.prev_cmds[:, starts]  # (B, NB, 2)
         u0 = torch.where((carry.prev_n > 0)[:, None, None], u_prev, u0)
 
     # Box bounds on the first control_horizon/block_length blocks
@@ -380,8 +380,12 @@ def optimize_prepare(
     dev = rows.device
     bounded = torch.arange(dims.n_blocks, device=dev)[None, :] < (h_dyn // bl_dyn)[:, None]
     big = float(np.finfo(np.float32).max)
-    lo_b = torch.tensor([opt.v_min, opt.w_min], dtype=dtype, device=dev)
-    hi_b = torch.tensor([opt.v_max, opt.w_max], dtype=dtype, device=dev)
+    # Filled on the device: the tick copies nothing from host memory, which a
+    # CUDA graph cannot capture (controller/graph.py).
+    lo_b = torch.full((2,), opt.v_min, dtype=dtype, device=dev)
+    lo_b[1:].fill_(opt.w_min)
+    hi_b = torch.full((2,), opt.v_max, dtype=dtype, device=dev)
+    hi_b[1:].fill_(opt.w_max)
     b = rows.shape[0]
     lower = torch.where(bounded[:, :, None], lo_b, torch.full_like(lo_b, -big)).reshape(b, -1)
     upper = torch.where(bounded[:, :, None], hi_b, torch.full_like(hi_b, big)).reshape(b, -1)

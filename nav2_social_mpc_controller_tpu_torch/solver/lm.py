@@ -74,12 +74,17 @@ from nav2_social_mpc_controller_tpu_torch.solver.cuda_iter import (  # noqa: F40
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import spd_solve
 
 # How often the loop asks the device whether every lane is done. Measured on an
-# H100 (PERF.md, "LM loop host syncs"): the tick is bound by the host's launch
-# rate, the card waits for the host, and checking every iteration, every 4th,
-# every 8th or never gives tick times that differ by less than their own
-# spread. Every 4th keeps the early exit for batches whose lanes all converge
-# well before the cap at a cost that could not be measured.
-DEFAULT_CHECK_EVERY = 4
+# H100 (PERF.md, "LM loop host syncs"; ``chip_smoke.py --lm-sync-sweep``): on
+# the eager tick, bound by the host's launch rate, checking every iteration,
+# every 4th, every 8th or never gives tick times that differ by less than
+# their own spread. On the captured tick (controller/graph.py) each check
+# leaves the card idle for a round trip to the host: every 8th was faster
+# than every 4th in 11 of 12 cells (obstacle and social at B = 1, 1024 and
+# 4096, two runs), and never asking faster than every 8th in 10 of 12, by
+# 0.1-0.6 ms. Every 8th keeps the early exit for batches whose lanes all
+# converge well before the cap, and the compacted solver (solver/batched.py)
+# needs checks to compact at.
+DEFAULT_CHECK_EVERY = 8
 
 
 class LMConfig(NamedTuple):

@@ -1,0 +1,218 @@
+"""The staged tick of ``controller/graph.py`` (make_step_batch's tick as
+CUDA graphs on the card) held against the eager tick.
+
+On the CPU the same stages run uncaptured: the head, the LM chunks with
+their in-place copy-back (a remainder chunk where max_iterations is no
+multiple of check_every), the tail, the static input buffers and the cloned
+outputs. They must give the eager tick's results bit for bit, with any
+check_every, and outputs that alias neither each other nor the buffers; one
+float64 case is held against the JAX package's make_step_batch. The test
+marked ``gpu`` holds the captured tick against the eager tick on the card:
+
+    python -m pytest tests/test_torch_graph_step.py -q --noconftest -p no:cacheprovider -m gpu
+"""
+
+import functools
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.controller import graph
+from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+    make_carry,
+    make_step,
+    make_step_batch,
+)
+from nav2_social_mpc_controller_tpu_torch.core import config as C
+from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy, tree_leaves
+from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
+
+torch.set_num_threads(1)
+
+CONFIGS = {
+    "social": (C.benchmark_social_config, 3),
+    "obstacle": (C.benchmark_obstacle_only_config, 0),
+    "stress36": (C.benchmark_stress_h36_config, 3),
+}
+
+
+def _batch(name, batch, device="cpu"):
+    """(cfg, scenario batch, per-tick robot poses riding each plan)."""
+    make_cfg, n_people = CONFIGS[name]
+    cfg = make_cfg()
+    sc = scenario_from_numpy(
+        make_scenario_batch(cfg, batch, base_seed=0, n_valid_people=n_people), device=device)
+    poses = []
+    for t in range(3):
+        i = torch.clamp(torch.full_like(sc.path.n, 4 * t), max=sc.path.n - 1).long()
+        pts = torch.gather(sc.path.points, 1, i[:, None, None].expand(-1, 1, 2))[:, 0]
+        poses.append(torch.cat([pts, torch.gather(sc.path.yaw, 1, i[:, None])], dim=1))
+    return cfg, sc, poses
+
+
+def _ticks(step, cfg, sc, poses, device="cpu"):
+    """[(cmd, aux, carry)] of len(poses) ticks with the carry fed back."""
+    carry = make_carry(cfg, sc.robot.pose.shape[0], device=device)
+    out = []
+    for pose in poses:
+        cmd, aux, carry = step(sc._replace(robot=sc.robot._replace(pose=pose)), carry)
+        out.append((cmd, aux, carry))
+    return out
+
+
+def _assert_same_bits(got, want):
+    g, w = tree_leaves(tuple(got)), tree_leaves(tuple(want))
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _eager(name, batch, n_ticks):
+    cfg, sc, poses = _batch(name, batch)
+    return _ticks(make_step_batch(cfg, device="cpu", capture=False), cfg, sc, poses[:n_ticks])
+
+
+@pytest.mark.parametrize("name,batch,n_ticks", [("social", 8, 3), ("obstacle", 8, 3),
+                                                ("stress36", 2, 1)])
+def test_staged_tick_equals_eager_tick_bit_for_bit(name, batch, n_ticks):
+    """make_step_batch's default step on the CPU is the staged tick, run
+    uncaptured; with the carry fed back it gives the eager tick's commands,
+    aux (status, cursor, iterations, termination, costs, paths, people
+    projection) and carry bit for bit (stress36: D = 12, NB = 6)."""
+    cfg, sc, poses = _batch(name, batch)
+    step = make_step_batch(cfg, device="cpu")
+    assert isinstance(step.tick, graph.GraphTick) and not step.captured
+    got = _ticks(step, cfg, sc, poses[:n_ticks])
+    _assert_same_bits(got, _eager(name, batch, n_ticks))
+    host = step.tick.host_launches
+    assert host["graph_replays"] == 0  # nothing is captured on the CPU
+    assert host["input_copies"] == 17 * n_ticks  # every leaf but the ESDF distances
+    assert host["output_clones"] == 18 * n_ticks
+
+
+@pytest.mark.parametrize("check_every,schedule", [
+    (0, [40]), (1, [1] * 40), (4, [4] * 10), (7, [7] * 5 + [5])])
+def test_check_every_changes_no_bit(check_every, schedule):
+    """The chunk schedule (a remainder chunk of 5 at check_every = 7) and
+    the results: the same bits whatever the host's check policy."""
+    assert graph.chunk_schedule(40, check_every) == schedule
+    cfg, sc, poses = _batch("social", 8)
+    got = _ticks(graph.GraphTick(cfg, "cpu", check_every=check_every), cfg, sc, poses[:2])
+    _assert_same_bits(got, _eager("social", 8, 3)[:2])
+
+
+def test_outputs_alias_nothing():
+    """Mutating tick 1's outputs leaves tick 2 unchanged, and tick 2 does
+    not overwrite tick 1's: every call returns tensors of its own."""
+    cfg, sc, poses = _batch("social", 8)
+    step = make_step_batch(cfg, device="cpu")
+    carry = make_carry(cfg, 8, device="cpu")
+    first = step(sc._replace(robot=sc.robot._replace(pose=poses[0])), carry)
+    kept = [x.clone() for x in tree_leaves(first)]
+    second = step(sc._replace(robot=sc.robot._replace(pose=poses[1])), first[2])
+    for a, b in zip(tree_leaves(first), kept):
+        assert torch.equal(a, b)  # tick 2 wrote nothing into tick 1's outputs
+    prog, = step.tick._programs.values()
+    buffers = {x.data_ptr() for x in tree_leaves((prog.scenario, prog.carry))}
+    ptrs = [x.data_ptr() for x in tree_leaves((first, second)) if x.numel()]
+    assert len(set(ptrs)) == len(ptrs) and not buffers & set(ptrs)
+    want = [x.clone() for x in tree_leaves(second)]
+    for x in tree_leaves(first):
+        if x.dtype == torch.bool:
+            x.logical_not_()
+        else:
+            x.add_(1)
+    for a, b in zip(tree_leaves(second), want):
+        assert torch.equal(a, b)
+
+
+def test_a_program_per_input_signature():
+    """A new batch width gets its own program; the same signature reuses
+    it; B = 1 through make_step is the staged tick too."""
+    cfg, sc, poses = _batch("social", 4)
+    step = make_step_batch(cfg, device="cpu")
+    _ticks(step, cfg, sc, poses[:1])
+    _ticks(step, cfg, sc, poses[1:2])
+    assert len(step.tick._programs) == 1
+    _ticks(step, cfg, type(sc)(*(_head(x, 2) for x in sc)), [poses[0][:2]])
+    assert len(step.tick._programs) == 2
+    single = make_step(cfg, device="cpu")
+    assert isinstance(single.tick, graph.GraphTick) and not single.captured
+
+
+def _head(tree, n):
+    return type(tree)(*(_head(x, n) if isinstance(x, tuple) else x[:n] for x in tree))
+
+
+def test_capture_is_decided_by_the_config():
+    """The debug trace and the latent critics run the eager tick, as does
+    capture=False; the four benchmark configs are capturable."""
+    import dataclasses
+
+    for make_cfg in (C.benchmark_social_config, C.benchmark_obstacle_only_config,
+                     C.benchmark_omni_6agents_config, C.benchmark_stress_h36_config):
+        assert graph.capturable(make_cfg())
+    cfg = C.benchmark_social_config()
+    debug = dataclasses.replace(
+        cfg, optimizer=dataclasses.replace(cfg.optimizer, debug_optimizer=True))
+    latent = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, weights=dataclasses.replace(cfg.optimizer.weights, pure_angle_weight=1.0)))
+    for c in (debug, latent):
+        assert not graph.capturable(c)
+        assert not isinstance(make_step_batch(c, device="cpu").tick, graph.GraphTick)
+        with pytest.raises(ValueError):
+            graph.GraphTick(c, "cpu")
+    assert not isinstance(make_step_batch(cfg, device="cpu", capture=False).tick, graph.GraphTick)
+
+
+def test_staged_tick_matches_jax_step_f64():
+    """float64: the staged tick against the JAX package's make_step_batch,
+    social B = 4 over 2 ticks, within the 1e-6 of the step-parity tests."""
+    from test_torch_common import assert_step_parity_f64, run_both
+
+    from nav2_social_mpc_controller_tpu.core.config import benchmark_social_config
+
+    def staged(cfg, device, dtype):
+        step = make_step_batch(cfg, device=device, dtype=dtype)
+        assert isinstance(step.tick, graph.GraphTick)
+        return step
+
+    for tick, (jax_side, torch_side) in enumerate(
+            run_both(benchmark_social_config(), (3, 3, 0, 2), 2, np.float64, make_tstep=staged)):
+        assert_step_parity_f64(jax_side, torch_side, tick)
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, or a skip: decided when a test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs and the CUDA kernels have no CPU mode")
+    if shutil.which("nvcc") is None:
+        _build.find_nvcc()  # raises with the reason when there is no toolkit
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch,n_ticks", [("social", 64, 3), ("stress36", 16, 1)])
+def test_captured_tick_equals_eager_tick_on_the_card(card, name, batch, n_ticks):
+    """On the card make_step_batch replays CUDA graphs; its results equal
+    the eager tick's bit for bit, and the kernel launch counts (tallied per
+    replay) equal the eager tick's."""
+    cfg, sc, poses = _batch(name, batch, device=card)
+    counts = {}
+    outs = {}
+    for capture in (False, True):
+        step = make_step_batch(cfg, device=card, capture=capture)
+        assert step.captured == capture
+        _build.reset_launch_counts()
+        outs[capture] = _ticks(step, cfg, sc, poses[:n_ticks], device=card)
+        torch.cuda.synchronize()
+        counts[capture] = dict(_build.launch_counts)
+    _assert_same_bits(outs[True], outs[False])
+    assert counts[True] == counts[False]
+    assert counts[True]["propose"] > 0 and counts[True]["sfm_scan"] == n_ticks
