@@ -11,11 +11,14 @@ configurations at B = 1024 — and the general paths: the debug-trace tick
 (the general LM iteration, K7's damped step) on the social and the
 stress-horizon configurations, a Jacobi-scaled solve, a latent-critic
 tick (the autodiff residual path) and the compacted warm-start tick — through
-the eight hand-written CUDA kernels (an evaluation's rollout and costmap
-sample run as one, rollout_sample), and checks them. ``make_step_batch``
-(and with it ``make_step``, the controller, the simulator, the loop, the
-distributed step and the CLI) replays its tick as CUDA graphs on the card;
-the ``graph`` phase holds it against the eager tick (``capture=False``).
+the nine hand-written CUDA kernels (an evaluation's rollout and costmap
+sample run as one, rollout_sample; every tick's trajectorizer, the port's own
+kernel, once), and checks them. ``make_step_batch`` (and with it
+``make_step``, the controller, the simulator, the loop, the distributed step
+and the CLI) replays its tick as CUDA graphs on the card; the ``graph`` phase
+holds it against the eager tick (``capture=False``). The simulator replays
+the world update of each simulated tick as one more graph; the ``sim`` phase
+holds it against its reference loop.
 Phases, each printing one JSON line:
 
   device     the card (torch + nvidia-smi name and power limit)
@@ -23,8 +26,9 @@ Phases, each printing one JSON line:
              ptxas registers, stack and spills of every kernel, and the SASS
              instruction counts (FP32, MUFU) of K2's pair force in each
              direction and of the robot's duals, one sincosf, one division,
-             and K5's pair force and agent step, behind the operation bounds
-             of K2, K5, K6 and rollout_sample
+             one hypotf, one atan2f, and K5's pair force and agent step,
+             behind the operation bounds of K2, K5, K6, rollout_sample and
+             the trajectorizer
   shapes     kernel-vs-plain at a people-free D = 12 / S = 39 shape (and K1
              at S = 70); then with every person valid at the social
              (B = 4096, N = 3), six-agent (B = 1024, N = 6) and
@@ -33,7 +37,10 @@ Phases, each printing one JSON line:
              SFM scan (K5), K2 with its people stages, the rollout prep (K6)
              and rollout_sample; rollout_sample also at the obstacle tick's
              shape and on a ragged batch (B = 4101), each time bit for bit
-             against K6 then K1
+             against K6 then K1; the trajectorizer bit for bit against its
+             plain version on the plans of TRAJECTORIZER_CASES at B = 4101
+             (social, omni6, stress36 and the reference's default
+             trajectorizer) and on plan windows at B = 1024 and B = 1
   main_path  one line per path: launch counts, status, bounds, cursor, the
              people projection; for the 3-tick paths agreement of 64
              scenarios with the port's plain path on the CPU in float32
@@ -44,7 +51,8 @@ Phases, each printing one JSON line:
              counted by torch.profiler equal; host-side launches per tick of
              both; the single-robot tick of both in turns; ms/tick at B =
              1024 and 4096 (obstacle, social) in turns, capture seconds,
-             device memory
+             device memory; the device ms of each stage graph, and the
+             trajectorizer's kernel beside its plain loop's own graph
   debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks,
              then stress36 (D = 12) at B = 1024, 1 tick: K7's damped step
              launched once per LM iteration run, K3/K4 never; the trace's
@@ -78,11 +86,14 @@ Phases, each printing one JSON line:
              cursor, reset by set_plan; the windows checked once
   native     the g++-built scenario generator (must be available): 4,096
              social scenarios timed, one tick on them
-  sim        the closed-loop simulator on those 4,096 scenarios, 40 ticks:
+  sim        the closed-loop simulator on those 4,096 scenarios, 40 ticks,
+             captured (the world update one CUDA graph a tick) and the
+             reference loop in turns: the SimResults bit for bit equal;
              finite poses, commands in bounds, the STATUS_OK share; lanes 0
              and 1 equal to B = 1 simulations over 10 ticks bit for bit; the
              two scenarios of tests/test_simulator.py; ms per simulated tick
-             and the people update's share
+             of both, the people update's share, host launches per
+             simulated tick
   stream     ControllerLoop at 20 Hz for 3 s driving make_step: ticks,
              missed, overruns (reported; no tick at all fails)
   cli        python -m nav2_social_mpc_controller_tpu_torch config, step,
@@ -102,7 +113,8 @@ Phases, each printing one JSON line:
              process; beside it, multihost with NCCL and two ranks on the
              one card must fail the run
   kernels    every kernel at the social main path's shapes (inputs captured from a
-             real tick): error vs the plain version against a stated
+             real tick; the trajectorizer's, the tick's plan windows):
+             error vs the plain version against a stated
              tolerance, kernel / plain / library ms, the bound, launches (K7:
              its damped step with and without the Jacobi scale and its
              standalone solve under `entries`; `launches_by_path` adds the
@@ -257,9 +269,10 @@ def nbytes(*tensors):
 # each direction with its own end (the force on the robot from one agent,
 # stored; the force on one agent from the robot, squared), each of which
 # also builds the robot's duals, counted once per step instead; one sincosf
-# (K6's step; the headings K2 needs once per social step and agent) and one
-# IEEE division (K6's row/col). The kernel source is included, so these are
-# the same device functions.
+# (K6's step; the headings K2 needs once per social step and agent), one
+# IEEE division (K6's row/col), and one hypotf and one atan2f (the
+# trajectorizer's distances and heading). The kernel source is included, so
+# these are the same device functions.
 SASS_PROBE_SOURCE = r"""
 #include "fused_iter.cu"
 
@@ -326,6 +339,14 @@ __global__ void probe_sincosf(const float* in, float* out) {
 __global__ void probe_fdiv(const float* in, float* out) {
     out[threadIdx.x] = in[2 * threadIdx.x] / in[2 * threadIdx.x + 1];
 }
+
+__global__ void probe_hypotf(const float* in, float* out) {
+    out[threadIdx.x] = hypotf(in[2 * threadIdx.x], in[2 * threadIdx.x + 1]);
+}
+
+__global__ void probe_atan2f(const float* in, float* out) {
+    out[threadIdx.x] = atan2f(in[2 * threadIdx.x], in[2 * threadIdx.x + 1]);
+}
 """
 # K5's pieces, in a unit of their own (its helpers share names with K2's):
 # one pair force, and one active step of an agent given the social force on
@@ -358,7 +379,8 @@ __global__ void probe_sfm_step(const SfmArgs a, const Esdf* es, Agent* agents,
 }
 """
 SASS_PROBES = ("probe_robot_state", "probe_force_on_robot", "probe_force_on_agent",
-               "probe_sincosf", "probe_fdiv", "probe_sfm_pair", "probe_sfm_step")
+               "probe_sincosf", "probe_fdiv", "probe_hypotf", "probe_atan2f", "probe_sfm_pair",
+               "probe_sfm_step")
 # Opcodes issued to the FP32 pipe, and to the MUFU / conversion pipe.
 FP32_OPCODES = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FSWZADD"}
 SLOW_OPCODES = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
@@ -551,6 +573,7 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
     commit_in = tuple(st) + (u_new, delta, mc, new_cost, g_new, jtj_new)
     people = fov_filter(cfg, sc.people, sc.robot.pose, sc.costmap)
     return {
+        "trajectorize": (cfg.trajectorizer, windowed_plan(cfg, sc, sc.robot.pose), sc.robot.pose),
         "lm_cfg": lm_cfg, "dims": dims, "bicubic": (win, row.contiguous(), col.contiguous()),
         "sfm": sfm_inputs(sc, people.state, prep), "rollout_prep": prep_in,
         "fused": fused_in, "propose": propose_in, "commit": commit_in,
@@ -590,10 +613,14 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # expanded controls, being copies, must be equal. The rollout-sample kernel
 # compiles K6's and K1's arithmetic from the headers they compile from: its
 # error is the number of output elements whose bits differ from K6's then
-# K1's on the card (NaN against NaN counted equal), tolerance 0.
+# K1's on the card (NaN against NaN counted equal), tolerance 0. The
+# trajectorizer's kernel repeats its plain loop operation for operation with
+# round-to-nearest intrinsics and the functions ATen calls: its error is the
+# number of output elements whose bits differ from the plain version on the
+# card, tolerance 0.
 TOL = {"sfm_scan": 1e-4, "rollout_prep": 1.0, "bicubic": 1e-5, "fused_iter": 1e-5,
        "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 0,
-       "rollout_sample": 0}
+       "rollout_sample": 0, "trajectorize": 0}
 K6_RTOL, K6_ATOL, K6_ATOL_ROWCOL = 2e-5, 1e-5, 2e-4
 
 
@@ -1064,6 +1091,74 @@ def check_spd_solve(lm_cfg, cap, reps):
     }
 
 
+def windowed_plan(cfg, sc, pose):
+    """The plan window step_pre hands the trajectorizer at a first tick
+    (plan cursor 0)."""
+    from nav2_social_mpc_controller_tpu_torch.controller.path_handler import transform_global_plan
+
+    h, w = sc.costmap.data.shape[-2:]
+    thr = torch.maximum(w * sc.costmap.resolution, h * sc.costmap.resolution) / 2.0
+    return transform_global_plan(sc.path, pose, cfg.max_robot_pose_search_dist, thr).path
+
+
+def plain_graph(fn):
+    """fn() captured as a CUDA graph after one warm-up call on the capture
+    stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def check_trajectorize(tr, path, pose, reps):
+    """The trajectorizer's kernel against trajectorize_plain on the card:
+    elements whose bits differ, device / host / plain ms (the plain loop
+    launched eagerly and as its own CUDA graph), the bound."""
+    from nav2_social_mpc_controller_tpu_torch.controller import trajectorizer as K
+
+    got = K.trajectorize(tr, path, pose)
+    ref = K.trajectorize_plain(tr, path, pose)
+    torch.cuda.synchronize()
+    b, p = path.points.shape[:2]
+    s = tr.max_steps
+    # The work depends on the data: a lane computes only the steps it
+    # executes (n_steps; a done lane holds its pose), over its n valid
+    # waypoints. Bytes: the valid waypoints, n and the pose read once, the
+    # four outputs written once. Operations, by SASS instructions: per
+    # executed step a hypotf, two subtractions and two compares per valid
+    # waypoint, then one sincosf, one atan2f (and one more sincosf for the
+    # omnidirectional law), the goal's hypotf, and ~25 flops of law and
+    # integrator.
+    steps = ref.n_steps.double()
+    n = path.n.double()
+    hyp, atan, sc = (SASS_COUNTS[k] for k in ("probe_hypotf", "probe_atan2f", "probe_sincosf"))
+    per_step = {k: sc[k] * (1 + int(tr.omnidirectional)) + atan[k] + hyp[k] for k in ("fp32", "mufu")}
+    fp32 = float((steps * (n * (hyp["fp32"] + 4) + per_step["fp32"])).sum())
+    mufu = float((steps * (n * hyp["mufu"] + per_step["mufu"])).sum())
+    bnd, by, parts = bound_by_instructions(
+        float(n.sum()) * 8 + b * (4 + 12 + 4 + 1) + nbytes(ref.poses, ref.cmds),
+        25.0 * float(steps.sum()), fp32, mufu)
+    graph = plain_graph(lambda: K.trajectorize_plain(tr, path, pose))
+    return {
+        "shape": f"B={b} P={p} S={s}" + (" omnidirectional" if tr.omnidirectional else ""),
+        "steps_executed": int(ref.n_steps.sum()),
+        "max_err": bits_differ(got, ref), "max_abs_err": float(max(
+            (x.double() - y.double()).abs().max() for x, y in zip(got[:2], ref[:2]))),
+        "tol": TOL["trajectorize"],
+        "err_is": "output elements whose bits differ from trajectorize_plain",
+        "ms": time_cuda(lambda: K.trajectorize(tr, path, pose), reps),
+        "host_ms": time_host(lambda: K.trajectorize(tr, path, pose), reps),
+        "plain_ms": time_cuda(lambda: K.trajectorize_plain(tr, path, pose), 3, warm=1),
+        "plain_graph_ms": time_cuda(graph.replay, 10),
+        "bound_ms": bnd, "bound_by": by, "bound_parts": parts, "library_ms": None,
+    }
+
+
 KERNEL_INFO = {
     "sfm_scan": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/sfm_scan.cu",
@@ -1100,16 +1195,22 @@ KERNEL_INFO = {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
         "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93", "redesigned": "PR 7",
     },
+    "trajectorize": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/trajectorize.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/controller/trajectorizer.py:123 "
+                    "(lax.scan, no Pallas kernel)", "kind": "the port's own kernel",
+    },
 }
 
 # Kernels of the default tick (K3/K4 iteration) and of the debug tick (general
 # iteration: K7 in place of K3/K4). An evaluation runs K6's rollout and K1's
 # sample as one launch, rollout_sample; the standalone K1 serves the latent
 # tick's residual path, and the standalone K6 is the reference rollout_sample
-# is held to.
-DEFAULT_PATH_KERNELS = ("sfm_scan", "rollout_sample", "fused_iter", "propose", "commit")
-DEBUG_PATH_KERNELS = ("sfm_scan", "rollout_sample", "fused_iter", "spd_solve")
-LATENT_PATH_KERNELS = ("sfm_scan", "bicubic", "propose", "commit")
+# is held to. Every tick's head runs the trajectorizer once.
+DEFAULT_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "propose",
+                        "commit")
+DEBUG_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "spd_solve")
+LATENT_PATH_KERNELS = ("trajectorize", "sfm_scan", "bicubic", "propose", "commit")
 
 
 def check_all_kernels(cfg, cap, reps):
@@ -1122,6 +1223,7 @@ def check_all_kernels(cfg, cap, reps):
         "propose": check_propose(cap["lm_cfg"], cap["propose"], reps),
         "commit": check_commit(cap["lm_cfg"], cap["commit"], reps),
         "spd_solve": check_spd_solve(cap["lm_cfg"], cap, reps),
+        "trajectorize": check_trajectorize(*cap["trajectorize"], reps),
     }
     for name, r in out.items():
         if not r["max_err"] <= r["tol"]:
@@ -1251,7 +1353,45 @@ def phase_shapes(dev):
             fail(f"kernel rollout_sample differs from rollout_prep then bicubic at {r['config']} "
                  f"{r['shape']} in {r['max_err']:.0f} elements")
     emit({"phase": "shapes", "kernels_wide": [{"name": k, **v} for k, v in res.items()]
-          + [{"name": "bicubic", **s70}] + mixed + phase_people_shapes(dev) + fused_shapes})
+          + [{"name": "bicubic", **s70}] + mixed + phase_people_shapes(dev) + fused_shapes
+          + trajectorize_shapes(dev)})
+
+
+def trajectorize_shapes(dev):
+    """The trajectorizer's kernel against its plain version, bit for bit:
+    the plans of utils/scenarios.py's TRAJECTORIZER_CASES (no waypoint, one,
+    a full plan, all beyond the lookahead, tied minimisers, rotate-in-place
+    just above and below pi/2 to either side, a goal reached after one step
+    and one never reached) at B = B_MAIN + 5, for the social config, omni6
+    (the omnidirectional law), stress36 (40 steps) and the reference's
+    default trajectorizer (lookahead 0.4, 60 steps); and for the three
+    configs the plan windows of a B_WIDE batch and the first of them alone
+    (B = 1)."""
+    from nav2_social_mpc_controller_tpu_torch.core import config as C
+    from nav2_social_mpc_controller_tpu_torch.core.types import PathInput
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_trajectorizer_cases
+
+    out = []
+    for name in ("benchmark_social_config", "benchmark_omni_6agents_config",
+                 "benchmark_stress_h36_config", "TrajectorizerConfig"):
+        real = name != "TrajectorizerConfig"
+        cfg = getattr(C, name)() if real else C.benchmark_social_config()
+        tr = cfg.trajectorizer if real else C.TrajectorizerConfig()
+        path_np, pose_np, _ = make_trajectorizer_cases(tr, B_MAIN + 5, cfg.max_path_points, seed=1)
+        rows = [("cases", PathInput(*(torch.as_tensor(x, device=dev) for x in path_np)),
+                 torch.as_tensor(pose_np, device=dev))]
+        if real:
+            sc, poses = make_batch(cfg, B_WIDE, dev, n_valid_people=cfg.n_agents)
+            win = windowed_plan(cfg, sc, poses[0])
+            rows += [("plan windows", win, poses[0]),
+                     ("plan window, B = 1", PathInput(*(x[:1] for x in win)), poses[0][:1])]
+        for plans, path, pose in rows:
+            r = check_trajectorize(tr, path, pose, reps=50)
+            if not r["max_err"] <= r["tol"]:
+                fail(f"kernel trajectorize differs from its plain version at {name} {plans} "
+                     f"{r['shape']} in {r['max_err']:.0f} elements")
+            out.append({"name": "trajectorize", "config": name, "plans": plans, **r})
+    return out
 
 
 def evaluation_inputs(cfg, batch, dev, n_valid_people):
@@ -1338,13 +1478,16 @@ def head(tree, n, to):
     return type(tree)(*(head(x, n, to) if isinstance(x, tuple) else x[:n].to(to) for x in tree))
 
 
-def check_launches(name, launches, expected):
-    """Every kernel of the path launched, every other kernel not at all."""
+def check_launches(name, launches, expected, ticks=None):
+    """Every kernel of the path launched, every other kernel not at all;
+    with `ticks`, the trajectorizer once a tick."""
     for kname, n in launches.items():
         if kname in expected and n <= 0:
             fail(f"{name}: kernel {kname} was never launched on this path")
         if kname not in expected and n != 0:
             fail(f"{name}: kernel {kname} is not on this path yet was launched {n} times")
+    if ticks is not None and launches["trajectorize"] != ticks:
+        fail(f"{name}: trajectorize launched {launches['trajectorize']} times in {ticks} ticks")
 
 
 def check_one_sample_per_evaluation(name, launches):
@@ -1385,7 +1528,7 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
     outs, carry = run_ticks(step, sc, poses, carry0)
     launches = dict(_build.launch_counts)
 
-    check_launches(name, launches, DEFAULT_PATH_KERNELS)
+    check_launches(name, launches, DEFAULT_PATH_KERNELS, ticks=n_ticks)
     check_one_sample_per_evaluation(name, launches)
     opt = cfg.optimizer
     dims = ProblemDims.from_config(cfg)
@@ -1707,25 +1850,23 @@ def stage_device_ms(step, reps=20):
 
 
 def trajectorize_alone(cfg, sc, pose, reps=20):
-    """The trajectorizer's 30-step loop of small launches by itself, on the
-    tick's plan and pose: its device kernels (profiler) and the device ms of
-    its own CUDA graph, replayed as time_cuda times a kernel; what a
-    trajectorizer kernel could save of the captured tick."""
-    from nav2_social_mpc_controller_tpu_torch.controller.trajectorizer import trajectorize
+    """The trajectorizer by itself on the scenarios' whole plans (not the
+    tick's plan windows) and the tick's pose: the kernel's device ms,
+    beside the plain loop of small launches, its device kernels (profiler)
+    and the device ms of its own CUDA graph, both timed as time_cuda times
+    a kernel."""
+    from nav2_social_mpc_controller_tpu_torch.controller.trajectorizer import (
+        trajectorize, trajectorize_plain,
+    )
 
     def run():
-        return trajectorize(cfg.trajectorizer, sc.path, pose)
+        return trajectorize_plain(cfg.trajectorizer, sc.path, pose)
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        run()
-    torch.cuda.current_stream().wait_stream(side)
+    graph = plain_graph(run)
     kernels, _, busy, _ = count_kernels_and_copies(run)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        run()
-    return {"kernels": kernels, "busy_ms": busy, "graph_ms": time_cuda(graph.replay, reps)}
+    return {"kernel_ms": time_cuda(lambda: trajectorize(cfg.trajectorizer, sc.path, pose), reps),
+            "plain_kernels": kernels, "plain_busy_ms": busy,
+            "plain_graph_ms": time_cuda(graph.replay, reps)}
 
 
 def host_launches_per_tick(tick, n_ticks):
@@ -1779,7 +1920,8 @@ def phase_graph(paths, dev):
         if launches["captured"] != launches["eager"]:
             fail(f"graph {name}: kernel launches {launches['captured']} captured, "
                  f"{launches['eager']} eager")
-        check_launches(f"graph {name}", launches["captured"], DEFAULT_PATH_KERNELS)
+        check_launches(f"graph {name}", launches["captured"], DEFAULT_PATH_KERNELS,
+                       ticks=len(poses))
         host = host_launches_per_tick(steps["captured"].tick, len(poses))
         carry = make_carry(cfg, batch, device=dev)
         prof = {kind: count_kernels_and_copies(lambda: step(with_pose(sc, poses[0]), carry))
@@ -2005,7 +2147,7 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
     outs, carry = run_ticks(step, sc, poses, carry0)
     launches = dict(_build.launch_counts)
     where = f"debug_tick {name}"
-    check_launches(where, launches, DEBUG_PATH_KERNELS)
+    check_launches(where, launches, DEBUG_PATH_KERNELS, ticks=len(poses))
     check_one_sample_per_evaluation(where, launches)
 
     ran = sum(loop_iterations(aux.solve.iterations, t_len) for _, aux in outs)
@@ -2160,7 +2302,7 @@ def phase_latent_tick(cfg, dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
-    check_launches("latent_tick", launches, LATENT_PATH_KERNELS)
+    check_launches("latent_tick", launches, LATENT_PATH_KERNELS, ticks=1)
     check_tick_outputs("latent_tick", lat, cmd, aux)
     if aux.lm_trace is not None:
         fail("latent_tick: a trace without debug_optimizer")
@@ -2232,7 +2374,7 @@ def phase_compacted_tick(cfg, dev, sc, poses, capacity_frac=0.25):
     _build.reset_launch_counts()
     outs_c, carry_c = run_ticks(compacted, sc, poses, fresh())
     launches = dict(_build.launch_counts)
-    check_launches("compacted_tick", launches, DEFAULT_PATH_KERNELS)
+    check_launches("compacted_tick", launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
     check_one_sample_per_evaluation("compacted_tick", launches)
     for t, (a, b_) in enumerate(zip(outs_c, outs_p)):
         check_tick_outputs(f"compacted_tick tick {t}", warm, *a)
@@ -2352,7 +2494,8 @@ def phase_single_step(configs, dev):
                              f"differs from its lane of the B = {B_WIDE} tick")
         torch.cuda.synchronize()
         got = dict(_build.launch_counts)
-        check_launches(f"single_step {name}", got, DEFAULT_PATH_KERNELS)
+        check_launches(f"single_step {name}", got, DEFAULT_PATH_KERNELS,
+                       ticks=SINGLE_STEP_SEEDS * len(poses))
         check_one_sample_per_evaluation(f"single_step {name}", got)
         for k, v in got.items():
             launches[k] += v
@@ -2478,7 +2621,7 @@ def phase_controller(cfg, dev):
             fail(f"controller: the windows were checked {len(checks)} times in 6 ticks, not once")
     finally:
         ctl.validate_scenario_windows = real
-    check_launches("controller", launches, DEFAULT_PATH_KERNELS)
+    check_launches("controller", launches, DEFAULT_PATH_KERNELS, ticks=6)
     emit({"phase": "controller", "cursors": starts, "window_checks": len(checks),
           "host_ms_per_tick": ms, "launches": launches})
     return launches
@@ -2526,39 +2669,77 @@ def phase_native(cfg, dev):
 
 def phase_sim(cfg, dev, sc_np):
     """The closed-loop simulator on the card: a campaign of B_MAIN native
-    social scenarios for SIM_TICKS ticks (finite poses, commands in their
-    bounds, the STATUS_OK share), lanes 0 and 1 equal bit for bit to B = 1
-    simulations of those scenarios over SIM_LANE_TICKS ticks, and the two
-    behavioral scenarios of tests/test_simulator.py. Returns the launch
-    counts of the campaign."""
+    social scenarios for SIM_TICKS ticks, captured (make_simulate's default:
+    the world update of a tick replayed as one CUDA graph) and the reference
+    loop (capture=False) in turns (reference, captured, captured,
+    reference, twice): the captured SimResult equal to the reference's bit for bit
+    and both launching the same kernels; finite poses, commands in their
+    bounds, the STATUS_OK share; ms per simulated tick of both, the people
+    update's share of each (the reference's people update timed alone, the
+    captured world graph's device ms) and the host's launches per simulated
+    tick; lanes 0 and 1 equal bit for bit to B = 1 simulations of those
+    scenarios over SIM_LANE_TICKS ticks, and the two behavioral scenarios of
+    tests/test_simulator.py. Returns the launch counts of the captured
+    campaign."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.core.config import benchmark_obstacle_only_config
     from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
     from nav2_social_mpc_controller_tpu_torch.runtime.simulator import (
-        advance_people, make_simulate, simulate,
+        Simulator, advance_people, advance_world, make_simulate,
     )
     from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario
 
     opt = cfg.optimizer
     sc = scenario_from_numpy(sc_np, device=dev)
-    simulate(cfg, head(sc, 64, dev), 2, device=dev)  # warm
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = simulate(cfg, sc, SIM_TICKS, device=dev)
-    torch.cuda.synchronize()
-    campaign_s = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
-    check_launches("sim", launches, DEFAULT_PATH_KERNELS)
+    sims = {"eager": Simulator(cfg, SIM_TICKS, device=dev, capture=False),
+            "captured": make_simulate(cfg, SIM_TICKS, device=dev)}
+    if sims["eager"].captured or not sims["captured"].captured:
+        fail("sim: make_simulate does not capture the world update on the card")
+    for sim in sims.values():
+        sim(sc)  # warm: the step's capture and the world graph's
+    ms, res, launches, host = {k: [] for k in sims}, {}, {}, {}
+    for kind in ("eager", "captured", "captured", "eager") * 2:
+        sim = sims[kind]
+        sim.reset_host_launches()
+        sim.step.tick.reset_host_launches()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[kind] = sim(sc)
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) * 1e3 / SIM_TICKS)
+        launches[kind] = dict(_build.launch_counts)
+        own = sim.host_launches
+        host[kind] = {"step": host_launches_per_tick(sim.step.tick, SIM_TICKS),
+                      "world_update": (own["graph_replays"] + own["tick_copies"]) / SIM_TICKS}
+    for kind in sims:
+        check_launches(f"sim {kind}", launches[kind], DEFAULT_PATH_KERNELS, ticks=SIM_TICKS)
+    if launches["captured"] != launches["eager"]:
+        fail(f"sim: kernel launches {launches['captured']} captured, {launches['eager']} in the "
+             "reference loop")
+    for field, x, y in zip(res["captured"]._fields, res["captured"], res["eager"]):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"sim: {field} of the captured simulation differs from the reference loop's")
+    res = res["captured"]
+    launches = launches["captured"]
     if not bool(torch.isfinite(res.robot_traj).all()):
         fail("sim: a robot pose is not finite")
     v, w = res.cmds[..., 0], res.cmds[..., 1]
     if not bool(((v >= opt.v_min) & (v <= opt.v_max) & (w >= opt.w_min) & (w <= opt.w_max)).all()):
         fail("sim: a command left v in [v_min, v_max], w in [w_min, w_max]")
 
-    # The people update alone, on the campaign's final state, timed the same way.
+    # The reference loop's world update launches from the host, one tick of
+    # it counted by the profiler; its people update alone on the campaign's
+    # final state, timed on the host clock; the captured world graph's
+    # device ms (its tick counter wraps, so extra replays stay inside its
+    # histories; every run resets it).
     pose, speed = res.robot_traj[:, -1].contiguous(), res.cmds[:, -1].contiguous()
     people = sc.people._replace(state=res.people_traj[:, -1].contiguous())
+    final = sc._replace(robot=sc.robot._replace(pose=pose, speed=speed), people=people)
+    zero = torch.zeros_like(speed[:, 0])
+    n_kernels, n_copies, _, _ = count_kernels_and_copies(
+        lambda: advance_world(cfg, final, speed[:, 0], zero, speed[:, 1], 0.05))
+    host["eager"]["world_update"] = n_kernels + n_copies
     ppl_ms = []
     for _ in range(SIM_TICKS):
         torch.cuda.synchronize()
@@ -2566,6 +2747,9 @@ def phase_sim(cfg, dev, sc_np):
         advance_people(cfg, people, pose, speed, sc.esdf, 0.05)
         torch.cuda.synchronize()
         ppl_ms.append((time.perf_counter() - t1) * 1e3)
+    prog, = sims["captured"]._programs.values()
+    world_ms = time_cuda(prog.graph.replay, 20)
+    del sims, prog
 
     # Lanes 0 and 1 against their own B = 1 simulations.
     for i in (0, 1):
@@ -2594,11 +2778,17 @@ def phase_sim(cfg, dev, sc_np):
     if not bool(torch.isfinite(r_s.robot_traj).all()) or not float(r_s.min_people_dist) > 0.2:
         fail(f"sim social: minimum people distance {float(r_s.min_people_dist):.3f} m <= 0.2")
 
-    tick_ms = campaign_s * 1e3 / SIM_TICKS
+    tick_ms = {k: host_ms_stats(v) for k, v in ms.items()}
     emit({"phase": "sim", "batch": sc.robot.pose.shape[0], "ticks": SIM_TICKS,
+          "captured_bit_equal_to_reference": True,
           "ms_per_simulated_tick": tick_ms,
           "people_update_ms": host_ms_stats(ppl_ms),
-          "people_update_share": float(np.mean(ppl_ms)) / tick_ms,
+          "world_graph_device_ms": world_ms,
+          "people_update_share": {
+              "eager": float(np.mean(ppl_ms)) / tick_ms["eager"]["mean"],
+              "captured_world_graph": world_ms / tick_ms["captured"]["mean"]},
+          "host_launches_per_simulated_tick": {
+              k: {**v, "total": v["step"] + v["world_update"]} for k, v in host.items()},
           "status_ok_share": float((res.status == 0).float().mean()),
           "min_people_dist_p50": float(res.min_people_dist.median()),
           "lanes_bit_equal_to_b1": [0, 1], "lane_ticks": SIM_LANE_TICKS,
@@ -2785,7 +2975,7 @@ def phase_distributed(cfg, dev, sc, poses):
         _build.reset_launch_counts()
         outs_d, carry_d = run_dist()
         launches = dict(_build.launch_counts)
-        check_launches("distributed", launches, DEFAULT_PATH_KERNELS)
+        check_launches("distributed", launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
         check_one_sample_per_evaluation("distributed", launches)
         outs_u, carry_u = run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev))
         for t, ((cmd_d, aux_d, m), (cmd_u, aux_u)) in enumerate(zip(outs_d, outs_u)):

@@ -1,8 +1,11 @@
 """Builds and loads the package's CUDA kernels.
 
-The sources under ``csrc/`` expose a plain C interface (no PyTorch headers),
-so each compiles in seconds (the headers ``chol.cuh``, ``damped_step.cuh``,
-``bicubic.cuh`` and ``rollout.cuh`` hold the code that two kernels share).
+The eight sources under ``csrc/`` (nine kernels: ``tr_iter.cu`` holds K3
+and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
+package's jitted trajectorizer scan) expose a plain C interface (no PyTorch
+headers), so each compiles in seconds (the headers ``chol.cuh``,
+``damped_step.cuh``, ``bicubic.cuh`` and ``rollout.cuh`` hold the code that
+two kernels share).
 ``load()`` compiles every ``*.cu`` for Hopper
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
@@ -41,7 +44,7 @@ NVCC_FLAGS = (
 
 launch_counts = {
     "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "rollout_sample": 0, "fused_iter": 0,
-    "propose": 0, "commit": 0, "spd_solve": 0,
+    "propose": 0, "commit": 0, "spd_solve": 0, "trajectorize": 0,
 }
 
 _lock = threading.Lock()
@@ -84,6 +87,9 @@ _SIGNATURES = {
     # u, g, jtj, radius, lower, upper, jac_scale (or NULL), u_new, delta,
     # model_change, B, D, min_diagonal, max_diagonal, stream
     "social_mpc_damped_step_f32": [_P] * 10 + [_I, _I, _F, _F, _P],
+    # points, n, pose0, poses, cmds, n_steps, ok, B, P, S, lookahead_dist,
+    # desired_linear_vel, max_angular_vel, time_step, omnidirectional, stream
+    "social_mpc_trajectorize_f32": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
 }
 
 

@@ -11,6 +11,11 @@ The backward lookahead search (:160-175) — scan the path from the END, break
 at the first waypoint within lookahead_dist, else track the strict minimum —
 becomes two masked reductions with the same tie-breaking: the LARGEST index
 among the distance minimisers, written as an explicit masked max of indices.
+
+``trajectorize`` launches ``csrc/trajectorize.cu`` for CUDA tensors (the
+whole max_steps loop in one launch, the counterpart of the JAX package's
+jitted lax.scan) and takes the plain version, ``trajectorize_plain``, only
+for CPU tensors; there is no fallback on the card.
 """
 
 import math
@@ -18,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.core.config import TrajectorizerConfig
 from nav2_social_mpc_controller_tpu_torch.core.types import PathInput
 from nav2_social_mpc_controller_tpu_torch.models.motion import integrate_step
@@ -49,9 +55,10 @@ def _lookahead_point(px, py, valid, rx, ry, lookahead_dist):
     return torch.gather(px, 1, wp)[:, 0], torch.gather(py, 1, wp)[:, 0]
 
 
-def trajectorize(cfg: TrajectorizerConfig, path: PathInput, robot_pose) -> TrajectorizeResult:
-    """Roll the control law along the plan. path: batched PathInput (plan
-    frame); robot_pose (B, 3) [x, y, yaw]."""
+def trajectorize_plain(cfg: TrajectorizerConfig, path: PathInput, robot_pose) -> TrajectorizeResult:
+    """Plain PyTorch version of the kernel: roll the control law along the
+    plan. path: batched PathInput (plan frame); robot_pose (B, 3) [x, y,
+    yaw]."""
     max_steps = cfg.max_steps
     px = path.points[..., 0]
     py = path.points[..., 1]
@@ -120,3 +127,42 @@ def trajectorize(cfg: TrajectorizerConfig, path: PathInput, robot_pose) -> Traje
         n_steps=n_steps,
         ok=ok,
     )
+
+
+def trajectorize(cfg: TrajectorizerConfig, path: PathInput, robot_pose) -> TrajectorizeResult:
+    """Roll the control law along the plan. path: batched PathInput (plan
+    frame), points (B, P, 2) and n (B,) int32; robot_pose (B, 3) [x, y,
+    yaw]. On the card float32 only, in one launch that stays capturable (no
+    host synchronisation, no copy from host memory); CPU tensors (any float
+    dtype) take the plain version."""
+    if not robot_pose.is_cuda:
+        return trajectorize_plain(cfg, path, robot_pose)
+    points = path.points.contiguous()
+    pose = robot_pose.contiguous()
+    n = path.n.contiguous()
+    if points.ndim != 3 or points.shape[1] < 1 or points.shape[2] != 2:
+        raise ValueError(f"trajectorize: expected points (B, P >= 1, 2), got {tuple(points.shape)}")
+    b, p = points.shape[0], points.shape[1]
+    dev = pose.device
+    for name, t, dtype, shape in (("points", points, torch.float32, (b, p, 2)),
+                                  ("n", n, torch.int32, (b,)),
+                                  ("robot_pose", pose, torch.float32, (b, 3))):
+        _build.check_tensor("trajectorize", name, t, dtype, shape, dev)
+    s = cfg.max_steps
+    poses = torch.empty((b, s + 1, 3), dtype=torch.float32, device=dev)
+    cmds = torch.empty((b, s, 3), dtype=torch.float32, device=dev)
+    n_steps = torch.empty((b,), dtype=torch.int32, device=dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return TrajectorizeResult(poses=poses, cmds=cmds, n_steps=n_steps, ok=ok)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.social_mpc_trajectorize_f32(
+            points.data_ptr(), n.data_ptr(), pose.data_ptr(), poses.data_ptr(),
+            cmds.data_ptr(), n_steps.data_ptr(), ok.data_ptr(), b, p, s,
+            cfg.lookahead_dist, cfg.desired_linear_vel, cfg.max_angular_vel, cfg.time_step,
+            int(cfg.omnidirectional), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "trajectorize")
+    _build.launch_counts["trajectorize"] += 1
+    return TrajectorizeResult(poses=poses, cmds=cmds, n_steps=n_steps, ok=ok)

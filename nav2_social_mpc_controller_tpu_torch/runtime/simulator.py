@@ -14,6 +14,7 @@ makes progress along the plan, respects velocity bounds, and keeps social
 distance from pedestrians.
 """
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -30,6 +31,8 @@ from nav2_social_mpc_controller_tpu_torch.core.types import (
     Scenario,
     resolve_device,
     scenario_from_numpy,
+    tree_leaves,
+    tree_map,
 )
 from nav2_social_mpc_controller_tpu_torch.core.validate import validate_batch_windows
 from nav2_social_mpc_controller_tpu_torch.models import sfm
@@ -91,74 +94,213 @@ def advance_people(cfg: SocialMPCConfig, people: AgentsState, robot_pose, robot_
     return AgentsState(state=torch.where(valid[..., None], new, st))
 
 
-def simulate(cfg: SocialMPCConfig, scenario: Scenario, n_ticks: int,
-             control_period: float = 0.05, device="cuda", dtype=torch.float32) -> SimResult:
-    """Run B closed loops for n_ticks on a BATCHED scenario (NumPy or tensor
-    leaves; put on `device` with float dtype `dtype`). The windows are
-    checked once, here; the ticks run the unchecked batched step."""
-    if np.ndim(scenario.robot.pose) != 2:
-        raise ValueError("simulate takes a batched scenario; make_simulate also takes one")
-    dev = resolve_device(device)
-    scen = start = scenario_from_numpy(scenario, device=dev, dtype=dtype)
-    validate_batch_windows(cfg, scen)
-    batch = scen.robot.pose.shape[0]
-    step = make_step_batch(cfg, device=dev, dtype=dtype, validate=False)
-    ctrl_carry = make_carry(cfg, batch, device=dev, dtype=dtype)
+def advance_world(cfg: SocialMPCConfig, scen: Scenario, cmd_x, cmd_y, cmd_z, dt):
+    """What a simulated tick does after the controller's step: the robot
+    integrates the command [cmd_x, cmd_y, cmd_z] (each (B,)) for dt and the
+    pedestrians advance, reacting to the PRE-tick robot pose and speed.
+    Returns (new pose (B, 3), new speed (B, 2) [v, w], the people's new
+    state (B, N, 6), the closest robot-pedestrian distance (B,), inf where
+    nobody is valid)."""
+    pose = scen.robot.pose
+    x, y, th = integrate_step(pose[:, 0], pose[:, 1], pose[:, 2], cmd_x, cmd_y, cmd_z, dt)
+    new_pose = torch.stack([x, y, th], dim=-1)
+    new_speed = torch.stack([cmd_x, cmd_z], dim=-1)
+    people = advance_people(cfg, scen.people, pose, scen.robot.speed, scen.esdf, dt)
+    pd = torch.sqrt(((people.state[..., 0:2] - new_pose[:, None, 0:2]) ** 2).sum(-1))
+    pd = torch.where(people.valid, pd, torch.full_like(pd, float("inf"))).amin(dim=1)
+    return new_pose, new_speed, people.state, pd
 
-    poses, people_t, cmds, status, pds = [], [], [], [], []
-    for _ in range(n_ticks):
-        cmd, aux, ctrl_carry = step(scen, ctrl_carry)
 
-        pose = scen.robot.pose
-        x, y, th = integrate_step(
-            pose[:, 0], pose[:, 1], pose[:, 2], cmd.linear_x, cmd.linear_y, cmd.angular_z,
-            control_period,
-        )
-        new_pose = torch.stack([x, y, th], dim=-1)
-        new_speed = torch.stack([cmd.linear_x, cmd.angular_z], dim=-1)
-
-        # The pedestrians react to the PRE-tick robot pose and speed.
-        people = advance_people(
-            cfg, scen.people, pose, scen.robot.speed, scen.esdf, control_period
-        )
-        scen = scen._replace(
-            robot=scen.robot._replace(pose=new_pose, speed=new_speed), people=people
-        )
-
-        pd = torch.sqrt(((people.state[..., 0:2] - new_pose[:, None, 0:2]) ** 2).sum(-1))
-        pd = torch.where(people.valid, pd, torch.full_like(pd, float("inf"))).amin(dim=1)
-        poses.append(new_pose)
-        people_t.append(people.state)
-        cmds.append(new_speed)
-        status.append(aux.status)
-        pds.append(pd)
-
-    robot_traj = torch.stack([start.robot.pose] + poses, dim=1)
-    people_traj = torch.stack([start.people.state] + people_t, dim=1)
+def _goal_dist(start: Scenario, robot_traj):
     last = (start.path.n.long() - 1).clamp(0, start.path.points.shape[1] - 1)
     goal = torch.gather(start.path.points, 1, last[:, None, None].expand(-1, 1, 2))[:, 0]
-    goal_dist = torch.sqrt(((robot_traj[:, -1, 0:2] - goal) ** 2).sum(-1))
-    return SimResult(
-        robot_traj=robot_traj,
-        people_traj=people_traj,
-        cmds=torch.stack(cmds, dim=1),
-        status=torch.stack(status, dim=1),
-        min_people_dist=torch.stack(pds, dim=1).amin(dim=1),
-        goal_dist=goal_dist,
-    )
+    return torch.sqrt(((robot_traj[:, -1, 0:2] - goal) ** 2).sum(-1))
+
+
+class _SimProgram:
+    """The simulated tick's world update for one input signature and run
+    length, on static buffers: the scenario (every leaf, the ESDF distances
+    that advance_people reads among them), the command of the tick's step,
+    the histories (B, T+1, ...) and a device tick counter. ``stage``
+    advances the world one tick and writes the tick's rows of the histories
+    through the counter (index_copy_ with a device index, then the counter
+    steps on, modulo T so that no replay writes outside them); the host
+    writes the step's status into its row directly.
+    Captured, it is one CUDA graph recorded after one eager warm-up run of
+    the stage; uncaptured (the CPU) the same function on the same buffers."""
+
+    def __init__(self, sim: "Simulator", scen: Scenario):
+        self.sim = sim
+        self.scen = tree_map(torch.clone, scen)
+        b, n_ticks = scen.robot.pose.shape[0], sim.n_ticks
+        like = scen.robot.pose
+        self.cmd = torch.zeros((3, b), dtype=like.dtype, device=like.device)
+        self.tick = torch.zeros((1,), dtype=torch.long, device=like.device)
+        self.robot_traj = like.new_zeros((b, n_ticks + 1, 3))
+        self.people_traj = like.new_zeros((b, n_ticks + 1) + tuple(scen.people.state.shape[1:]))
+        self.cmds = like.new_zeros((b, n_ticks, 2))
+        self.status_traj = torch.zeros((b, n_ticks), dtype=torch.int32, device=like.device)
+        self.pds = like.new_zeros((b, n_ticks))
+        self.graph = None
+        if sim.captured:
+            self._capture()
+
+    def stage(self):
+        sc, t = self.scen, self.tick
+        new_pose, new_speed, people_state, pd = advance_world(
+            self.sim.cfg, sc, self.cmd[0], self.cmd[1], self.cmd[2], self.sim.control_period)
+        self.robot_traj.index_copy_(1, t + 1, new_pose[:, None])
+        self.people_traj.index_copy_(1, t + 1, people_state[:, None])
+        self.cmds.index_copy_(1, t, new_speed[:, None])
+        self.pds.index_copy_(1, t, pd[:, None])
+        sc.robot.pose.copy_(new_pose)
+        sc.robot.speed.copy_(new_speed)
+        sc.people.state.copy_(people_state)
+        t.add_(1).remainder_(self.sim.n_ticks)
+
+    def _capture(self):
+        """One eager warm-up run of the stage on the capture stream (its
+        writes are overwritten by every run's set-up), then the graph."""
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.stage()
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.stage()
+        torch.cuda.synchronize()
+
+    def __call__(self, scen: Scenario) -> SimResult:
+        sim, counts = self.sim, self.sim.host_launches
+        for dst, src in zip(tree_leaves(self.scen), tree_leaves(scen)):
+            dst.copy_(src)
+        self.robot_traj[:, 0].copy_(scen.robot.pose)
+        self.people_traj[:, 0].copy_(scen.people.state)
+        self.tick.zero_()
+        carry = make_carry(sim.cfg, scen.robot.pose.shape[0], device=sim.device, dtype=sim.dtype)
+        for t in range(sim.n_ticks):
+            cmd, aux, carry = sim.step(self.scen, carry)
+            for dst, src in zip(self.cmd, (cmd.linear_x, cmd.linear_y, cmd.angular_z)):
+                dst.copy_(src)
+            self.status_traj[:, t].copy_(aux.status)
+            counts["tick_copies"] += 4
+            if self.graph is None:
+                self.stage()
+            else:
+                self.graph.replay()
+                counts["graph_replays"] += 1
+        robot_traj = self.robot_traj.clone()
+        return SimResult(
+            robot_traj=robot_traj,
+            people_traj=self.people_traj.clone(),
+            cmds=self.cmds.clone(),
+            status=self.status_traj.clone(),
+            min_people_dist=self.pds.amin(dim=1),
+            goal_dist=_goal_dist(scen, robot_traj),
+        )
+
+
+class Simulator:
+    """sim(scenario) -> SimResult: B closed loops for `n_ticks` on a batched
+    scenario, or one unbatched scenario run as a batch of one (the result
+    then unbatched too). Leaves may be NumPy or tensors; they are put on
+    `device` with float dtype `dtype`, and the windows are checked once per
+    call; the ticks run the unchecked batched step (``step``, make_step_batch
+    with its default capture).
+
+    ``capture`` (the default) stages the world update of a tick
+    (``advance_world`` and the writes of the histories) on static buffers
+    per input signature, ``_SimProgram``: on CUDA one CUDA graph replayed
+    each tick, the port's counterpart of the JAX package's jitted scan over
+    ticks; on the CPU the same stage run uncaptured. ``capture=False`` runs
+    the reference loop, ``_reference_run``, that the staged one is held to
+    bit for bit. A failed capture or replay raises; nothing retries eagerly.
+    ``host_launches`` counts what the staged runs launch from the host each
+    tick beside the step's own (``step.tick.host_launches``): graph replays
+    and the copies of the step's command and status (``tick_copies``)."""
+
+    def __init__(self, cfg: SocialMPCConfig, n_ticks: int, control_period: float = 0.05,
+                 device="cuda", dtype=torch.float32, capture: bool = True):
+        self.cfg = cfg
+        self.n_ticks = n_ticks
+        self.control_period = control_period
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.staged = capture
+        self.captured = capture and self.device.type == "cuda"
+        self.step = make_step_batch(cfg, device=self.device, dtype=dtype, validate=False)
+        self._programs = {}
+        self.host_launches = {}
+        self.reset_host_launches()
+
+    def reset_host_launches(self):
+        self.host_launches.update(graph_replays=0, tick_copies=0)
+
+    def __call__(self, scenario: Scenario) -> SimResult:
+        if np.ndim(scenario.robot.pose) == 1:
+            return first_lane(self.run_batch(
+                scenario_from_numpy(scenario, device=self.device, dtype=self.dtype)))
+        return self.run_batch(scenario)
+
+    def run_batch(self, scenario: Scenario) -> SimResult:
+        if np.ndim(scenario.robot.pose) != 2:
+            raise ValueError("simulate takes a batched scenario; make_simulate also takes one")
+        scen = scenario_from_numpy(scenario, device=self.device, dtype=self.dtype)
+        validate_batch_windows(self.cfg, scen)
+        on_device = (torch.cuda.device(self.device) if self.captured
+                     else contextlib.nullcontext())
+        with torch.no_grad(), on_device:
+            if not self.staged:
+                return self._reference_run(scen)
+            key = tuple((tuple(x.shape), x.dtype) for x in tree_leaves(scen))
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._programs[key] = _SimProgram(self, scen)
+            return prog(scen)
+
+    def _reference_run(self, scen: Scenario) -> SimResult:
+        """The reference loop: every tick's world update launched from
+        Python, the histories stacked at the end."""
+        start = scen
+        ctrl_carry = make_carry(self.cfg, scen.robot.pose.shape[0], device=self.device,
+                                dtype=self.dtype)
+        poses, people_t, cmds, status, pds = [], [], [], [], []
+        for _ in range(self.n_ticks):
+            cmd, aux, ctrl_carry = self.step(scen, ctrl_carry)
+            new_pose, new_speed, people_state, pd = advance_world(
+                self.cfg, scen, cmd.linear_x, cmd.linear_y, cmd.angular_z, self.control_period)
+            scen = scen._replace(robot=scen.robot._replace(pose=new_pose, speed=new_speed),
+                                 people=AgentsState(state=people_state))
+            poses.append(new_pose)
+            people_t.append(people_state)
+            cmds.append(new_speed)
+            status.append(aux.status)
+            pds.append(pd)
+
+        robot_traj = torch.stack([start.robot.pose] + poses, dim=1)
+        return SimResult(
+            robot_traj=robot_traj,
+            people_traj=torch.stack([start.people.state] + people_t, dim=1),
+            cmds=torch.stack(cmds, dim=1),
+            status=torch.stack(status, dim=1),
+            min_people_dist=torch.stack(pds, dim=1).amin(dim=1),
+            goal_dist=_goal_dist(start, robot_traj),
+        )
+
+
+def simulate(cfg: SocialMPCConfig, scenario: Scenario, n_ticks: int,
+             control_period: float = 0.05, device="cuda", dtype=torch.float32,
+             capture: bool = True) -> SimResult:
+    """Run B closed loops for n_ticks on a BATCHED scenario (NumPy or tensor
+    leaves; put on `device` with float dtype `dtype`): one run of a
+    Simulator (see there for `capture`)."""
+    return Simulator(cfg, n_ticks, control_period, device, dtype, capture).run_batch(scenario)
 
 
 def make_simulate(cfg: SocialMPCConfig, n_ticks: int, control_period: float = 0.05,
-                  device="cuda", dtype=torch.float32):
-    """sim(scenario) -> SimResult: `simulate` for a batched scenario, or
-    for one unbatched scenario run as a batch of one (the result then
-    unbatched too)."""
-
-    def sim(scenario: Scenario) -> SimResult:
-        if np.ndim(scenario.robot.pose) == 1:
-            res = simulate(cfg, scenario_from_numpy(scenario, device=device, dtype=dtype),
-                           n_ticks, control_period, device, dtype)
-            return first_lane(res)
-        return simulate(cfg, scenario, n_ticks, control_period, device, dtype)
-
-    return sim
+                  device="cuda", dtype=torch.float32, capture: bool = True) -> Simulator:
+    """sim(scenario) -> SimResult for a batched scenario, or for one
+    unbatched scenario run as a batch of one: a Simulator, whose step and
+    staged programs serve every call."""
+    return Simulator(cfg, n_ticks, control_period, device, dtype, capture)

@@ -168,3 +168,71 @@ def stack_scenarios(scenarios):
 def make_scenario_batch(cfg: SocialMPCConfig, batch: int, base_seed: int, **kw) -> Scenario:
     """`batch` scenarios of distinct seeds base_seed .. base_seed+batch-1."""
     return stack_scenarios([make_scenario(cfg, seed=base_seed + i, **kw) for i in range(batch)])
+
+
+
+def _line(n: int, start, heading: float, spacing: float):
+    """n points from `start` along `heading`, `spacing` apart."""
+    k = np.arange(n)[:, None]
+    return np.asarray(start)[None, :] + k * spacing * np.array([[np.cos(heading), np.sin(heading)]])
+
+
+# Plans that reach each branch of the trajectorizer (see _trajectorizer_case).
+TRAJECTORIZER_CASES = (
+    "no_points", "one_point", "full_plan", "all_beyond_lookahead", "tied_minimisers",
+    "rotate_left_above", "rotate_left_below", "rotate_right_above", "rotate_right_below",
+    "goal_at_step_1", "goal_never_reached",
+)
+
+
+def _trajectorizer_case(name: str, tr, max_points: int):
+    """The plan of case `name` in the robot's frame (robot at the origin
+    facing +x), (n, 2), for TrajectorizerConfig `tr`."""
+    look = tr.lookahead_dist
+    reach = tr.desired_linear_vel * tr.time_step * tr.max_steps  # the most a run drives
+    if name == "no_points":
+        return np.zeros((0, 2))
+    if name == "one_point":
+        return np.array([[0.3, 0.1]])
+    if name == "full_plan":  # every waypoint valid, a gentle curve
+        t = np.arange(max_points) * 0.05
+        return np.stack([t, 0.3 * np.sin(0.8 * t)], axis=1)
+    if name == "all_beyond_lookahead":  # the nearest waypoint 1.5 lookaheads away
+        return _line(40, (1.5 * look, 0.5), 0.3, 0.1)
+    if name == "tied_minimisers":  # 12 copies of one point 2 lookaheads away
+        return np.tile([[0.0, 2.0 * look]], (12, 1))
+    if name.startswith("rotate_"):  # |dtheta| 1e-3 above or below pi/2, to either side
+        side = 1.0 if "_left_" in name else -1.0
+        ang = np.pi / 2.0 + (1e-3 if name.endswith("above") else -1e-3)
+        return _line(8, (0.0, 0.0), side * ang, 0.1 * look)  # all within the lookahead
+    if name == "goal_at_step_1":  # the goal 0.18 m ahead: done after one step
+        return _line(3, (0.0, 0.0), 0.1, 0.09)
+    if name == "goal_never_reached":  # the goal a run's reach + 1 m away
+        return _line(31, (0.0, 0.0), -0.2, (reach + 1.0) / 30.0)
+    raise ValueError(f"unknown trajectorizer case {name!r}")
+
+
+def make_trajectorizer_cases(tr, batch: int, max_points: int, seed: int, dtype=np.float32):
+    """`batch` plans for TrajectorizerConfig `tr` cycling through
+    TRAJECTORIZER_CASES, each copy moved by its own random rigid transform
+    of the plan frame (robot and plan together, so the case's geometry is
+    kept and only the rounding differs). Returns (PathInput with a leading
+    batch axis, robot poses (B, 3), the case index of each lane (B,)), NumPy
+    leaves; padding beyond n holds the last valid pose (zeros when n = 0)."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((batch, max_points, 2))
+    n = np.zeros((batch,), np.int32)
+    pose = np.zeros((batch, 3))
+    case = np.arange(batch) % len(TRAJECTORIZER_CASES)
+    for b in range(batch):
+        local = _trajectorizer_case(TRAJECTORIZER_CASES[case[b]], tr, max_points)[:max_points]
+        yaw = rng.uniform(-np.pi, np.pi)
+        shift = rng.uniform(-5.0, 5.0, 2)
+        rot = np.array([[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]])
+        n[b] = len(local)
+        if n[b]:
+            pts[b, : n[b]] = local @ rot.T + shift
+            pts[b, n[b]:] = pts[b, n[b] - 1]
+        pose[b] = (shift[0], shift[1], yaw)
+    path = PathInput(points=pts.astype(dtype), yaw=np.zeros((batch, max_points), dtype), n=n)
+    return path, pose.astype(dtype), case
