@@ -15,8 +15,10 @@ the nine hand-written CUDA kernels (an evaluation's rollout and costmap
 sample run as one, rollout_sample; every tick's trajectorizer, the port's own
 kernel, once), and checks them. ``make_step_batch`` (and with it
 ``make_step``, the controller, the simulator, the loop, the distributed step
-and the CLI) replays its tick as CUDA graphs on the card; the ``graph`` phase
-holds it against the eager tick (``capture=False``). The simulator replays
+and the CLI) replays its tick as CUDA graphs on the card, the debug-trace
+tick too, and so does ``make_step_batch_compacted``; the ``graph``,
+``debug_tick`` and ``compacted_tick`` phases hold each against its eager tick
+(``capture=False``). The simulator replays
 the world update of each simulated tick as one more graph; the ``sim`` phase
 holds it against its reference loop.
 Phases, each printing one JSON line:
@@ -52,15 +54,20 @@ Phases, each printing one JSON line:
              both; the single-robot tick of both in turns; ms/tick at B =
              1024 and 4096 (obstacle, social) in turns, capture seconds,
              device memory; the device ms of each stage graph, and the
-             trajectorizer's kernel beside its plain loop's own graph
+             trajectorizer's kernel beside its plain loop's own graph; the
+             staged programs and the phase that holds each
   debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks,
-             then stress36 (D = 12) at B = 1024, 1 tick: K7's damped step
-             launched once per LM iteration run, K3/K4 never; the trace's
-             invariants; every result equal to the plain tick's, bit for
-             bit; the first tick's solve through a caller's linear_solve
-             (K7's standalone solve in the plain composition) equal to it
-             bit for bit; device launches and busy ms per tick and per loop
-             iteration of both solves
+             then stress36 (D = 12) at B = 1024, 1 tick: the captured debug
+             tick (a chunk graph per chunk position) equal to the eager one
+             bit for bit, trace included, with the same launch counts; K7's
+             damped step launched once per LM iteration run, K3/K4 never;
+             the trace's invariants; every result equal to the plain tick's,
+             bit for bit; the first tick's solve through a caller's
+             linear_solve (K7's standalone solve in the plain composition)
+             equal to it bit for bit; ms/tick of the captured and the eager
+             tick in turns, device launches and busy ms per tick and per
+             loop iteration, stage graphs, host launches, capture seconds,
+             memory
   jacobi     the same prepared problems through lm_solve with Jacobi scaling
              (the damped step with the scale), and through a caller's
              linear_solve, bit for bit; launches and busy ms of both
@@ -68,9 +75,14 @@ Phases, each printing one JSON line:
              B = 1024, one tick through the residual path (K1 launched by the
              differentiable costmap sample, K2 never); and the residual
              path's (cost, g, JtJ) against the fused path's
-  compacted_tick  warm_start_mode="previous_solution", B = 4096, 3 ticks:
-             make_step_batch_compacted equal to make_step_batch bit for bit;
-             iterations x width and ms/tick of both
+  compacted_tick  warm_start_mode="previous_solution", social B = 4096, 3
+             ticks, and stress36 B = 1024, 1 tick: make_step_batch_compacted
+             captured (graphs per rung of its width ladder) equal bit for bit
+             to it eager and to the captured make_step_batch, with the eager
+             one's widths and launch counts; on social also 10 warm ticks
+             under bench.py's per-tick pose perturbation; iterations x width,
+             ms/tick of the three in turns, host launches, stage graphs,
+             capture seconds, peak memory
   timing     ms/tick and solves/s of the captured tick at B = 1024 and B =
              4096 for the obstacle and the social configuration, capture
              seconds, the eager stages' breakdown, launches, memory (the
@@ -1826,27 +1838,49 @@ def named_leaves(tree, prefix=""):
             yield f"{prefix}{field}", x
 
 
-def same_bits(where, got, want, parts=("cmd", "aux", "carry")):
+def same_bits(where, got, want, parts=("cmd", "aux", "carry"), kinds=("captured", "eager")):
     """Fail unless two results, trees named by `parts`, agree in every leaf
     bit for bit (commands, status, cursor, iterations, termination, costs,
-    paths, the people projection, the carry)."""
+    paths, the people projection, the carry, the trace; NaN against NaN of
+    the same bits is equal). `kinds` names the two ticks in the message."""
     for part, a, b in zip(parts, got, want):
-        for (name, x), (_, y) in zip(named_leaves(a, f"{part}."), named_leaves(b, f"{part}.")):
-            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
-                fail(f"{where}: {name} of the captured tick differs from the eager tick's")
+        la, lb = list(named_leaves(a, f"{part}.")), list(named_leaves(b, f"{part}."))
+        if [n for n, _ in la] != [n for n, _ in lb]:
+            fail(f"{where}: the {kinds[0]} and the {kinds[1]} tick return other leaves")
+        for (name, x), (_, y) in zip(la, lb):
+            if bits_differ([x], [y]) != 0:
+                fail(f"{where}: {name} of the {kinds[0]} tick differs from the {kinds[1]} tick's")
 
 
 GRAPH_TIMED_ROUNDS = 3
 
 
+def program_stages(step):
+    """(name, stage) of every graph of the one program `step`'s captured
+    tick holds: head, the chunks (by length n, `chunk_{n}`; with the trace
+    by position i, `chunk_at_{i}`; compacted, by rung width W and length,
+    `chunk_{W}x{n}`), the compacted tick's transitions and scatters, tail."""
+    prog, = step.tick._programs.values()
+    stages = [("head", prog.head)]
+    widths = getattr(prog, "widths", None)
+    if widths is None:
+        tag = "chunk_at_" if prog.tick.trace_len else "chunk_"
+        stages += [(f"{tag}{key}", c) for key, c in prog.chunks.items()]
+    else:
+        for k, w in enumerate(widths):
+            stages += [(f"chunk_{w}x{n}", c) for n, c in prog.chunks[k].items()]
+            if k + 1 < len(widths):
+                stages.append((f"transition_{w}_to_{widths[k + 1]}", prog.transitions[k]))
+        stages += [(f"scatter_{w}", prog.scatters[k]) for k, w in enumerate(widths) if k]
+    return stages + [("tail", prog.tail)]
+
+
 def stage_device_ms(step, reps=20):
     """Device ms of each stage graph of the one program `step`'s captured
-    tick holds (head, each chunk size, tail), replayed back to back as
-    time_cuda times a kernel. Direct replays: the launch counts stay."""
-    prog, = step.tick._programs.values()
-    stages = [("head", prog.head), *((f"chunk_{n}", c) for n, c in prog.chunks.items()),
-              ("tail", prog.tail)]
-    return {name: time_cuda(stage.graph.replay, reps) for name, stage in stages}
+    tick holds (program_stages), replayed back to back as time_cuda times a
+    kernel. Direct replays: the launch counts stay; the next tick rewrites
+    every buffer before it reads it."""
+    return {name: time_cuda(stage.graph.replay, reps) for name, stage in program_stages(step)}
 
 
 def trajectorize_alone(cfg, sc, pose, reps=20):
@@ -1891,8 +1925,6 @@ def phase_graph(paths, dev):
     (make_step), SINGLE_STEP_SEEDS seeds x 2 ticks each, bit for bit, and
     the single-robot tick of both in turns; then ms/tick at B = 1024 and
     4096 (obstacle, social) in turns, capture seconds and device memory."""
-    import gc
-
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
         make_carry, make_step, make_step_batch,
@@ -1997,16 +2029,9 @@ def phase_graph(paths, dev):
         sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid)
         steps, memory = {}, {}
         for kind in ("eager", "captured"):
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-            steps[kind] = make_step_batch(cfg, device=dev, capture=kind == "captured")
-            run_ticks(steps[kind], sc, poses, make_carry(cfg, batch, device=dev))
-            peak = torch.cuda.max_memory_allocated() - base
-            torch.cuda.empty_cache()  # what stays reserved is the step's own
-            memory[kind] = {"peak_allocated_bytes": peak,
-                            "held_bytes": torch.cuda.memory_reserved() - base_reserved}
+            steps[kind], memory[kind] = step_memory(
+                lambda: make_step_batch(cfg, device=dev, capture=kind == "captured"),
+                lambda step: run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev)))
         ms = {k: [] for k in steps}
         for _ in range(GRAPH_TIMED_ROUNDS):
             for kind in ("eager", "captured", "captured", "eager"):
@@ -2018,7 +2043,47 @@ def phase_graph(paths, dev):
         del steps
     emit({"phase": "graph", "cells": cells, "single_step_bit_equal": single,
           "single_step_seeds": SINGLE_STEP_SEEDS, "single_robot_ms": one_robot,
-          "timing": timing})
+          "timing": timing, "programs": GRAPH_PROGRAMS})
+
+
+# The staged programs the card replays, and the phase that holds each
+# against its eager tick (each of those phases prints its stage graphs).
+GRAPH_PROGRAMS = {
+    "make_step_batch": {"stages": "head, chunk_{n}, tail", "phase": "graph"},
+    "make_step_batch + debug_optimizer": {"stages": "head, chunk_at_{i}, tail",
+                                          "phase": "debug_tick"},
+    "make_step_batch_compacted": {
+        "stages": "head, chunk_{W}x{n}, transition_{W}_to_{W'}, scatter_{W}, tail",
+        "phase": "compacted_tick"},
+    "Simulator world update": {"stages": "world", "phase": "sim"},
+}
+
+
+def step_memory(make, run):
+    """(step, memory): a step built by make() and run by run(step), with the
+    device memory it took at its peak and what it keeps reserved after
+    (its graphs' pool, for a captured step), in bytes."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    step = make()
+    run(step)
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()  # what stays reserved is the step's own
+    return step, {"peak_allocated_bytes": peak,
+                  "held_bytes": torch.cuda.memory_reserved() - base_reserved}
+
+
+def in_turns(steps, order, run):
+    """{kind: [host ms of each tick]} of run(steps[kind]) (time_ticks's
+    list) for kind in `order`: the kinds taken in turns within one call."""
+    ms = {kind: [] for kind in steps}
+    for kind in order:
+        ms[kind] += run(steps[kind])
+    return ms
 
 
 def time_ticks(step, sc, poses, fresh_carry, rounds=2):
@@ -2124,14 +2189,20 @@ def general_solve_vs_composition(where, cfg, lm_cfg, dev, sc, pose, trace_len):
 def phase_debug_tick(name, cfg, dev, sc, poses):
     """The debug-trace tick at full width: `cfg` with debug_optimizer=True on
     the batch the main path solved, the main path's ticks with the carry fed
-    back. The general LM iteration launches K7's damped step once per
-    iteration the loop runs and K3/K4 never; it repeats the default
-    iteration's arithmetic, so every result must equal the plain tick's bit
-    for bit (the gate ROADMAP.md defines — lanes that stopped after the same
-    number of iterations within 1e-3 — is implied and checked first). Then
-    the first tick's solve through a caller's linear_solve (K7's standalone
-    solve) against the damped step (general_solve_vs_composition). Returns
-    the launch counts."""
+    back. make_step_batch's default replays it as CUDA graphs (a chunk graph
+    per chunk position, writing its iterations' trace columns); the eager
+    debug tick (capture=False) runs the same ticks: every leaf, the trace
+    included, equal bit for bit, and the same launch counts. The general LM
+    iteration launches K7's damped step once per iteration the loop runs and
+    K3/K4 never; it repeats the default iteration's arithmetic, so every
+    result must equal the plain tick's bit for bit (the gate ROADMAP.md
+    defines — lanes that stopped after the same number of iterations within
+    1e-3 — is implied and checked first). Then ms/tick of both in turns,
+    their device launches, the stage graphs, host launches, capture seconds
+    and memory; and the first tick's solve through a caller's linear_solve
+    (K7's standalone solve) against the damped step
+    (general_solve_vs_composition). Returns the captured ticks' launch
+    counts."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step_batch
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import make_lm_config
@@ -2139,14 +2210,34 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
     batch = sc.robot.pose.shape[0]
     dbg = replace_optimizer(cfg, debug_optimizer=True)
     t_len = cfg.optimizer.max_iterations
-    plain_outs, plain_carry = run_ticks(
-        make_step_batch(cfg, device=dev), sc, poses, make_carry(cfg, batch, device=dev))
-    step = make_step_batch(dbg, device=dev)
-    carry0 = make_carry(cfg, batch, device=dev)
-    _build.reset_launch_counts()
-    outs, carry = run_ticks(step, sc, poses, carry0)
-    launches = dict(_build.launch_counts)
     where = f"debug_tick {name}"
+
+    def fresh():
+        return make_carry(cfg, batch, device=dev)
+
+    plain_outs, plain_carry = run_ticks(make_step_batch(cfg, device=dev), sc, poses, fresh())
+    steps, memory = {}, {}
+    for kind in ("captured", "eager"):  # the first tick captures the graphs
+        steps[kind], memory[kind] = step_memory(
+            lambda: make_step_batch(dbg, device=dev, capture=kind == "captured"),
+            lambda step: run_ticks(step, sc, poses[:1], fresh()))
+    if not steps["captured"].captured or steps["eager"].captured:
+        fail(f"{where}: make_step_batch does not capture the debug tick on the card")
+    steps["captured"].tick.reset_host_launches()
+    runs, by_kind = {}, {}
+    for kind in ("captured", "eager"):
+        _build.reset_launch_counts()
+        runs[kind] = run_ticks(steps[kind], sc, poses, fresh())
+        by_kind[kind] = dict(_build.launch_counts)
+    host = host_launches_per_tick(steps["captured"].tick, len(poses))
+    host_ops = dict(steps["captured"].tick.host_launches)
+    outs, carry = runs["captured"]
+    for t, (got, want) in enumerate(zip(outs, runs["eager"][0])):
+        same_bits(f"{where} tick {t}", got, want, parts=("cmd", "aux"))
+    same_bits(where, (carry,), (runs["eager"][1],), parts=("carry",))
+    if by_kind["captured"] != by_kind["eager"]:
+        fail(f"{where}: kernel launches {by_kind['captured']} captured, {by_kind['eager']} eager")
+    launches = by_kind["captured"]
     check_launches(where, launches, DEBUG_PATH_KERNELS, ticks=len(poses))
     check_one_sample_per_evaluation(where, launches)
 
@@ -2189,21 +2280,25 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
         if not torch.equal(x, y):
             fail(f"{where}: the carry differs from the plain ticks' carry")
 
-    def fresh():
-        return make_carry(cfg, batch, device=dev)
-
-    ms = time_ticks(step, sc, poses, fresh)
-    n_dev, dev_ms = profile_last_tick(step, sc, poses, fresh)
+    ms = in_turns(steps, ("eager", "captured", "captured", "eager") * 2,
+                  lambda step: time_ticks(step, sc, poses, fresh, rounds=1))
+    profiles = {kind: profile_last_tick(step, sc, poses, fresh) for kind, step in steps.items()}
     _, _, vs_caller, _ = general_solve_vs_composition(
         where, dbg, make_lm_config(dbg.optimizer), dev, sc, poses[0], t_len)
     ran_last = loop_iterations(outs[-1][1].solve.iterations, t_len)
     emit({
         "phase": "debug_tick", "config": f"{name} + debug_optimizer", "batch": batch,
         "ticks": len(outs), "launches": launches, "lm_loop_iterations": ran,
-        "ms_per_tick": float(np.mean(ms)), "ms_per_tick_min": float(np.min(ms)),
-        "device_launches_per_tick": n_dev, "device_busy_ms_per_tick": dev_ms,
+        "captured_bit_equal_to_eager": True,
+        "ms_per_tick": {k: host_ms_stats(v) for k, v in ms.items()},
+        "device_launches_per_tick": {k: v[0] for k, v in profiles.items()},
+        "device_busy_ms_per_tick": {k: v[1] for k, v in profiles.items()},
         "lm_loop_iterations_last_tick": ran_last,
-        "device_launches_per_loop_iteration_last_tick": None if n_dev is None else n_dev / ran_last,
+        "device_launches_per_loop_iteration_last_tick": {
+            k: None if v[0] is None else v[0] / ran_last for k, v in profiles.items()},
+        "host_launches_per_tick": host, "host_operations": host_ops,
+        "stage_device_ms": stage_device_ms(steps["captured"]),
+        "capture_s": steps["captured"].tick.capture_seconds, "memory": memory,
         "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean()) for _, a in outs],
         "vs_plain_tick": {"lanes_with_other_iteration_count": apart_lanes,
                           "cmd_delta_max_same_iterations": worst_same, "bit_equal": True},
@@ -2344,81 +2439,140 @@ def phase_latent_tick(cfg, dev):
     return launches
 
 
-def phase_compacted_tick(cfg, dev, sc, poses, capacity_frac=0.25):
-    """The compacted warm-start tick at full width: `cfg` with
-    warm_start_mode="previous_solution", 3 ticks, once through
-    make_step_batch and once through make_step_batch_compacted. Every kernel
-    works scenario by scenario, so compaction must change no lane: commands,
-    iteration counts, termination codes and the carry equal bit for bit.
-    Printed: mean iterations, iterations x width of both solvers, ms/tick of
-    both (host clock, in turns)."""
+WARM_TICKS = 10  # warm ticks of the compacted phase, under bench.py's pose perturbation
+
+
+def run_logged(step, sc, poses, carry):
+    """run_ticks, with each tick's width_log: ([(cmd, aux)], carry, [widths])."""
+    outs, logs = [], []
+    for pose in poses:
+        cmd, aux, carry = step(with_pose(sc, pose), carry)
+        outs.append((cmd, aux))
+        logs.append(list(step.tick.width_log))
+    torch.cuda.synchronize()
+    return outs, carry, logs
+
+
+def phase_compacted_tick(cells, dev, capacity_frac=0.25):
+    """The compacted warm-start tick at full width, on each of `cells`
+    (name, cfg, scenario batch, per-tick poses): `cfg` with
+    warm_start_mode="previous_solution", its ticks with the carry fed back,
+    through make_step_batch_compacted's default (its stages replayed as
+    CUDA graphs: chunks per rung of the width ladder, transitions, scatters),
+    through the eager compacted tick (capture=False) and through the
+    captured plain tick (make_step_batch). Every kernel works scenario by
+    scenario, so compaction changes no lane: every leaf of the three equals
+    bit for bit; the captured compacted tick ran the eager one's widths and
+    its kernel launch counts. On the first cell also WARM_TICKS ticks from
+    the first pose, perturbed per tick as bench.py perturbs it (+1e-6 * t),
+    held likewise. Printed: iterations x width of the compacted and the
+    plain solver (from the steps' width_log), mean iterations, ms/tick of
+    the three in turns, device launches and busy ms of a tick, stage graph
+    device ms, host launches a tick, capture seconds, peak memory. Returns
+    the first cell's captured compacted ticks' launch counts."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
-        make_carry, make_step_batch, make_step_batch_compacted, step_pre,
+        make_carry, make_step_batch, make_step_batch_compacted,
     )
-    from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
-        build_value_grad, make_lm_config,
-    )
-    from nav2_social_mpc_controller_tpu_torch.solver.batched import lm_solve_batch_compacted
 
-    batch = sc.robot.pose.shape[0]
-    warm = replace_optimizer(cfg, warm_start_mode="previous_solution")
-    lm_cfg = make_lm_config(warm.optimizer)
-    plain = make_step_batch(warm, device=dev)
-    compacted = make_step_batch_compacted(warm, capacity_frac, device=dev)
+    path_launches = None
+    for name, cfg, sc, poses in cells:
+        batch = sc.robot.pose.shape[0]
+        warm = replace_optimizer(cfg, warm_start_mode="previous_solution")
+        where = f"compacted_tick {name}"
 
-    def fresh():
-        return make_carry(warm, batch, device=dev)
+        def fresh():
+            return make_carry(warm, batch, device=dev)
 
-    outs_p, carry_p = run_ticks(plain, sc, poses, fresh())
-    _build.reset_launch_counts()
-    outs_c, carry_c = run_ticks(compacted, sc, poses, fresh())
-    launches = dict(_build.launch_counts)
-    check_launches("compacted_tick", launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
-    check_one_sample_per_evaluation("compacted_tick", launches)
-    for t, (a, b_) in enumerate(zip(outs_c, outs_p)):
-        check_tick_outputs(f"compacted_tick tick {t}", warm, *a)
-        same_results(f"compacted_tick tick {t} vs the plain tick", a, b_)
-    for x, y in zip(carry_c, carry_p):
-        if not torch.equal(x, y):
-            fail("compacted_tick: the carry differs from the plain ticks' carry")
+        makers = {
+            "captured": lambda: make_step_batch_compacted(warm, capacity_frac, device=dev),
+            "eager": lambda: make_step_batch_compacted(warm, capacity_frac, device=dev,
+                                                       capture=False),
+            "plain": lambda: make_step_batch(warm, device=dev),
+        }
+        steps, memory = {}, {}
+        for kind, make in makers.items():  # the first tick captures the graphs
+            steps[kind], memory[kind] = step_memory(
+                make, lambda step: run_ticks(step, sc, poses[:1], fresh()))
+        if not steps["captured"].captured or steps["eager"].captured:
+            fail(f"{where}: make_step_batch_compacted does not capture its tick on the card")
 
-    # Work done, in lane-iterations: the plain loop runs every lane for as
-    # many iterations as it runs at all; the compacted solver logs the width
-    # of each of its iterations (same solver call as make_step_batch_compacted).
-    work_plain, work_compacted, carry = [], [], fresh()
-    with torch.no_grad():
-        for t, pose in enumerate(poses):
-            prep = step_pre(warm, with_pose(sc, pose), carry).prep
-            widths = []
-            lm_solve_batch_compacted(
-                build_value_grad(warm, prep), prep.u0, prep.lower, prep.upper, lm_cfg,
-                max(1, int(batch * capacity_frac)), width_log=widths)
-            work_compacted.append(sum(widths))
-            work_plain.append(batch * loop_iterations(outs_p[t][1].solve.iterations,
-                                                      lm_cfg.max_iterations))
-            _, _, carry = plain(with_pose(sc, pose), carry)
+        def held(sequence, label):
+            """Each kind's ticks over `sequence` from a fresh carry, held
+            against each other; returns {kind: (outs, launches, widths)}."""
+            for step in steps.values():
+                if step.captured:
+                    step.tick.reset_host_launches()
+            res = {}
+            for kind, step in steps.items():
+                _build.reset_launch_counts()
+                outs, carry, logs = run_logged(step, sc, sequence, fresh())
+                res[kind] = (outs, carry, dict(_build.launch_counts), logs)
+            for other in ("eager", "plain"):
+                for t, (got, want) in enumerate(zip(res["captured"][0], res[other][0])):
+                    same_bits(f"{where} {label} tick {t}", got, want, parts=("cmd", "aux"),
+                              kinds=("captured compacted", other))
+                same_bits(f"{where} {label}", (res["captured"][1],), (res[other][1],),
+                          parts=("carry",), kinds=("captured compacted", other))
+            if res["captured"][2] != res["eager"][2]:
+                fail(f"{where} {label}: kernel launches {res['captured'][2]} captured, "
+                     f"{res['eager'][2]} eager")
+            if res["captured"][3] != res["eager"][3]:
+                fail(f"{where} {label}: widths {res['captured'][3]} captured, "
+                     f"{res['eager'][3]} eager")
+            for t, (cmd, aux) in enumerate(res["captured"][0]):
+                check_tick_outputs(f"{where} {label} tick {t}", warm, cmd, aux)
+            return res
 
-    ms = {"plain": [], "compacted": []}
-    for name, step in (("plain", plain), ("compacted", compacted), ("compacted", compacted),
-                       ("plain", plain)):
-        ms[name] += time_ticks(step, sc, poses, fresh, rounds=1)
-    profiles = {name: profile_last_tick(step, sc, poses, fresh)
-                for name, step in (("plain", plain), ("compacted", compacted))}
-    n = len(poses)
-    emit({
-        "phase": "compacted_tick", "config": "social + warm_start_mode=previous_solution",
-        "batch": batch, "ticks": n, "capacity_frac": capacity_frac, "launches": launches,
-        "bit_equal_to_plain": True,
-        "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean()) for _, a in outs_p],
-        "max_lm_iterations_per_tick": [int(a.solve.iterations.max()) for _, a in outs_p],
-        "iterations_x_width": {"plain": work_plain, "compacted": work_compacted},
-        "ms_per_tick_by_tick": {k: [float(np.mean(v[t::n])) for t in range(n)] for k, v in ms.items()},
-        "ms_per_tick_mean": {k: float(np.mean(v)) for k, v in ms.items()},
-        "device_launches_last_tick": {k: v[0] for k, v in profiles.items()},
-        "device_busy_ms_last_tick": {k: v[1] for k, v in profiles.items()},
-    })
-    return launches
+        res = held(poses, "main")
+        launches = res["captured"][2]
+        check_launches(where, launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
+        check_one_sample_per_evaluation(where, launches)
+        host = {kind: host_launches_per_tick(steps[kind].tick, len(poses))
+                for kind in ("captured", "plain")}
+        if path_launches is None:
+            path_launches = launches
+
+        def work(r):
+            return {"compacted": [sum(w) for w in r["captured"][3]],
+                    "plain": [sum(w) for w in r["plain"][3]],
+                    "widths_run": [sorted(set(w), reverse=True) for w in r["captured"][3]],
+                    "mean_lm_iterations": [float(a.solve.iterations.float().mean())
+                                           for _, a in r["captured"][0]],
+                    "max_lm_iterations": [int(a.solve.iterations.max())
+                                          for _, a in r["captured"][0]]}
+
+        order = ("captured", "eager", "plain", "plain", "eager", "captured") * 2
+        ms = in_turns(steps, order, lambda step: time_ticks(step, sc, poses, fresh, rounds=1))
+        cell = {
+            "phase": "compacted_tick", "config": f"{name} + warm_start_mode=previous_solution",
+            "batch": batch, "ticks": len(poses), "capacity_frac": capacity_frac,
+            "ladder": next(iter(steps["captured"].tick._programs.values())).widths,
+            "launches": launches, "bit_equal": {"eager": True, "plain": True},
+            "iterations_x_width": work(res),
+            "ms_per_tick": {k: host_ms_stats(v) for k, v in ms.items()},
+            "host_launches_per_tick": host,
+            "capture_s": steps["captured"].tick.capture_seconds, "memory": memory,
+        }
+        if name == cells[0][0]:
+            perturbed = [(poses[0] + 1e-6 * t).contiguous() for t in range(WARM_TICKS)]
+            warm_res = held(perturbed, "warm")
+            ms_warm = in_turns(steps, order,
+                               lambda step: time_ticks(step, sc, perturbed, fresh, rounds=1))
+            cell["warm_ticks"] = {
+                "ticks": WARM_TICKS, "iterations_x_width": work(warm_res),
+                "ms_per_tick": {k: host_ms_stats(v) for k, v in ms_warm.items()},
+                "ms_per_tick_last_5": {k: host_ms_stats(
+                    [x for i, x in enumerate(v) if i % WARM_TICKS >= WARM_TICKS - 5])
+                    for k, v in ms_warm.items()},
+            }
+        profiles = {kind: profile_last_tick(step, sc, poses, fresh) for kind, step in steps.items()}
+        cell["device_launches_last_tick"] = {k: v[0] for k, v in profiles.items()}
+        cell["device_busy_ms_last_tick"] = {k: v[1] for k, v in profiles.items()}
+        cell["stage_device_ms"] = stage_device_ms(steps["captured"])
+        emit(cell)
+        del steps, res
+    return path_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3173,7 +3327,8 @@ def main():
     phase_debug_tick("stress36", stress36, dev, sc36, poses36)
     launches_jacobi = phase_jacobi(social, dev, sc, poses[0])
     launches_latent = phase_latent_tick(social, dev)
-    launches_compacted = phase_compacted_tick(social, dev, sc, poses)
+    launches_compacted = phase_compacted_tick(
+        [("social", social, sc, poses), ("stress36", stress36, sc36, poses36)], dev)
     phase_timing([("obstacle", obstacle, 0), ("social", social, social.n_agents)], dev)
     launches_single = phase_single_step(
         [("social", social, social.n_agents), ("obstacle", obstacle, 0),

@@ -52,7 +52,10 @@ from nav2_social_mpc_controller_tpu_torch.core.validate import (
     make_window_validator,
     validate_scenario_windows,
 )
-from nav2_social_mpc_controller_tpu_torch.solver.batched import lm_solve_batch_compacted
+from nav2_social_mpc_controller_tpu_torch.solver.batched import (
+    compacted_capacity,
+    lm_solve_batch_compacted,
+)
 from nav2_social_mpc_controller_tpu_torch.utils.angles import shortest_angular_distance
 
 CRAWL_LINEAR_VEL = 0.1  # fallback cmd (social_mpc_controller.cpp:183)
@@ -259,14 +262,15 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
     out for callers that validated at construction (the built-in generators
     already do).
 
-    With ``capture`` (the default), a config whose solve is the default LM
-    iteration (no debug_optimizer, no latent critic: all four benchmark
-    configs) gets the staged tick of controller/graph.py: on CUDA recorded
-    as CUDA graphs at the first call with each input signature and replayed
-    after, the port's counterpart of the JAX package's jax.jit; on the CPU
-    the same stages run as plain functions. ``capture=False``, and every
-    other config, runs the tick eagerly from Python, the reference the
-    graphs are held to. The returned step's ``captured`` says which runs."""
+    With ``capture`` (the default), a config whose solve takes the fused
+    evaluation (no latent critic: all four benchmark configs, with or
+    without debug_optimizer) gets the staged tick of controller/graph.py: on
+    CUDA recorded as CUDA graphs at the first call with each input signature
+    and replayed after, the port's counterpart of the JAX package's jax.jit;
+    on the CPU the same stages run as plain functions. ``capture=False``,
+    and a config with latent critics, runs the tick eagerly from Python, the
+    reference the graphs are held to. The returned step's ``captured`` says
+    which runs."""
     dev = resolve_device(device)
     if capture:
         # graph.py builds on this module's step_pre / step_post
@@ -317,29 +321,57 @@ def _checked(cfg: SocialMPCConfig, device, dtype, fn, validate: bool = True) -> 
     return StepFunction(run, fn)
 
 
+class CompactedTick:
+    """make_step_batch_compacted's eager tick: step_pre -> the width-ladder
+    solver -> step_post, the reference the staged tick is held to.
+    ``width_log`` holds the width of each LM iteration of the last tick."""
+
+    def __init__(self, cfg: SocialMPCConfig, capacity_frac: float):
+        self.cfg = cfg
+        self.capacity_frac = capacity_frac
+        self.lm_cfg = make_lm_config(cfg.optimizer)
+        self.width_log = []
+
+    def __call__(self, scenario: Scenario, carry: ControllerCarry):
+        cfg = self.cfg
+        ctx = step_pre(cfg, scenario, carry)
+        prep = ctx.prep
+        self.width_log = []
+        u_flat, stats = lm_solve_batch_compacted(
+            build_value_grad(cfg, prep), prep.u0, prep.lower, prep.upper, self.lm_cfg,
+            compacted_capacity(prep.u0.shape[0], self.capacity_frac), width_log=self.width_log,
+        )
+        return step_post(cfg, ctx, carry, u_flat, stats)
+
+
 def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
-                              device="cuda", dtype=torch.float32, validate: bool = True):
+                              device="cuda", dtype=torch.float32, validate: bool = True,
+                              capture: bool = True):
     """Batched step with converged-lane compaction in the LM solve
     (solver/batched.py): step_pre -> the width-ladder solver -> step_post.
     Per-lane results are identical to make_step_batch's; the gain is that a
     warm-started batch (warm_start_mode="previous_solution") stops paying
     full-width iterations once the laggard set fits a narrower width, down to
     capacity_frac * batch lanes. debug_optimizer is unsupported here (the
-    per-iteration trace belongs to the plain loop)."""
+    per-iteration trace belongs to the plain loop).
+
+    With ``capture`` (the default), a config whose solve takes the fused
+    evaluation gets the staged tick of controller/graph_compacted.py: CUDA
+    graphs per rung of the ladder on the card, the counterpart of the JAX
+    package's jitted step; the same stages as plain functions on the CPU.
+    ``capture=False``, and a config with latent critics, runs the eager
+    tick (``CompactedTick``). The step's ``tick.width_log`` holds the widths
+    its last tick ran, ``captured`` whether it replays graphs."""
     if cfg.optimizer.debug_optimizer:
         raise ValueError("compaction does not support debug_optimizer")
-    lm_cfg = make_lm_config(cfg.optimizer)
+    dev = resolve_device(device)
+    if capture:
+        from nav2_social_mpc_controller_tpu_torch.controller import graph, graph_compacted
 
-    def run(scenario: Scenario, carry: ControllerCarry):
-        ctx = step_pre(cfg, scenario, carry)
-        prep = ctx.prep
-        capacity = max(1, int(prep.u0.shape[0] * capacity_frac))
-        u_flat, stats = lm_solve_batch_compacted(
-            build_value_grad(cfg, prep), prep.u0, prep.lower, prep.upper, lm_cfg, capacity
-        )
-        return step_post(cfg, ctx, carry, u_flat, stats)
-
-    return _checked(cfg, device, dtype, run, validate)
+        if graph.capturable(cfg):
+            return _checked(cfg, dev, dtype,
+                            graph_compacted.CompactedGraphTick(cfg, capacity_frac, dev), validate)
+    return _checked(cfg, dev, dtype, CompactedTick(cfg, capacity_frac), validate)
 
 
 def first_lane(tree):

@@ -25,6 +25,7 @@ from nav2_social_mpc_controller_tpu_torch.controller.controller import (
     make_carry,
     make_step_batch,
 )
+from nav2_social_mpc_controller_tpu_torch.controller.graph import collector_held
 from nav2_social_mpc_controller_tpu_torch.core.config import SocialMPCConfig
 from nav2_social_mpc_controller_tpu_torch.core.types import (
     AgentsState,
@@ -160,14 +161,15 @@ class _SimProgram:
 
     def _capture(self):
         """One eager warm-up run of the stage on the capture stream (its
-        writes are overwritten by every run's set-up), then the graph."""
+        writes are overwritten by every run's set-up), then the graph, the
+        garbage collector held off (controller/graph.py)."""
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             self.stage()
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        with collector_held(), torch.cuda.graph(self.graph, stream=stream):
             self.stage()
         torch.cuda.synchronize()
 

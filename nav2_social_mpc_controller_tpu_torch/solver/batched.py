@@ -21,9 +21,15 @@ synchronisation, so it is read where ``check_every`` already takes one for
 the early exit: a level may start up to ``check_every - 1`` iterations later
 than its trigger, which changes the work done and no result.
 
+The level logic (``Level``, ``next_level``, ``descend``, ``scatter``) is
+shared with the staged compacted tick (controller/graph_compacted.py), which
+replays the same iterations and transitions as CUDA graphs.
+
 No reference counterpart — Ceres solves ONE problem; this is the framework's
 own batching economics.
 """
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,6 +56,71 @@ def width_ladder(batch: int, capacity: int):
     return levels
 
 
+def compacted_capacity(batch: int, capacity_frac: float) -> int:
+    """make_step_batch_compacted's narrowest width for a batch of `batch`."""
+    return max(1, int(batch * capacity_frac))
+
+
+def check_compaction(batch: int, capacity: int, cfg: LMConfig, check_every: int):
+    """Raise unless compaction can run: 0 < capacity < batch, no Jacobi
+    scaling, and an active count read every check_every > 0 iterations."""
+    if not 0 < capacity < batch:
+        raise ValueError(f"capacity must be in (0, {batch}), got {capacity}")
+    if cfg.jacobi_scaling:
+        # Keeping the compacted phases scale-free avoids carrying the frozen
+        # per-lane scale across the gather/scatter.
+        raise NotImplementedError("compaction requires jacobi_scaling=False")
+    if check_every <= 0:
+        raise ValueError("compaction reads the active count every check_every > 0 iterations")
+
+
+class Level(NamedTuple):
+    """One rung of the ladder: the LM state of its lanes, their bounds and
+    problem data; `idx` maps each lane to its lane of the full batch (None at
+    full width, where it is the identity)."""
+
+    state: LMState
+    lower: torch.Tensor
+    upper: torch.Tensor
+    value_grad: object
+    idx: Optional[torch.Tensor]
+
+
+def active_count(level: Level) -> int:
+    """The number of lanes not done: one reduction and a copy to the host."""
+    return int((~level.state.done).sum())
+
+
+def next_level(widths, k: int, n_active: int) -> int:
+    """The rung to run on after a check that counted n_active lanes at rung
+    k of `widths` ([B] + width_ladder): the narrowest that still holds them."""
+    while k + 1 < len(widths) and n_active <= widths[k + 1]:
+        k += 1
+    return k
+
+
+def scatter(full: LMState, level: Level) -> LMState:
+    """The full-width state with the level's lanes written back at idx."""
+    if level.idx is None:
+        return level.state
+    return LMState(*(f.index_copy(0, level.idx, p) for f, p in zip(full, level.state)))
+
+
+def descend(level: Level, width: int) -> Level:
+    """The next rung, `width` lanes: a stable sort puts the (<= width)
+    active lanes first in their order, then done lanes in theirs; the first
+    `width` are gathered with their state and data. Taking two rungs at once
+    or one after the other selects the same lanes in the same order."""
+    take = torch.argsort(level.state.done.to(torch.uint8), stable=True)[:width]
+    return Level(
+        LMState(*(f.index_select(0, take) for f in level.state)),
+        level.lower.index_select(0, take),
+        level.upper.index_select(0, take),
+        level.value_grad.select(take),
+        take if level.idx is None else level.idx.index_select(0, take),
+    )
+
+
 def lm_solve_batch_compacted(
     value_grad,
     u0: torch.Tensor,
@@ -74,55 +145,36 @@ def lm_solve_batch_compacted(
     Returns (u (B, D), SolveStats with (B,) leaves), equal bit for bit to
     lm_solve's."""
     b = u0.shape[0]
-    if not 0 < capacity < b:
-        raise ValueError(f"capacity must be in (0, {b}), got {capacity}")
-    if cfg.jacobi_scaling:
-        # Keeping the compacted phases scale-free avoids carrying the frozen
-        # per-lane scale across the gather/scatter.
-        raise NotImplementedError("compaction requires jacobi_scaling=False")
-    if check_every <= 0:
-        raise ValueError("compaction reads the active count every check_every > 0 iterations")
+    check_compaction(b, capacity, cfg, check_every)
     if not hasattr(value_grad, "select"):
         raise TypeError("compaction needs a value_grad with a select(lanes) method")
 
-    st_full = initial_state(value_grad, u0, cfg)
-    initial_cost = st_full.cost
-    levels = width_ladder(b, capacity)
-    level = 0
-    idx = torch.arange(b, device=u0.device)  # current-level lane -> original lane
-    st, lo, hi, vg = st_full, lower, upper, value_grad
-
-    def scatter(full: LMState, part: LMState) -> LMState:
-        return LMState(*(f.index_copy(0, idx, p) for f, p in zip(full, part)))
+    full = initial_state(value_grad, u0, cfg)
+    initial_cost = full.cost
+    widths = [b] + width_ladder(b, capacity)
+    k = 0
+    level = Level(full, lower, upper, value_grad, None)
 
     # Every active lane has run the same number of iterations, so the
     # per-lane cap iters < max_iterations is the loop bound itself.
     for it in range(cfg.max_iterations):
         if it % check_every == 0:
-            n_active = int((~st.done).sum())
+            n_active = active_count(level)
             if n_active == 0:
                 break
-            width = None
-            while level < len(levels) and n_active <= levels[level]:
-                width = levels[level]
-                level += 1
-            if width is not None:
-                # Scatter this level's state back, then compact: a stable sort
-                # puts the (<= width) active lanes first in original order; the
-                # tail beyond `width` is all done.
-                st_full = scatter(st_full, st)
-                take = torch.argsort(st.done.to(torch.uint8), stable=True)[:width]
-                idx = idx.index_select(0, take)
-                st = LMState(*(f.index_select(0, take) for f in st))
-                lo = lo.index_select(0, take)
-                hi = hi.index_select(0, take)
-                vg = vg.select(take)
+            k_new = next_level(widths, k, n_active)
+            if k_new != k:
+                full = scatter(full, level)
+                level = descend(level, widths[k_new])
+                k = k_new
         if width_log is not None:
-            width_log.append(st.u.shape[0])
+            width_log.append(widths[k])
+        vg, lo, hi = level.value_grad, level.lower, level.upper
         if linear_solve is default_linear_solve:
-            st = lm_iteration(vg, lo, hi, cfg, st)
+            st = lm_iteration(vg, lo, hi, cfg, level.state)
         else:
-            st, _ = lm_iteration_general(vg, lo, hi, cfg, linear_solve, None, st)
+            st, _ = lm_iteration_general(vg, lo, hi, cfg, linear_solve, None, level.state)
+        level = level._replace(state=st)
 
-    st_full = scatter(st_full, st)
-    return st_full.u, solve_stats(st_full, initial_cost)
+    full = scatter(full, level)
+    return full.u, solve_stats(full, initial_cost)

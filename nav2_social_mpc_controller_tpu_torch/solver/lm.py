@@ -178,6 +178,28 @@ def lm_iteration_general(value_grad: Callable, lower, upper, cfg: LMConfig, line
     return LMState(*state), aux
 
 
+def new_trace(u0, trace_len: int) -> LMTrace:
+    """An all-zero LMTrace of (B, trace_len) leaves for the batch of u0."""
+    b = u0.shape[0]
+    return LMTrace(
+        *(torch.zeros((b, trace_len), dtype=u0.dtype, device=u0.device) for _ in range(6)),
+        accepted=torch.zeros((b, trace_len), dtype=torch.bool, device=u0.device),
+    )
+
+
+def record_trace(trace: LMTrace, it: int, st: LMState, aux) -> None:
+    """Write iteration `it` (from state st, with commit's CommitAux) into
+    the trace in place. An active lane's iteration count is `it`: its row is
+    column min(it, T-1). Done lanes keep what the column holds."""
+    col = min(it, trace.cost.shape[1] - 1)
+    grad_max = st.g.abs().max(dim=1).values
+    for buf, v in zip(
+        trace,
+        (st.cost, aux.actual_change, grad_max, aux.step_norm, aux.rho, st.radius, aux.accept),
+    ):
+        buf[:, col] = torch.where(aux.active, v, buf[:, col])
+
+
 def jacobi_scale(jtj0):
     """Ceres' Jacobi column scale from J^T J at iteration 0 (B, D, D):
     s_i = 1 / (1 + ||J col_i||), ||J col_i||^2 being its diagonal."""
@@ -275,13 +297,7 @@ def lm_solve(
     # Jacobi scale frozen at iteration 0, as Ceres does.
     jac_scale = jacobi_scale(st.jtj) if cfg.jacobi_scaling else None
 
-    trace = None
-    if trace_len > 0:
-        b = u0.shape[0]
-        trace = LMTrace(
-            *(torch.zeros((b, trace_len), dtype=u0.dtype, device=u0.device) for _ in range(6)),
-            accepted=torch.zeros((b, trace_len), dtype=torch.bool, device=u0.device),
-        )
+    trace = new_trace(u0, trace_len) if trace_len > 0 else None
 
     # Every active lane has run the same number of iterations, so the
     # per-lane cap iters < max_iterations is the loop bound itself.
@@ -295,16 +311,7 @@ def lm_solve(
             value_grad, lower, upper, cfg, linear_solve, jac_scale, st
         )
         if trace is not None:
-            # An active lane's iteration count is `it`: its row is column
-            # clip(it, 0, T-1). Done lanes keep what the column holds.
-            col = min(it, trace_len - 1)
-            grad_max = st.g.abs().max(dim=1).values
-            for buf, v in zip(
-                trace,
-                (st.cost, aux.actual_change, grad_max, aux.step_norm, aux.rho, st.radius,
-                 aux.accept),
-            ):
-                buf[:, col] = torch.where(aux.active, v, buf[:, col])
+            record_trace(trace, it, st, aux)
         st = st_new
 
     stats = solve_stats(st, initial_cost)

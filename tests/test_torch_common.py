@@ -123,6 +123,33 @@ def assert_step_parity_f64(jax_side, torch_side, tick):
         assert (tcarry.plan_start > 0).all(), "the plan cursor must advance"
 
 
+def assert_trace_parity_f64(jax_side, torch_side):
+    """f64 on the CPU, the debug trace (aux.lm_trace of both sides): rows
+    within rtol 1e-6 (atol 1e-9 of the lane's initial cost, for the changes
+    near convergence that are differences of nearly equal costs), the
+    accept decisions equal, column 0 the initial cost, rows beyond a lane's
+    iteration count zero, every lane iterated and accepted a step."""
+    jtrace, trace = jax_side[1].lm_trace, torch_side[1].lm_trace
+    iters = torch_side[1].solve.iterations
+    assert trace.cost.shape == jtrace.cost.shape and trace.accepted.dtype == np.bool_
+    np.testing.assert_array_equal(trace.accepted, jtrace.accepted)
+    np.testing.assert_array_equal(trace.cost[:, 0], torch_side[1].solve.initial_cost)
+    scale = torch_side[1].solve.initial_cost[:, None]
+    for name in ("cost", "cost_change"):
+        np.testing.assert_allclose(
+            getattr(trace, name) / scale, getattr(jtrace, name) / scale, rtol=1e-6, atol=1e-9,
+            err_msg=name)
+    for name in ("grad_max", "step_norm", "tr_radius"):
+        np.testing.assert_allclose(
+            getattr(trace, name), getattr(jtrace, name), rtol=1e-6, atol=1e-9, err_msg=name)
+    big = np.abs(jtrace.cost_change) > 1e-6 * scale  # rho of a tiny change is noise over noise
+    np.testing.assert_allclose(trace.tr_ratio[big], jtrace.tr_ratio[big], rtol=1e-5)
+    beyond = np.arange(trace.cost.shape[1])[None, :] >= iters[:, None]
+    for buf in trace:
+        assert not buf[beyond].any()
+    assert (iters > 0).all() and trace.accepted.any(axis=1).all()
+
+
 def people_in_view(torch_side):
     """(B,) bool: scenarios whose FOV-filtered people (projection row 0)
     keep a valid person."""

@@ -6,12 +6,16 @@ their in-place copy-back (a remainder chunk where max_iterations is no
 multiple of check_every), the tail, the static input buffers and the cloned
 outputs. They must give the eager tick's results bit for bit, with any
 check_every, and outputs that alias neither each other nor the buffers; one
-float64 case is held against the JAX package's make_step_batch. The test
-marked ``gpu`` holds the captured tick against the eager tick on the card:
+float64 case is held against the JAX package's make_step_batch. The debug
+tick (debug_optimizer: the general iteration, a chunk per position, the
+trace) is held likewise, against the eager debug tick and the JAX step. The
+tests marked ``gpu`` hold the captured ticks against the eager ones on the
+card:
 
     python -m pytest tests/test_torch_graph_step.py -q --noconftest -p no:cacheprovider -m gpu
 """
 
+import dataclasses
 import functools
 import shutil
 
@@ -63,12 +67,19 @@ def _ticks(step, cfg, sc, poses, device="cpu"):
     return out
 
 
+def _bits(x):
+    """x as integers of its width: equal bits compare equal, NaN too (the
+    trace's rho is 0/0 where a lane's step changes nothing)."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
 def _assert_same_bits(got, want):
     g, w = tree_leaves(tuple(got)), tree_leaves(tuple(want))
     assert len(g) == len(w)
     for a, b in zip(g, w):
         assert a.dtype == b.dtype and a.shape == b.shape
-        assert torch.equal(a, b)
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,24 +161,75 @@ def _head(tree, n):
 
 
 def test_capture_is_decided_by_the_config():
-    """The debug trace and the latent critics run the eager tick, as does
-    capture=False; the four benchmark configs are capturable."""
-    import dataclasses
-
+    """The latent critics run the eager tick, as does capture=False; the
+    four benchmark configs are capturable, with the debug trace too."""
     for make_cfg in (C.benchmark_social_config, C.benchmark_obstacle_only_config,
                      C.benchmark_omni_6agents_config, C.benchmark_stress_h36_config):
-        assert graph.capturable(make_cfg())
+        assert graph.capturable(make_cfg()) and graph.capturable(_debug(make_cfg()))
+        assert isinstance(make_step_batch(_debug(make_cfg()), device="cpu").tick, graph.GraphTick)
     cfg = C.benchmark_social_config()
-    debug = dataclasses.replace(
-        cfg, optimizer=dataclasses.replace(cfg.optimizer, debug_optimizer=True))
     latent = dataclasses.replace(cfg, optimizer=dataclasses.replace(
         cfg.optimizer, weights=dataclasses.replace(cfg.optimizer.weights, pure_angle_weight=1.0)))
-    for c in (debug, latent):
-        assert not graph.capturable(c)
-        assert not isinstance(make_step_batch(c, device="cpu").tick, graph.GraphTick)
-        with pytest.raises(ValueError):
-            graph.GraphTick(c, "cpu")
-    assert not isinstance(make_step_batch(cfg, device="cpu", capture=False).tick, graph.GraphTick)
+    assert not graph.capturable(latent)
+    assert not isinstance(make_step_batch(latent, device="cpu").tick, graph.GraphTick)
+    with pytest.raises(ValueError):
+        graph.GraphTick(latent, "cpu")
+    for c in (cfg, _debug(cfg)):
+        assert not isinstance(make_step_batch(c, device="cpu", capture=False).tick,
+                              graph.GraphTick)
+
+
+def _debug(cfg):
+    return dataclasses.replace(
+        cfg, optimizer=dataclasses.replace(cfg.optimizer, debug_optimizer=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _eager_debug(name, batch, n_ticks):
+    cfg, sc, poses = _batch(name, batch)
+    return _ticks(make_step_batch(_debug(cfg), device="cpu", capture=False), cfg, sc,
+                  poses[:n_ticks])
+
+
+@pytest.mark.parametrize("name,batch,n_ticks", [("social", 8, 3), ("stress36", 2, 1)])
+def test_staged_debug_tick_equals_eager_debug_tick_bit_for_bit(name, batch, n_ticks):
+    """With debug_optimizer the staged tick runs the general iteration in
+    chunks, one per chunk position (their trace columns); with the carry fed
+    back it gives the eager debug tick's results bit for bit, the
+    (B, max_iterations) trace included, and those of the staged plain tick
+    (the general iteration repeats the default one's arithmetic)."""
+    cfg, sc, poses = _batch(name, batch)
+    step = make_step_batch(_debug(cfg), device="cpu")
+    assert isinstance(step.tick, graph.GraphTick) and step.tick.trace_len == 40
+    got = _ticks(step, cfg, sc, poses[:n_ticks])
+    want = _eager_debug(name, batch, n_ticks)
+    _assert_same_bits(got, want)
+    assert all(aux.lm_trace.cost.shape == (batch, 40) for _, aux, _ in got)
+    prog, = step.tick._programs.values()
+    assert sorted(prog.chunks) == list(range(5))  # 40 iterations, a check every 8
+    for (cmd, aux, carry), (cmd_p, aux_p, carry_p) in zip(got, _eager(name, batch, n_ticks)):
+        _assert_same_bits((cmd, aux._replace(lm_trace=None), carry), (cmd_p, aux_p, carry_p))
+    host = step.tick.host_launches
+    assert host["output_clones"] == 25 * n_ticks  # the plain tick's 18 and 7 trace leaves
+
+
+def test_staged_debug_tick_matches_jax_step_f64():
+    """float64: the staged debug tick against the JAX package's
+    make_step_batch with debug_optimizer, social B = 2, one tick, with
+    tests/test_torch_step_debug.py's tolerances (trace included)."""
+    from test_torch_common import assert_step_parity_f64, assert_trace_parity_f64, run_both
+
+    from nav2_social_mpc_controller_tpu.core.config import benchmark_social_config
+
+    def staged(cfg, device, dtype):
+        step = make_step_batch(cfg, device=device, dtype=dtype)
+        assert isinstance(step.tick, graph.GraphTick) and step.tick.trace_len > 0
+        return step
+
+    (jax_side, torch_side), = run_both(_debug(benchmark_social_config()), (3, 1), 1, np.float64,
+                                       keep_trace=True, make_tstep=staged)
+    assert_step_parity_f64(jax_side, torch_side, 0)
+    assert_trace_parity_f64(jax_side, torch_side)
 
 
 def test_staged_tick_matches_jax_step_f64():
@@ -216,3 +278,60 @@ def test_captured_tick_equals_eager_tick_on_the_card(card, name, batch, n_ticks)
     _assert_same_bits(outs[True], outs[False])
     assert counts[True] == counts[False]
     assert counts[True]["propose"] > 0 and counts[True]["sfm_scan"] == n_ticks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch,n_ticks", [("social", 64, 3), ("stress36", 16, 1)])
+def test_captured_debug_tick_equals_eager_debug_tick_on_the_card(card, name, batch, n_ticks):
+    """On the card the debug tick replays CUDA graphs too; its results equal
+    the eager debug tick's bit for bit, trace included, and the kernel
+    launch counts (K7's damped step, no K3 or K4) the eager tick's."""
+    cfg, sc, poses = _batch(name, batch, device=card)
+    counts = {}
+    outs = {}
+    for capture in (False, True):
+        step = make_step_batch(_debug(cfg), device=card, capture=capture)
+        assert step.captured == capture
+        _build.reset_launch_counts()
+        outs[capture] = _ticks(step, cfg, sc, poses[:n_ticks], device=card)
+        torch.cuda.synchronize()
+        counts[capture] = dict(_build.launch_counts)
+    _assert_same_bits(outs[True], outs[False])
+    assert counts[True] == counts[False]
+    assert counts[True]["spd_solve"] > 0 and counts[True]["propose"] == 0
+
+
+@pytest.mark.gpu
+def test_capture_holds_the_garbage_collector_off(card, monkeypatch):
+    """A dead captured step (its tick and programs refer to each other, so
+    only the cyclic collector frees them) collected during another capture
+    destroys its graphs mid-capture, which invalidates that capture; so
+    every capture of a staged tick runs with the collector held off, and
+    the step it captures equals the eager tick."""
+    import gc
+
+    cfg, sc, poses = _batch("social", 8, device=card)
+
+    def leave_a_dead_step():
+        _ticks(make_step_batch(cfg, device=card), cfg, sc, poses[:1], device=card)
+
+    leave_a_dead_step()
+    with pytest.raises(Exception, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            torch.ones(4, device=card).mul_(2)
+            gc.collect()  # the hazard itself
+    leave_a_dead_step()
+    seen = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, *args, **kwargs):
+        seen.append(gc.isenabled())
+        return begin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    step = make_step_batch(cfg, device=card)
+    got = _ticks(step, cfg, sc, poses[:1], device=card)
+    assert step.captured and len(seen) == 3 and not any(seen)  # head, chunk, tail
+    want = _ticks(make_step_batch(cfg, device=card, capture=False), cfg, sc, poses[:1],
+                  device=card)
+    _assert_same_bits(got, want)
