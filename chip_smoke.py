@@ -9,16 +9,18 @@ B = 4096 scenarios with 120x120 grids, three ticks with the warm-start carry
 fed back, then one tick each of the six-agent and the stress-horizon
 configurations at B = 1024 — and the general paths: the debug-trace tick
 (the general LM iteration, K7's damped step) on the social and the
-stress-horizon configurations, a Jacobi-scaled solve, a latent-critic
-tick (the autodiff residual path) and the compacted warm-start tick — through
+stress-horizon configurations, a Jacobi-scaled solve, the compacted
+warm-start tick and the latent-critic tick (the fused evaluation plus the
+latent rows' term) with and without the trace and compaction — through
 the nine hand-written CUDA kernels (an evaluation's rollout and costmap
 sample run as one, rollout_sample; every tick's trajectorizer, the port's own
 kernel, once), and checks them. ``make_step_batch`` (and with it
 ``make_step``, the controller, the simulator, the loop, the distributed step
 and the CLI) replays its tick as CUDA graphs on the card, the debug-trace
-tick too, and so does ``make_step_batch_compacted``; the ``graph``,
-``debug_tick`` and ``compacted_tick`` phases hold each against its eager tick
-(``capture=False``). The simulator replays
+tick and the latent-critic tick too, and so does
+``make_step_batch_compacted``; the ``graph``, ``debug_tick``,
+``compacted_tick`` and ``latent_tick`` phases hold each against its eager
+tick (``capture=False``). The simulator replays
 the world update of each simulated tick as one more graph; the ``sim`` phase
 holds it against its reference loop.
 Phases, each printing one JSON line:
@@ -71,10 +73,26 @@ Phases, each printing one JSON line:
   jacobi     the same prepared problems through lm_solve with Jacobi scaling
              (the damped step with the scale), and through a caller's
              linear_solve, bit for bit; launches and busy ms of both
-  latent_tick  social config with pure_angle_weight and curvature_weight,
-             B = 1024, one tick through the residual path (K1 launched by the
-             differentiable costmap sample, K2 never); and the residual
-             path's (cost, g, JtJ) against the fused path's
+  latent_evaluation  one evaluation of the social config with
+             pure_angle_weight 0.5 and curvature_weight 0.3 (the latent
+             critics), B = 1024: the latent evaluation (rollout_sample, K2,
+             the latent rows' term) against the residual path (D
+             forward-mode passes, the reference), and on the social config
+             the fused evaluation against it; its kernel launches; device
+             launches, busy and host ms of the latent and the residual
+             evaluation; device ms of the latent and fused evaluations and
+             of the latent term alone as CUDA graphs
+  latent_tick  that config's tick, social B = 1024 x 3 ticks and stress36
+             B = 1024 x 1 tick: captured equal to eager bit for bit with the
+             same launch counts (the default path's kernels, the standalone
+             K1 never); ms/tick of both in turns, device and host launches,
+             stage graphs, capture seconds, memory; social's first tick
+             against the same tick solved through the residual path (timed;
+             ROADMAP.md's fault rule); one robot (make_step, B = 1) bit for
+             bit over 8 seeds x 2 ticks and its warm tick min/p50/p90, the
+             captured p90 under 50 ms. Then the debug_tick phase on the
+             latent config at B = 1024 and the compacted_tick phase on it at
+             B = 4096
   compacted_tick  warm_start_mode="previous_solution", social B = 4096, 3
              ticks, and stress36 B = 1024, 1 tick: make_step_batch_compacted
              captured (graphs per rung of its width ladder) equal bit for bit
@@ -88,7 +106,8 @@ Phases, each printing one JSON line:
              seconds, the eager stages' breakdown, launches, memory (the
              eager tick's peak beside it)
   single_step  make_step (one robot, a batch of one) for the social,
-             obstacle, omni6 and stress36 configs, 8 seeds, 2 ticks each:
+             obstacle, omni6 and stress36 configs and the social one with
+             the latent critics, 8 seeds, 2 ticks each:
              command, status, LM iterations, termination and carry equal to
              the same scenario's lane of a B = 1024 tick bit for bit; the
              warm single-robot tick latency (min, p50, p90 on the host
@@ -1216,13 +1235,14 @@ KERNEL_INFO = {
 
 # Kernels of the default tick (K3/K4 iteration) and of the debug tick (general
 # iteration: K7 in place of K3/K4). An evaluation runs K6's rollout and K1's
-# sample as one launch, rollout_sample; the standalone K1 serves the latent
-# tick's residual path, and the standalone K6 is the reference rollout_sample
-# is held to. Every tick's head runs the trajectorizer once.
+# sample as one launch, rollout_sample, then K2; with the latent critics it
+# adds their rows' term, which launches none of these kernels. The standalone
+# K1 serves only the reference evaluation (the residual path), and the
+# standalone K6 is the reference rollout_sample is held to. Every tick's head
+# runs the trajectorizer once.
 DEFAULT_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "propose",
                         "commit")
 DEBUG_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "spd_solve")
-LATENT_PATH_KERNELS = ("trajectorize", "sfm_scan", "bicubic", "propose", "commit")
 
 
 def check_all_kernels(cfg, cap, reps):
@@ -2359,84 +2379,290 @@ def phase_jacobi(cfg, dev, sc, pose):
     return launches
 
 
-# The residual path's (cost, g, JtJ) against the fused path's, scale-normalised
-# per scenario: two float32 evaluations of the same fourth-power costs that
-# sum in other orders (a (B, R, D) Jacobian contracted by a matrix product
-# against per-step accumulation in K2's warps) and, in the people stages,
-# torch's exp/atan2 against CUDA's.
+# The residual path's (cost, g, JtJ) against the fused path's, and against
+# the latent evaluation's on the latent config, scale-normalised per scenario:
+# two float32 evaluations of the same fourth-power costs that sum in other
+# orders (a (B, R, D) Jacobian contracted by a matrix product against
+# per-step accumulation in K2's warps and the latent rows' own sums) and, in
+# the people stages, torch's exp/atan2 against CUDA's.
 RESIDUAL_VS_FUSED_TOL = 1e-4
+LATENT_WEIGHTS = {"pure_angle_weight": 0.5, "curvature_weight": 0.3}
+ONE_ROBOT_CEILING_MS = 50.0  # a tick at 20 Hz
 
 
-def phase_latent_tick(cfg, dev):
-    """A latent-critic tick: `cfg` with pure_angle_weight and curvature_weight
-    non-zero, B = 1024, one tick. The config cannot take the fused
-    evaluation, so the solve differentiates the residual function (forward
-    mode): K1 is launched through the differentiable costmap sample, K6 and
-    K2 never, K3/K4 run the iteration. Then, on `cfg` itself (which can
-    fuse), the residual path's (cost, g, JtJ) against the fused path's."""
-    from nav2_social_mpc_controller_tpu_torch import _build
-    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
-        make_carry, make_step_batch, step_pre,
-    )
+def latent_config(cfg):
+    return replace_optimizer(cfg, weights=LATENT_WEIGHTS)
+
+
+def residual_tick(cfg, scen, carry):
+    """The tick solved through the reference evaluation (the residual path,
+    ResidualValueGrad: D forward-mode passes over the whole residual stack):
+    step_pre, lm_solve, step_post. Returns (cmd, aux, carry')."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import step_post, step_pre
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
-        ProblemDims, ResidualValueGrad, build_residual_fn, build_value_grad,
+        ProblemDims, ResidualValueGrad, build_residual_fn, make_lm_config,
     )
-    from nav2_social_mpc_controller_tpu_torch.ops import fused_iter
-
-    batch = B_WIDE
-    lat = replace_optimizer(cfg, weights={"pure_angle_weight": 0.5, "curvature_weight": 0.3})
-    if fused_iter.can_fuse(lat) or not fused_iter.can_fuse(cfg):
-        fail("latent_tick: the configs do not sit on the two sides of can_fuse")
-    sc, poses = make_batch(lat, batch, dev, n_valid_people=lat.n_agents)
-    scen = with_pose(sc, poses[0])
-    step = make_step_batch(lat, device=dev)
-    _build.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cmd, aux, _ = step(scen, make_carry(lat, batch, device=dev))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
-    check_launches("latent_tick", launches, LATENT_PATH_KERNELS, ticks=1)
-    check_tick_outputs("latent_tick", lat, cmd, aux)
-    if aux.lm_trace is not None:
-        fail("latent_tick: a trace without debug_optimizer")
+    from nav2_social_mpc_controller_tpu_torch.solver.lm import lm_solve
 
     dims = ProblemDims.from_config(cfg)
     with torch.no_grad():
-        prep = step_pre(cfg, scen, make_carry(cfg, batch, device=dev)).prep
-        args = (cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present,
-                prep.costmap)
-        residual = ResidualValueGrad(build_residual_fn(*args), 2 * dims.n_blocks)(prep.u0)
-        fused = build_value_grad(cfg, prep)(prep.u0)
-        torch.cuda.synchronize()
-    # One evaluation of the residual path (D tangent passes) under the
-    # profiler; a tick makes one per LM iteration and one at the start.
+        ctx = step_pre(cfg, scen, carry)
+        prep = ctx.prep
+        vg = ResidualValueGrad(build_residual_fn(
+            cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present,
+            prep.costmap), 2 * dims.n_blocks)
+        u, stats = lm_solve(vg, prep.u0, prep.lower, prep.upper, make_lm_config(cfg.optimizer))
+        return step_post(cfg, ctx, carry, u, stats)
+
+
+def against_residual_tick(where, got, want):
+    """The fault rule of ROADMAP.md section 3 between a tick and the same
+    tick solved through the residual path: status and plan cursor equal; a
+    lane that stopped by a tolerance on both sides after the same number of
+    iterations within 1e-3 in its command. Cap-bound lanes (the iteration
+    cap on either side) chatter at float32 and tolerance stops at other
+    iteration counts branch apart: both are counted and printed."""
+    (cmd, aux), (cmd_r, aux_r) = got, want
+    if not torch.equal(aux.status, aux_r.status):
+        fail(f"{where}: status differs from the residual-path tick's")
+    if not torch.equal(aux.plan_start_index, aux_r.plan_start_index):
+        fail(f"{where}: plan cursor differs from the residual-path tick's")
+    delta = torch.maximum((cmd.linear_x - cmd_r.linear_x).abs(),
+                          (cmd.angular_z - cmd_r.angular_z).abs())
+    stopped = (aux.solve.termination != 0) & (aux_r.solve.termination != 0)
+    same = aux.solve.iterations == aux_r.solve.iterations
+    converged, apart, cap = stopped & same, stopped & ~same, ~stopped
+    worst = float(delta[converged].max()) if bool(converged.any()) else 0.0
+    if not worst <= 1e-3:
+        fail(f"{where}: a lane that stopped by a tolerance after the same number of "
+             f"iterations as on the residual-path tick differs by {worst:.3e} > 1e-3")
+
+    def share(mask):
+        return {"lanes": int(mask.sum()),
+                "delta_max": float(delta[mask].max()) if bool(mask.any()) else 0.0}
+
+    return {"cmd_delta_p50": float(delta.quantile(0.5)), "cmd_delta_max": float(delta.max()),
+            "share_within_1e-3": float((delta <= 1e-3).float().mean()),
+            "tolerance_stops_same_iterations": share(converged),
+            "tolerance_stops_other_iterations": share(apart), "cap_bound": share(cap),
+            "status_and_cursor_equal": True}
+
+
+def phase_latent_evaluation(cfg, dev, sc, pose):
+    """One evaluation of the latent config (LatentValueGrad: rollout_sample,
+    K2, the latent rows' term) at B = 1024 social problems: its (cost, g,
+    JtJ) against the residual path's (ResidualValueGrad) within
+    RESIDUAL_VS_FUSED_TOL, and on `cfg` (no latent critic) the residual
+    path's against the fused evaluation's; the kernel launches of one latent
+    evaluation (rollout_sample and K2 once each); device launches and busy
+    ms (torch.profiler) and host ms of the latent and the residual
+    evaluation; device ms of the latent, the fused evaluation and the
+    latent term alone, each replayed as a CUDA graph."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import (
+        ProblemDims, ResidualValueGrad, build_residual_fn, build_value_grad,
+    )
+    from nav2_social_mpc_controller_tpu_torch.ops import fused_iter, latent
+
+    lat = latent_config(cfg)
+    if fused_iter.can_fuse(lat) or not fused_iter.can_fuse(cfg):
+        fail("latent_evaluation: the configs do not sit on the two sides of can_fuse")
+    batch = pose.shape[0]
+    dims = ProblemDims.from_config(cfg)
+    scen = with_pose(sc, pose)
+    evals, errs = {}, {}
     with torch.no_grad():
-        prep_lat = step_pre(lat, scen, make_carry(lat, batch, device=dev)).prep
-        vg_lat = build_value_grad(lat, prep_lat)
+        for name, c in (("fused", cfg), ("latent", lat)):
+            prep = step_pre(c, scen, make_carry(c, batch, device=dev)).prep
+            args = (c, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present,
+                    prep.costmap)
+            evals[name] = (build_value_grad(c, prep), prep.u0)
+            evals[f"residual_{name}"] = (
+                ResidualValueGrad(build_residual_fn(*args), 2 * dims.n_blocks), prep.u0)
+        if not isinstance(evals["latent"][0], latent.LatentValueGrad):
+            fail("latent_evaluation: build_value_grad does not give the latent evaluation")
+        for name in ("fused", "latent"):
+            vg, u = evals[name]
+            ref, _ = evals[f"residual_{name}"]
+            errs[name] = [norm_err(a, b_)[0] for a, b_ in zip(ref(u), vg(u))]
+            if not max(errs[name]) <= RESIDUAL_VS_FUSED_TOL:
+                fail(f"latent_evaluation: the residual path and the {name} evaluation "
+                     f"(cost, g, JtJ) differ by {errs[name]} > {RESIDUAL_VS_FUSED_TOL}")
+        vg, u = evals["latent"]
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        vg_lat(prep_lat.u0)
+        _build.reset_launch_counts()
+        vg(u)
         torch.cuda.synchronize()
-        ms_eval = (time.perf_counter() - t0) * 1e3
-        n_dev, dev_ms, _ = count_device_launches(lambda: vg_lat(prep_lat.u0))
-    errs = [norm_err(a, b_)[0] for a, b_ in zip(residual, fused)]
-    if not max(errs) <= RESIDUAL_VS_FUSED_TOL:
-        fail(f"latent_tick: residual path vs fused path (cost, g, JtJ) differ by {errs} > "
-             f"{RESIDUAL_VS_FUSED_TOL}")
+        one = dict(_build.launch_counts)
+        if {k: n for k, n in one.items() if n} != {"rollout_sample": 1, "fused_iter": 1}:
+            fail(f"latent_evaluation: one latent evaluation launched {one}")
+        profiles = {}
+        for name in ("latent", "residual_latent"):
+            vg_n, u_n = evals[name]
+            n_dev, dev_ms, top = count_device_launches(lambda: vg_n(u_n))
+            profiles[name] = {"device_launches": n_dev, "device_busy_ms": dev_ms,
+                              "host_ms": time_host(lambda: vg_n(u_n), 3 if "residual" in name
+                                                   else 20), "top_device_kernels": top}
+        term_args = vg.latent_inputs(vg.fused_inputs(u))
+        graphs = {"latent": plain_graph(lambda: vg(u)),
+                  "fused": plain_graph(lambda: evals["fused"][0](evals["fused"][1])),
+                  "latent_term": plain_graph(lambda: latent.latent_cost_g_jtj(*term_args))}
+        device_ms = {name: time_cuda(g.replay, 20) for name, g in graphs.items()}
+        n_term, term_busy, _ = count_device_launches(graphs["latent_term"].replay)
     emit({
-        "phase": "latent_tick", "config": "social + pure_angle_weight 0.5 + curvature_weight 0.3",
-        "batch": batch, "ticks": 1, "launches": launches, "seconds_per_tick": seconds,
-        "evaluations_per_tick": launches["bicubic"] // (2 * dims.n_blocks),
-        "one_evaluation": {"ms": ms_eval, "device_launches": n_dev, "device_busy_ms": dev_ms},
-        "mean_lm_iterations": float(aux.solve.iterations.float().mean()),
-        "termination_counts": torch.bincount(aux.solve.termination.long(), minlength=6).tolist(),
-        "share_with_a_person_in_view": float(prep.people_present.float().mean()),
-        "residual_vs_fused_norm_err": {"cost": errs[0], "g": errs[1], "jtj": errs[2],
-                                       "tol": RESIDUAL_VS_FUSED_TOL},
+        "phase": "latent_evaluation", "config": "social + pure_angle_weight 0.5 + "
+        "curvature_weight 0.3", "batch": batch, "launches_one_evaluation": one,
+        "profiles": profiles, "graph_device_ms": device_ms,
+        "latent_term": {"device_launches": n_term, "device_busy_ms": term_busy,
+                        "share_of_latent_evaluation_device_ms":
+                            device_ms["latent_term"] / device_ms["latent"]},
+        "residual_vs_latent_norm_err": {"cost": errs["latent"][0], "g": errs["latent"][1],
+                                        "jtj": errs["latent"][2], "tol": RESIDUAL_VS_FUSED_TOL},
+        "residual_vs_fused_norm_err": {"cost": errs["fused"][0], "g": errs["fused"][1],
+                                       "jtj": errs["fused"][2], "tol": RESIDUAL_VS_FUSED_TOL},
     })
-    return launches
+
+
+def phase_latent_tick(cells, dev):
+    """The latent-critic tick (both latent critics on): make_step_batch's
+    default replays it as CUDA graphs, its evaluation the latent one. On
+    each of `cells` (name, latent cfg, scenario batch, per-tick poses), the
+    ticks with the carry fed back through the captured and the eager tick
+    (capture=False): every leaf bit for bit, the same launch counts, which
+    hold the default path's kernels (rollout_sample and K2 once an
+    evaluation, the standalone K1 never). Printed: evaluations a tick, ms a
+    tick of both in turns, device launches and busy ms of a tick, host
+    launches a tick, stage graphs, capture seconds, memory. On the first
+    cell its first tick is also solved through the residual path (the
+    tick's former evaluation, timed): held to ROADMAP.md's fault rule. Then
+    one robot (make_step, B = 1): SINGLE_STEP_SEEDS seeds x 2 ticks bit for
+    bit, and its warm tick min/p50/p90 of both in turns; the captured p90
+    must stay under ONE_ROBOT_CEILING_MS. Returns the first cell's captured
+    launch counts."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
+        make_carry, make_step, make_step_batch,
+    )
+
+    path_launches = None
+    for name, lat, sc, poses in cells:
+        batch = sc.robot.pose.shape[0]
+        where = f"latent_tick {name}"
+
+        def fresh():
+            return make_carry(lat, batch, device=dev)
+
+        steps, memory = {}, {}
+        for kind in ("captured", "eager"):  # the first tick captures the graphs
+            steps[kind], memory[kind] = step_memory(
+                lambda: make_step_batch(lat, device=dev, capture=kind == "captured"),
+                lambda step: run_ticks(step, sc, poses[:1], fresh()))
+        if not steps["captured"].captured or steps["eager"].captured:
+            fail(f"{where}: make_step_batch does not capture the latent tick on the card")
+        steps["captured"].tick.reset_host_launches()
+        runs, by_kind = {}, {}
+        for kind in ("captured", "eager"):
+            _build.reset_launch_counts()
+            runs[kind] = run_ticks(steps[kind], sc, poses, fresh())
+            by_kind[kind] = dict(_build.launch_counts)
+        host = host_launches_per_tick(steps["captured"].tick, len(poses))
+        outs, carry = runs["captured"]
+        for t, (got, want) in enumerate(zip(outs, runs["eager"][0])):
+            same_bits(f"{where} tick {t}", got, want, parts=("cmd", "aux"))
+            check_tick_outputs(f"{where} tick {t}", lat, *got)
+        same_bits(where, (carry,), (runs["eager"][1],), parts=("carry",))
+        if by_kind["captured"] != by_kind["eager"]:
+            fail(f"{where}: kernel launches {by_kind['captured']} captured, "
+                 f"{by_kind['eager']} eager")
+        launches = by_kind["captured"]
+        check_launches(where, launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
+        check_one_sample_per_evaluation(where, launches)
+        if launches["fused_iter"] != launches["propose"] + len(poses):
+            fail(f"{where}: {launches['fused_iter']} evaluations for {launches['propose']} LM "
+                 f"iterations in {len(poses)} ticks (one an iteration and one a tick)")
+        if path_launches is None:
+            path_launches = launches
+        ms = in_turns(steps, ("eager", "captured", "captured", "eager") * 2,
+                      lambda step: time_ticks(step, sc, poses, fresh, rounds=1))
+        profiles = {kind: profile_last_tick(step, sc, poses, fresh) for kind, step in steps.items()}
+        line = {
+            "phase": "latent_tick",
+            "config": f"{name} + pure_angle_weight 0.5 + curvature_weight 0.3",
+            "batch": batch, "ticks": len(poses), "launches": launches,
+            "evaluations_per_tick": launches["fused_iter"] / len(poses),
+            "captured_bit_equal_to_eager": True,
+            "ms_per_tick": {k: host_ms_stats(v) for k, v in ms.items()},
+            "device_launches_per_tick": {k: v[0] for k, v in profiles.items()},
+            "device_busy_ms_per_tick": {k: v[1] for k, v in profiles.items()},
+            "host_launches_per_tick": {"eager": profiles["eager"][0], "captured": host},
+            "host_operations": dict(steps["captured"].tick.host_launches),
+            "stage_device_ms": stage_device_ms(steps["captured"]),
+            "capture_s": steps["captured"].tick.capture_seconds, "memory": memory,
+            "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean())
+                                            for _, a in outs],
+            "termination_counts": [torch.bincount(a.solve.termination.long(),
+                                                  minlength=6).tolist() for _, a in outs],
+            "share_with_a_person_in_view": float(
+                (outs[0][1].people_proj[:, 1, :, 3] != -1.0).any(dim=1).float().mean()),
+        }
+        if name == cells[0][0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cmd_r, aux_r, _ = residual_tick(lat, with_pose(sc, poses[0]), fresh())
+            torch.cuda.synchronize()
+            line["residual_path_tick"] = {
+                "seconds": time.perf_counter() - t0,
+                "mean_lm_iterations": float(aux_r.solve.iterations.float().mean()),
+                "vs_captured_tick_0": against_residual_tick(where, outs[0], (cmd_r, aux_r))}
+        emit(line)
+        del steps, runs
+
+    # One robot: make_step of both against each other seed by seed, then
+    # its warm tick on the host clock in turns, riding its plan.
+    name, lat, _, _ = cells[0]
+    sc, poses = make_batch(lat, SINGLE_STEP_SEEDS, dev, n_valid_people=lat.n_agents)
+    steps = {"eager": make_step(lat, device=dev, capture=False),
+             "captured": make_step(lat, device=dev)}
+    if not steps["captured"].captured:
+        fail("latent_tick: make_step does not capture the latent tick on the card")
+    for i in range(SINGLE_STEP_SEEDS):
+        res = {}
+        for kind, step in steps.items():
+            carry, res[kind] = make_carry(lat, device=dev), []
+            for pose in poses[:2]:
+                cmd, aux, carry = step(lane(with_pose(sc, pose), i), carry)
+                res[kind].append((cmd, aux, carry))
+        for t, (got, want) in enumerate(zip(res["captured"], res["eager"])):
+            same_bits(f"latent_tick {name} B = 1 seed {i} tick {t}", got, want)
+    one = lane(sc, 0)
+    n_pts = int(one.path.n)
+    steps = {"eager": make_step(lat, device=dev, capture=False),
+             "captured": make_step(lat, device=dev)}
+    ms = {k: [] for k in steps}
+    for kind in ("eager", "captured", "captured", "eager") * 2:
+        carry = make_carry(lat, device=dev)
+        for k in range(30):
+            i = min(k, n_pts - 1)
+            scen = one._replace(robot=one.robot._replace(
+                pose=torch.cat([one.path.points[i], one.path.yaw[i:i + 1]])))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, carry = steps[kind](scen, carry)
+            torch.cuda.synchronize()
+            if k >= 5:
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+    stats = {k: host_ms_stats(v) for k, v in ms.items()}
+    emit({"phase": "latent_tick", "config": f"{name} + pure_angle_weight 0.5 + "
+          "curvature_weight 0.3, one robot (make_step, B = 1)",
+          "bit_equal_seeds": SINGLE_STEP_SEEDS, "ticks": 2, "host_ms": stats,
+          "ceiling_ms": ONE_ROBOT_CEILING_MS,
+          "capture_s": steps["captured"].tick.capture_seconds,
+          "stage_device_ms": stage_device_ms(steps["captured"])})
+    if not stats["captured"]["p90"] < ONE_ROBOT_CEILING_MS:
+        fail(f"latent_tick: one robot's captured latent tick takes {stats['captured']['p90']:.2f} "
+             f"ms at p90, not under {ONE_ROBOT_CEILING_MS} ms")
+    return path_launches
 
 
 WARM_TICKS = 10  # warm ticks of the compacted phase, under bench.py's pose perturbation
@@ -3326,13 +3552,23 @@ def main():
     launches_debug = phase_debug_tick("social", social, dev, sc, poses)
     phase_debug_tick("stress36", stress36, dev, sc36, poses36)
     launches_jacobi = phase_jacobi(social, dev, sc, poses[0])
-    launches_latent = phase_latent_tick(social, dev)
+    sc_lat, poses_lat = make_batch(social, B_WIDE, dev, n_valid_people=social.n_agents)
+    phase_latent_evaluation(social, dev, sc_lat, poses_lat[0])
+    launches_latent = phase_latent_tick(
+        [("social", latent_config(social), sc_lat, poses_lat),
+         ("stress36", latent_config(stress36), sc36, poses36)], dev)
+    launches_latent_debug = phase_debug_tick("social latent", latent_config(social), dev,
+                                             sc_lat, poses_lat)
+    del sc_lat
     launches_compacted = phase_compacted_tick(
         [("social", social, sc, poses), ("stress36", stress36, sc36, poses36)], dev)
+    launches_latent_compacted = phase_compacted_tick(
+        [("social latent", latent_config(social), sc, poses)], dev)
     phase_timing([("obstacle", obstacle, 0), ("social", social, social.n_agents)], dev)
     launches_single = phase_single_step(
         [("social", social, social.n_agents), ("obstacle", obstacle, 0),
-         ("omni6", omni6, omni6.n_agents), ("stress36", stress36, stress36.n_agents)], dev)
+         ("omni6", omni6, omni6.n_agents), ("stress36", stress36, stress36.n_agents),
+         ("social latent", latent_config(social), social.n_agents)], dev)
     launches_controller = phase_controller(social, dev)
     sc_native = phase_native(social, dev)
     launches_sim = phase_sim(social, dev, sc_native)
@@ -3347,17 +3583,20 @@ def main():
 
     # Every kernel at the social main path's shapes, inputs captured from a
     # real tick. `launches` is the count on the kernel's own paths: three
-    # social ticks, three debug ticks and the Jacobi-scaled solve for K7, one
-    # latent tick for the standalone K1; the standalone K6 runs on no path
-    # (an evaluation runs it inside rollout_sample, which is held to it).
+    # social ticks, three debug ticks and the Jacobi-scaled solve for K7; the
+    # standalone K6 and K1 run on no path (an evaluation runs both inside
+    # rollout_sample, which is held to them; K1 serves the reference
+    # evaluation, the residual path, alone).
     cap = capture_iteration(social, with_pose(sc, poses[0]), make_carry(social, B_MAIN, device=dev))
     res = check_all_kernels(social, cap, reps=200)
     by_path = {"social": launches, "obstacle": launches_obstacle, "debug": launches_debug,
                "jacobi": launches_jacobi, "latent": launches_latent,
+               "latent_debug": launches_latent_debug,
+               "latent_compacted": launches_latent_compacted,
                "compacted": launches_compacted, "single_step": launches_single,
                "controller": launches_controller, "sim": launches_sim,
                "stream": launches_stream, "distributed": launches_distributed}
-    own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": "latent",
+    own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": None,
                                              "rollout_prep": None}
     emit({"kernels": [
         {"name": k, **KERNEL_INFO[k], "path": own_path[k],

@@ -250,25 +250,24 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
     Scenarios may carry valid people (`AgentsState`, t != -1): the three
     people critics are on per scenario, for those that keep a valid person
     after the FOV filter. Every OptimizerConfig is accepted: the benchmark
-    critic sets take the fused evaluation (kernels K6, K1, K2), a config with
-    latent critics (pure_angle_weight / curvature_weight) the autodiff
-    residual path; debug_optimizer returns the per-iteration LMTrace as
-    aux.lm_trace and runs the general LM iteration (kernel K7);
-    warm_start_mode="previous_solution" starts each block from the previous
-    tick's optimum. The batch checks (obstacle- and
+    critic sets take the fused evaluation (the rollout-sample kernel, then
+    K2), a config with latent critics (pure_angle_weight / curvature_weight)
+    the same plus their rows' term (ops/latent.py); debug_optimizer returns
+    the per-iteration LMTrace as aux.lm_trace and runs the general LM
+    iteration (kernel K7); warm_start_mode="previous_solution" starts each
+    block from the previous tick's optimum. The batch checks (obstacle- and
     ESDF-window exactness against the ACTUAL grid resolutions) run once per
     distinct input buffer (identity-cached), so steady-state ticks that reuse
     scenario buffers pay no host synchronisation. ``validate=False`` opts
     out for callers that validated at construction (the built-in generators
     already do).
 
-    With ``capture`` (the default), a config whose solve takes the fused
-    evaluation (no latent critic: all four benchmark configs, with or
-    without debug_optimizer) gets the staged tick of controller/graph.py: on
-    CUDA recorded as CUDA graphs at the first call with each input signature
-    and replayed after, the port's counterpart of the JAX package's jax.jit;
-    on the CPU the same stages run as plain functions. ``capture=False``,
-    and a config with latent critics, runs the tick eagerly from Python, the
+    With ``capture`` (the default), every config (with or without
+    debug_optimizer or latent critics) gets the staged tick of
+    controller/graph.py: on CUDA recorded as CUDA graphs at the first call
+    with each input signature and replayed after, the port's counterpart of
+    the JAX package's jax.jit; on the CPU the same stages run as plain
+    functions. ``capture=False`` runs the tick eagerly from Python, the
     reference the graphs are held to. The returned step's ``captured`` says
     which runs."""
     dev = resolve_device(device)
@@ -276,8 +275,7 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
         # graph.py builds on this module's step_pre / step_post
         from nav2_social_mpc_controller_tpu_torch.controller import graph
 
-        if graph.capturable(cfg):
-            return _checked(cfg, dev, dtype, graph.GraphTick(cfg, dev), validate)
+        return _checked(cfg, dev, dtype, graph.GraphTick(cfg, dev), validate)
     return _checked(cfg, dev, dtype, lambda scenario, carry: step(cfg, scenario, carry),
                     validate)
 
@@ -355,22 +353,20 @@ def make_step_batch_compacted(cfg: SocialMPCConfig, capacity_frac: float = 0.25,
     capacity_frac * batch lanes. debug_optimizer is unsupported here (the
     per-iteration trace belongs to the plain loop).
 
-    With ``capture`` (the default), a config whose solve takes the fused
-    evaluation gets the staged tick of controller/graph_compacted.py: CUDA
-    graphs per rung of the ladder on the card, the counterpart of the JAX
-    package's jitted step; the same stages as plain functions on the CPU.
-    ``capture=False``, and a config with latent critics, runs the eager
-    tick (``CompactedTick``). The step's ``tick.width_log`` holds the widths
-    its last tick ran, ``captured`` whether it replays graphs."""
+    With ``capture`` (the default) it gets the staged tick of
+    controller/graph_compacted.py: CUDA graphs per rung of the ladder on the
+    card, the counterpart of the JAX package's jitted step; the same stages
+    as plain functions on the CPU. ``capture=False`` runs the eager tick
+    (``CompactedTick``). The step's ``tick.width_log`` holds the widths its
+    last tick ran, ``captured`` whether it replays graphs."""
     if cfg.optimizer.debug_optimizer:
         raise ValueError("compaction does not support debug_optimizer")
     dev = resolve_device(device)
     if capture:
-        from nav2_social_mpc_controller_tpu_torch.controller import graph, graph_compacted
+        from nav2_social_mpc_controller_tpu_torch.controller import graph_compacted
 
-        if graph.capturable(cfg):
-            return _checked(cfg, dev, dtype,
-                            graph_compacted.CompactedGraphTick(cfg, capacity_frac, dev), validate)
+        return _checked(cfg, dev, dtype,
+                        graph_compacted.CompactedGraphTick(cfg, capacity_frac, dev), validate)
     return _checked(cfg, dev, dtype, CompactedTick(cfg, capacity_frac), validate)
 
 

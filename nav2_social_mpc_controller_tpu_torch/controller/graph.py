@@ -8,9 +8,10 @@ replayed, in three stages split where the eager tick already waits for the
 device:
 
   head    ``step_pre`` (plan windowing, trajectorize, FOV filter, problem
-          assembly with the SFM projection, K5), the fused evaluation's
-          per-tick set-up (``build_value_grad``) and the LM state at u0 (the
-          first evaluation: rollout_sample, K2);
+          assembly with the SFM projection, K5), the evaluation's per-tick
+          set-up (``build_value_grad``) and the LM state at u0 (the first
+          evaluation: rollout_sample, K2, and with latent critics their
+          term, ops/latent.py);
   chunk   ``check_every`` default LM iterations (K3 -> rollout_sample -> K2
           -> K4 each) from the head's LM state, written back into it in
           place; between chunks the host asks whether every lane is done, at
@@ -81,19 +82,11 @@ from nav2_social_mpc_controller_tpu_torch.solver import lm
 from nav2_social_mpc_controller_tpu_torch.solver.batched import Level
 
 
-def capturable(cfg) -> bool:
-    """Whether make_step_batch (and make_step_batch_compacted) capture this
-    config's tick: its solve takes the fused evaluation, i.e. no latent
-    critic. With debug_optimizer the chunks run the general iteration and
-    write the trace. Decided from the config alone."""
-    return fused_iter.can_fuse(cfg)
-
-
 class TickHead(NamedTuple):
     """What the head stage leaves for the chunks and the tail."""
 
     ctx: StepContext
-    value_grad: fused_iter.ValueGrad
+    value_grad: fused_iter.ValueGrad  # or its subclass latent.LatentValueGrad
     state: lm.LMState  # updated in place by the chunks
     initial_cost: torch.Tensor
     trace: Optional[lm.LMTrace] = None  # zeroed by the head, written by the chunks
@@ -101,7 +94,7 @@ class TickHead(NamedTuple):
 
 def tick_head(cfg, lm_cfg, scenario: Scenario, carry: ControllerCarry,
               trace_len: int = 0) -> TickHead:
-    """step_pre, the fused evaluation's set-up, the LM state at u0 and, with
+    """step_pre, the evaluation's set-up, the LM state at u0 and, with
     trace_len > 0, a zeroed (B, trace_len) trace. The state's u and cost get
     tensors of their own: the chunks write into them, while prep.u0 and the
     initial cost must keep their values."""
@@ -314,11 +307,11 @@ def _read_leaves(scenario: Scenario) -> Scenario:
 
 class GraphTick:
     """tick(scenario, carry) -> (cmd, aux, carry'): make_step_batch's tick
-    for a config whose solve takes the fused evaluation (``capturable``),
-    staged as above; captured as CUDA graphs when `device` is CUDA, plain
-    functions on the CPU. The scenario and carry must lie on `device`. With
-    debug_optimizer the chunks run the general iteration and the tail
-    returns the (B, max_iterations) trace.
+    for any config, staged as above; captured as CUDA graphs when `device`
+    is CUDA, plain functions on the CPU. The scenario and carry must lie on
+    `device`. With debug_optimizer the chunks run the general iteration and
+    the tail returns the (B, max_iterations) trace; with latent critics the
+    evaluation in every stage is ops/latent.py's LatentValueGrad.
 
     ``check_every`` is lm_solve's: how often the host asks whether every
     lane is done (the results do not depend on it). ``capture_seconds``
@@ -331,11 +324,6 @@ class GraphTick:
     program = _ChunkProgram
 
     def __init__(self, cfg, device, check_every: int = lm.DEFAULT_CHECK_EVERY):
-        if not capturable(cfg):
-            raise ValueError(
-                "the staged tick runs the fused evaluation only: no latent critic "
-                "(pure_angle_weight / curvature_weight)"
-            )
         self.cfg = cfg
         self.lm_cfg = make_lm_config(cfg.optimizer)
         self.trace_len = cfg.optimizer.max_iterations if cfg.optimizer.debug_optimizer else 0

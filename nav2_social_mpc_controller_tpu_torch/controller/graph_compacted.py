@@ -8,8 +8,9 @@ the head and tail of controller/graph.py, with the compacted solver
 
   chunk       per rung and distinct chunk length n: n default LM
               iterations on the rung's static state, bounds and
-              ``ValueGrad.select``-ed data, written back in place (the
-              first rung is the head's full-width state);
+              ``ValueGrad.select``-ed data (``LatentValueGrad``'s with
+              latent critics), written back in place (the first rung is
+              the head's full-width state);
   transition  per pair of neighbouring rungs: the upper rung's state
               written back into the head's state at its lanes (``idx``),
               then the first W lanes of a stable sort of ``done`` gathered
@@ -103,10 +104,9 @@ class _CompactedProgram(_Program):
 
 class CompactedGraphTick(GraphTick):
     """tick(scenario, carry) -> (cmd, aux, carry'): make_step_batch_compacted's
-    tick for a config whose solve takes the fused evaluation, staged as
-    above; captured as CUDA graphs when `device` is CUDA, plain functions on
-    the CPU. capacity_frac sets the narrowest rung (batched.compacted_capacity);
-    the rest is GraphTick's."""
+    tick, staged as above; captured as CUDA graphs when `device` is CUDA,
+    plain functions on the CPU. capacity_frac sets the narrowest rung
+    (batched.compacted_capacity); the rest is GraphTick's."""
 
     program = _CompactedProgram
 

@@ -9,12 +9,13 @@ scenario with no valid person, emits its padding rows; the three people
 critics read the projection and are masked per scenario by
 ``people_present``.
 
-Two evaluations of the same residual stack feed the solver: the fused
-analytic one (ops/fused_iter.py: kernels K6, K1, K2), which covers exactly
-the benchmark critic set, and the autodiff one built here
-(``build_residual_fn`` + ``solver.lm.make_value_grad``), which the latent
-critics (AngleCost / CurvatureCost) need and which is the reference the fused
-path is pinned against.
+The solver's evaluation is the fused analytic one (ops/fused_iter.py: the
+rollout-sample kernel, then K2), which covers exactly the benchmark critic
+set; a config with latent critics (AngleCost / CurvatureCost) adds their
+rows' sums on the same rollout (ops/latent.py). The autodiff evaluation
+built here (``build_residual_fn`` + ``solver.lm.make_value_grad``, D
+forward-mode passes over the whole residual stack) is the reference both
+are pinned against; no entry point solves with it.
 
 Shape notes:
   * maxsize = round(max_time/time_step) (optimizer.cpp:492) is static; the
@@ -52,7 +53,7 @@ from nav2_social_mpc_controller_tpu_torch.models.motion import (
     rollout_poses,
 )
 from nav2_social_mpc_controller_tpu_torch.models.sfm import project_people
-from nav2_social_mpc_controller_tpu_torch.ops import fused_iter
+from nav2_social_mpc_controller_tpu_torch.ops import fused_iter, latent
 from nav2_social_mpc_controller_tpu_torch.solver.lm import LMConfig, lm_solve, make_value_grad
 from nav2_social_mpc_controller_tpu_torch.world.grid import crop_grid_window
 
@@ -165,7 +166,8 @@ class ResidualFn:
     The three people critics take their exact per-step partials
     (costs/critic_grads.py) as derivative rule; the costmap sample launches
     kernel K1 on the card (world/grid.py); the rollout is the prefix-sum
-    rollout_poses.
+    rollout_poses; the latent rows are ops/latent.py's ``latent_rows``,
+    which the solver's evaluation differentiates too.
     """
 
     def __init__(self, cfg, dims, rows, n_rows, people_proj, people_present, costmap):
@@ -207,7 +209,6 @@ class ResidualFn:
     def __call__(self, u_flat):
         cfg, dims = self.cfg, self.dims
         w = cfg.optimizer.weights
-        s = dims.s
         u = u_flat.reshape(-1, dims.n_blocks, 2)
         poses = rollout_poses(self.pose0, u, cfg.trajectorizer.time_step, self.block_idx)
         new_pos = poses[:, 1:, 0:2]
@@ -257,20 +258,7 @@ class ResidualFn:
                 w.obstacle_weight, poses[:, 1:], self.win, self.win_origin, self.resolution),
             self.step_mask,
         )
-        if w.pure_angle_weight != 0.0:
-            add(
-                critics.angle_cost(w.pure_angle_weight, new_pos, new_yaw, self.final_point),
-                self.step_mask,
-            )
-        if w.curvature_weight != 0.0 and s >= 2:
-            # Triplet i reads poses i, i+1, i+2: it is valid while step i+1 is.
-            add(
-                critics.curvature_cost(
-                    w.curvature_weight, w.curvature_max_angle,
-                    poses[:, :-2, 0:2], poses[:, 1:-1, 0:2], poses[:, 2:, 0:2],
-                ),
-                self.step_mask[:, 1:],
-            )
+        parts += latent.latent_rows(w, poses, self.final_point, self.step_mask)
 
         vf = critics.velocity_feasibility_cost(w.velocity_feasibility_weight, u, dims.n_vf)
         parts.append(torch.where(self.vf_mask, vf, torch.zeros_like(vf)))
@@ -287,7 +275,8 @@ def build_residual_fn(cfg, dims, rows, n_rows, people_proj, people_present, cost
 class ResidualValueGrad:
     """value_grad(u) -> (cost, g, jtj) by forward-mode differentiation of a
     ResidualFn (solver.lm.make_value_grad), restrictable to a set of lanes
-    like the fused ValueGrad."""
+    like the fused ValueGrad: the reference evaluation that the fused and
+    the latent ones (build_value_grad) are held to."""
 
     def __init__(self, residual_fn: ResidualFn, d: int):
         self.residual_fn = residual_fn
@@ -405,14 +394,14 @@ def optimize_prepare(
 
 def build_value_grad(cfg: SocialMPCConfig, prep: PreparedProblem):
     """The value_grad of a PreparedProblem: the fused analytic evaluation
-    when the config's critic set allows it, else forward-mode autodiff over
-    the residual function."""
+    for the benchmark critic set, and for a config with latent critics the
+    same plus the latent rows' term (ops/latent.py: LatentValueGrad)."""
     dims = ProblemDims.from_config(cfg)
     args = (cfg, dims, prep.rows, prep.n_rows, prep.people_proj, prep.people_present,
             prep.costmap)
     if fused_iter.can_fuse(cfg):
         return fused_iter.build_value_grad(*args)
-    return ResidualValueGrad(build_residual_fn(*args), 2 * dims.n_blocks)
+    return latent.LatentValueGrad(*args)
 
 
 def solve_prepared(cfg: SocialMPCConfig, prep: PreparedProblem):

@@ -48,8 +48,9 @@ _KERNEL_BLOCKS = (3, 6)  # NB values csrc/fused_iter.cu is instantiated for
 
 
 def can_fuse(cfg) -> bool:
-    """The fused path covers exactly the benchmark critic set; the latent
-    critics (AngleCost / CurvatureCost) need the autodiff residual path."""
+    """Whether the fused evaluation alone covers the config: exactly the
+    benchmark critic set. A config with latent critics (AngleCost /
+    CurvatureCost) adds their term to it (ops/latent.py)."""
     w = cfg.optimizer.weights
     return w.pure_angle_weight == 0.0 and w.curvature_weight == 0.0
 

@@ -212,8 +212,9 @@ def make_value_grad(residual_fn: Callable, d: int):
     by forward-mode differentiation of residual_fn(u (B, D)) -> r (B, R): D
     tangent passes over the whole batch (every scenario's column i at once),
     reduced immediately so the (B, R, D) Jacobian never enters the solver
-    loop. This is the REFERENCE evaluation and the one the latent critics
-    need; ops/fused_iter.py is the analytic path the benchmark configs take.
+    loop. This is the REFERENCE evaluation (controller/optimize.py:
+    ResidualValueGrad); the solver's own are ops/fused_iter.py's analytic
+    one and, with the latent critics, ops/latent.py's.
     The two contractions are plain float32/float64 matrix products (never
     TF32: nothing in this package enables it)."""
 

@@ -8,8 +8,10 @@ tail. They must give the eager compacted tick's results bit for bit in
 float64 and float32 (both gather the same lanes into the same widths), with
 the widths the eager solver ran, for a check that drops the active count
 past two rungs at once, for any check_every and for each input signature.
-The test marked ``gpu`` holds the captured compacted tick against the eager
-compacted tick and the captured plain tick on the card:
+The latent tick (both latent critics: rungs of LatentValueGrad.select-ed
+data) is held likewise. The tests marked ``gpu`` hold the captured compacted
+tick against the eager compacted tick and the captured plain tick on the
+card, and the captured compacted latent tick against the eager one:
 
     python -m pytest tests/test_torch_graph_compacted.py -q --noconftest -p no:cacheprovider -m gpu
 """
@@ -60,12 +62,13 @@ def _scenarios(batch, dtype, device="cpu"):
     return T.scenario_from_numpy(sc, device=device, dtype=dtype)
 
 
-def _ticks(step, batch, dtype, n_ticks=N_TICKS, device="cpu"):
+def _ticks(step, batch, dtype, n_ticks=N_TICKS, device="cpu", cfg=None):
     """[(cmd, aux, carry, width_log)] of n_ticks warm ticks with the carry fed
     back (the same poses: from the second tick on most lanes start near
-    their optimum and converge early)."""
+    their optimum and converge early); `cfg` sizes the carry (default
+    _warm_cfg())."""
     sc = _scenarios(batch, dtype, device)
-    carry = make_carry(_warm_cfg(), batch, device=device, dtype=dtype)
+    carry = make_carry(cfg or _warm_cfg(), batch, device=device, dtype=dtype)
     out = []
     for _ in range(n_ticks):
         cmd, aux, carry = step(sc, carry)
@@ -179,17 +182,17 @@ def test_a_program_per_input_signature():
 
 
 def test_compacted_capture_is_decided_by_the_config():
-    """A config with latent critics, and capture=False, run the eager
-    compacted tick; debug_optimizer is refused either way; a batch too
-    narrow for the capacity raises as the eager solver does."""
+    """Every config gets the staged compacted tick, one with latent critics
+    too; capture=False runs the eager compacted tick; debug_optimizer is
+    refused either way; a batch too narrow for the capacity raises as the
+    eager solver does."""
     cfg = _warm_cfg()
-    latent = dataclasses.replace(cfg, optimizer=dataclasses.replace(
-        cfg.optimizer, weights=dataclasses.replace(cfg.optimizer.weights, pure_angle_weight=1.0)))
-    assert isinstance(make_step_batch_compacted(latent, device="cpu").tick, CompactedTick)
-    assert isinstance(make_step_batch_compacted(cfg, device="cpu", capture=False).tick,
-                      CompactedTick)
-    with pytest.raises(ValueError):
-        CompactedGraphTick(latent, 0.25, "cpu")
+    latent = _latent(cfg)
+    for c in (cfg, latent):
+        assert isinstance(make_step_batch_compacted(c, device="cpu").tick, CompactedGraphTick)
+        assert isinstance(make_step_batch_compacted(c, device="cpu", capture=False).tick,
+                          CompactedTick)
+    assert isinstance(CompactedGraphTick(latent, 0.25, "cpu"), CompactedGraphTick)
     debug = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer,
                                                                    debug_optimizer=True))
     for capture in (False, True):
@@ -198,6 +201,36 @@ def test_compacted_capture_is_decided_by_the_config():
     with pytest.raises(ValueError, match="capacity"):
         _ticks(make_step_batch_compacted(cfg, 0.25, device="cpu", dtype=torch.float64),
                1, torch.float64, n_ticks=1)
+
+
+def _latent(cfg):
+    """cfg with both latent critics on."""
+    w = dataclasses.replace(cfg.optimizer.weights, pure_angle_weight=0.5, curvature_weight=0.3)
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, weights=w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_staged_compacted_latent_tick_equals_eager_bit_for_bit(dtype):
+    """With both latent critics the rungs hold LatentValueGrad.select-ed
+    data: over three warm ticks (B = 12 at capacity 0.25, ladder [6, 3]) the
+    staged compacted latent tick gives the eager compacted latent tick's
+    results and widths bit for bit, and descends the ladder. In float64 both
+    equal the plain latent tick's results (make_step_batch)."""
+    lat = _latent(_warm_cfg())
+    batch = 12
+    runs = {}
+    for kind, step in (
+            ("staged", make_step_batch_compacted(lat, 0.25, device="cpu", dtype=dtype)),
+            ("eager", make_step_batch_compacted(lat, 0.25, device="cpu", dtype=dtype,
+                                                capture=False))):
+        runs[kind] = _ticks(step, batch, dtype, cfg=lat)
+    for got, want in zip(runs["staged"], runs["eager"]):
+        _assert_same(got, want)
+    assert min(runs["staged"][-1][3]) < batch
+    if dtype == torch.float64:
+        plain = _ticks(make_step_batch(lat, device="cpu", dtype=dtype), batch, dtype, cfg=lat)
+        for got, want in zip(runs["staged"], plain):
+            _assert_same(got[:3] + (None,), want[:3] + (None,))
 
 
 @pytest.fixture
@@ -234,3 +267,26 @@ def test_captured_compacted_tick_on_the_card(card):
         _assert_same(got[:3] + (None,), plain[:3] + (None,))
     assert counts["captured"] == counts["eager"] and counts["captured"]["propose"] > 0
     assert min(runs["captured"][-1][3]) < batch
+
+
+@pytest.mark.gpu
+def test_captured_compacted_latent_tick_on_the_card(card):
+    """The compacted latent tick on the card: over three warm ticks the
+    captured one equals the eager one bit for bit, widths and kernel launch
+    counts included (rollout_sample and K2 once an evaluation, the
+    standalone K1 never)."""
+    lat = _latent(_warm_cfg())
+    batch, dtype = 256, torch.float32
+    runs, counts = {}, {}
+    for capture in (False, True):
+        step = make_step_batch_compacted(lat, device=card, capture=capture)
+        assert step.captured == capture
+        _build.reset_launch_counts()
+        runs[capture] = _ticks(step, batch, dtype, device=card, cfg=lat)
+        torch.cuda.synchronize()
+        counts[capture] = dict(_build.launch_counts)
+    for got, want in zip(runs[True], runs[False]):
+        _assert_same(got, want)
+    assert counts[True] == counts[False]
+    assert counts[True]["rollout_sample"] == counts[True]["fused_iter"] > 0
+    assert counts[True]["bicubic"] == 0

@@ -8,9 +8,10 @@ outputs. They must give the eager tick's results bit for bit, with any
 check_every, and outputs that alias neither each other nor the buffers; one
 float64 case is held against the JAX package's make_step_batch. The debug
 tick (debug_optimizer: the general iteration, a chunk per position, the
-trace) is held likewise, against the eager debug tick and the JAX step. The
-tests marked ``gpu`` hold the captured ticks against the eager ones on the
-card:
+trace) is held likewise, against the eager debug tick and the JAX step, and
+so is the latent tick (both latent critics, ops/latent.py's evaluation), with
+and without the trace, at B = 4 and through make_step at B = 1. The tests
+marked ``gpu`` hold the captured ticks against the eager ones on the card:
 
     python -m pytest tests/test_torch_graph_step.py -q --noconftest -p no:cacheprovider -m gpu
 """
@@ -161,20 +162,17 @@ def _head(tree, n):
 
 
 def test_capture_is_decided_by_the_config():
-    """The latent critics run the eager tick, as does capture=False; the
-    four benchmark configs are capturable, with the debug trace too."""
+    """Every config gets the staged tick: the four benchmark configs, with
+    the debug trace too, and a config with latent critics (its evaluation
+    ops/latent.py's LatentValueGrad), with the debug trace too; only
+    capture=False runs the eager tick."""
     for make_cfg in (C.benchmark_social_config, C.benchmark_obstacle_only_config,
                      C.benchmark_omni_6agents_config, C.benchmark_stress_h36_config):
-        assert graph.capturable(make_cfg()) and graph.capturable(_debug(make_cfg()))
-        assert isinstance(make_step_batch(_debug(make_cfg()), device="cpu").tick, graph.GraphTick)
+        for c in (make_cfg(), _debug(make_cfg()), _latent(make_cfg())):
+            assert isinstance(make_step_batch(c, device="cpu").tick, graph.GraphTick)
     cfg = C.benchmark_social_config()
-    latent = dataclasses.replace(cfg, optimizer=dataclasses.replace(
-        cfg.optimizer, weights=dataclasses.replace(cfg.optimizer.weights, pure_angle_weight=1.0)))
-    assert not graph.capturable(latent)
-    assert not isinstance(make_step_batch(latent, device="cpu").tick, graph.GraphTick)
-    with pytest.raises(ValueError):
-        graph.GraphTick(latent, "cpu")
-    for c in (cfg, _debug(cfg)):
+    for c in (cfg, _debug(cfg), _latent(cfg), _debug(_latent(cfg))):
+        assert isinstance(graph.GraphTick(c, "cpu"), graph.GraphTick)
         assert not isinstance(make_step_batch(c, device="cpu", capture=False).tick,
                               graph.GraphTick)
 
@@ -182,6 +180,73 @@ def test_capture_is_decided_by_the_config():
 def _debug(cfg):
     return dataclasses.replace(
         cfg, optimizer=dataclasses.replace(cfg.optimizer, debug_optimizer=True))
+
+
+def _latent(cfg, pure_angle_weight=0.5, curvature_weight=0.3):
+    """cfg with both latent critics on."""
+    w = dataclasses.replace(cfg.optimizer.weights, pure_angle_weight=pure_angle_weight,
+                            curvature_weight=curvature_weight)
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, weights=w))
+
+
+@functools.lru_cache(maxsize=None)
+def _eager_latent(name, batch, n_ticks, debug=False):
+    cfg, sc, poses = _batch(name, batch)
+    lat = _debug(_latent(cfg)) if debug else _latent(cfg)
+    return _ticks(make_step_batch(lat, device="cpu", capture=False), lat, sc, poses[:n_ticks])
+
+
+def test_staged_latent_tick_equals_eager_latent_tick_bit_for_bit():
+    """With both latent critics the staged tick runs ops/latent.py's
+    evaluation in its head and chunks; social B = 4 over two ticks with the
+    carry fed back, it gives the eager latent tick's results bit for bit,
+    and these differ from the tick without the latent critics."""
+    cfg, sc, poses = _batch("social", 4)
+    lat = _latent(cfg)
+    step = make_step_batch(lat, device="cpu")
+    assert isinstance(step.tick, graph.GraphTick) and not step.captured
+    got = _ticks(step, lat, sc, poses[:2])
+    _assert_same_bits(got, _eager_latent("social", 4, 2))
+    assert not torch.equal(got[0][0].angular_z, _eager("social", 4, 1)[0][0].angular_z)
+
+
+def test_single_robot_latent_tick_equals_eager_bit_for_bit():
+    """make_step (one robot, B = 1) with the latent critics: the staged
+    tick equals the eager one bit for bit, seed by seed, over two ticks."""
+    cfg, sc, poses = _batch("social", 2)
+    lat = _latent(cfg)
+    steps = {capture: make_step(lat, device="cpu", capture=capture) for capture in (False, True)}
+    assert isinstance(steps[True].tick, graph.GraphTick) and not steps[True].captured
+    for i in range(2):
+        res = {}
+        for capture, step in steps.items():
+            carry, res[capture] = make_carry(lat, device="cpu"), []
+            for pose in poses[:2]:
+                one = _lane(sc._replace(robot=sc.robot._replace(pose=pose)), i)
+                cmd, aux, carry = step(one, carry)
+                res[capture].append((cmd, aux, carry))
+        _assert_same_bits(res[True], res[False])
+
+
+def _lane(tree, i):
+    return type(tree)(*(_lane(x, i) if isinstance(x, tuple) else x[i] for x in tree))
+
+
+def test_staged_debug_latent_tick_equals_eager_bit_for_bit():
+    """debug_optimizer with the latent critics: the staged tick (the general
+    iteration in a chunk per position, the trace) equals the eager debug
+    latent tick bit for bit, trace included, and its results without the
+    trace equal the staged latent tick's (the general iteration repeats the
+    default one's arithmetic)."""
+    cfg, sc, poses = _batch("social", 4)
+    lat = _debug(_latent(cfg))
+    step = make_step_batch(lat, device="cpu")
+    assert isinstance(step.tick, graph.GraphTick) and step.tick.trace_len == 40
+    got = _ticks(step, lat, sc, poses[:2])
+    _assert_same_bits(got, _eager_latent("social", 4, 2, debug=True))
+    assert all(aux.lm_trace.cost.shape == (4, 40) for _, aux, _ in got)
+    for (cmd, aux, carry), plain in zip(got, _eager_latent("social", 4, 2)):
+        _assert_same_bits((cmd, aux._replace(lm_trace=None), carry), plain)
 
 
 @functools.lru_cache(maxsize=None)
@@ -299,6 +364,45 @@ def test_captured_debug_tick_equals_eager_debug_tick_on_the_card(card, name, bat
     _assert_same_bits(outs[True], outs[False])
     assert counts[True] == counts[False]
     assert counts[True]["spd_solve"] > 0 and counts[True]["propose"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch,n_ticks,debug", [
+    ("social", 64, 3, False), ("stress36", 16, 1, False), ("social", 64, 2, True)])
+def test_captured_latent_tick_equals_eager_latent_tick_on_the_card(card, name, batch, n_ticks,
+                                                                  debug):
+    """On the card the latent tick (both latent critics; with debug the
+    general iteration and its trace) replays CUDA graphs; its results equal
+    the eager latent tick's bit for bit and the kernel launch counts the
+    eager tick's: an evaluation launches rollout_sample once and K2 once,
+    the standalone K1 never. B = 1 through make_step likewise."""
+    cfg, sc, poses = _batch(name, batch, device=card)
+    lat = _debug(_latent(cfg)) if debug else _latent(cfg)
+    counts = {}
+    outs = {}
+    for capture in (False, True):
+        step = make_step_batch(lat, device=card, capture=capture)
+        assert step.captured == capture
+        _build.reset_launch_counts()
+        outs[capture] = _ticks(step, lat, sc, poses[:n_ticks], device=card)
+        torch.cuda.synchronize()
+        counts[capture] = dict(_build.launch_counts)
+    _assert_same_bits(outs[True], outs[False])
+    assert counts[True] == counts[False]
+    assert counts[True]["rollout_sample"] == counts[True]["fused_iter"] > 0
+    assert counts[True]["bicubic"] == 0 and counts[True]["rollout_prep"] == 0
+    if debug:
+        return
+    single = {}
+    for capture in (False, True):
+        step = make_step(lat, device=card, capture=capture)
+        assert step.captured == capture
+        carry, single[capture] = make_carry(lat, device=card), []
+        for pose in poses[:2]:
+            cmd, aux, carry = step(_lane(sc._replace(robot=sc.robot._replace(pose=pose)), 0),
+                                   carry)
+            single[capture].append((cmd, aux, carry))
+    _assert_same_bits(single[True], single[False])
 
 
 @pytest.mark.gpu

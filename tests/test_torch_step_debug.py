@@ -5,8 +5,9 @@ configuration, three ticks with the carry fed back.
 
 debug_optimizer=True runs the general LM iteration (the damped system solved
 by kernel K7's plain version) and returns the per-iteration LMTrace; a config
-with pure_angle_weight runs the autodiff residual path instead of the fused
-evaluation."""
+with pure_angle_weight adds the latent rows' term to the port's fused
+evaluation (ops/latent.py), where the JAX package differentiates its
+residual function."""
 
 import dataclasses
 import functools
@@ -83,9 +84,9 @@ def test_debug_step_equals_plain_step_bit_for_bit():
 
 @pytest.mark.parametrize("tick", range(N_TICKS))
 def test_latent_critic_step_parity_f64(tick):
-    """pure_angle_weight != 0: both packages leave the fused evaluation for
-    forward-mode autodiff over the residual function; same gate as every
-    other step test."""
+    """pure_angle_weight != 0: the JAX package leaves the fused evaluation
+    for forward-mode autodiff over the residual function, the port adds the
+    latent rows' term to it; same gate as every other step test."""
     jax_side, torch_side = _run("latent")[tick]
     assert_step_parity_f64(jax_side, torch_side, tick)
     assert torch_side[1].lm_trace is None
@@ -95,7 +96,7 @@ def test_latent_critic_step_parity_f64(tick):
 
 def test_curvature_critic_step_runs():
     """curvature_weight != 0 (with pure_angle_weight): the port solves the
-    tick through the residual path — usable, in bounds, and different from
+    tick with the latent rows' term — usable, in bounds, and different from
     the tick without the latent critics. (The JAX step raises a shape error
     for this config, so there is no reference to hold it against; the critic
     itself is held against the JAX function in test_torch_residual_path.)"""
