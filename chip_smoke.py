@@ -12,15 +12,18 @@ configurations at B = 1024 — and the general paths: the debug-trace tick
 stress-horizon configurations, a Jacobi-scaled solve, the compacted
 warm-start tick and the latent-critic tick (the fused evaluation plus the
 latent rows' term) with and without the trace and compaction — through
-the nine hand-written CUDA kernels (an evaluation's rollout and costmap
+the ten hand-written CUDA kernels (an evaluation's rollout and costmap
 sample run as one, rollout_sample; every tick's trajectorizer, the port's own
-kernel, once), and checks them. ``make_step_batch`` (and with it
-``make_step``, the controller, the simulator, the loop, the distributed step
-and the CLI) replays its tick as CUDA graphs on the card, the debug-trace
-tick and the latent-critic tick too, and so does
-``make_step_batch_compacted``; the ``graph``, ``debug_tick``,
-``compacted_tick`` and ``latent_tick`` phases hold each against its eager
-tick (``capture=False``). The simulator replays
+kernel, once; the LM loop's condition, lm_continue, the port's own too), and
+checks them. ``make_step_batch`` (and with it ``make_step``, the controller,
+the simulator, the loop, the distributed step and the CLI) launches its tick
+on the card as one CUDA graph whose LM solve is a conditional WHILE node
+(``controller/tick_graph.py``), the debug-trace tick and the latent-critic
+tick too; ``make_step_batch_compacted`` replays its stages as CUDA graphs
+between host checks. The ``graph``, ``debug_tick``, ``compacted_tick`` and
+``latent_tick`` phases hold each against its eager tick (``capture=False``),
+and the one-launch ones print their host launches, the loop's body runs
+(the device's counter) and the parent graph's nodes. The simulator replays
 the world update of each simulated tick as one more graph; the ``sim`` phase
 holds it against its reference loop.
 Phases, each printing one JSON line:
@@ -48,19 +51,22 @@ Phases, each printing one JSON line:
   main_path  one line per path: launch counts, status, bounds, cursor, the
              people projection; for the 3-tick paths agreement of 64
              scenarios with the port's plain path on the CPU in float32
-  graph      the captured tick against the eager tick on the four main
+  graph      the one-launch tick against the eager tick on the four main
              paths' batches (the carry fed back) and at B = 1 (make_step, 8
              seeds x 2 ticks): every output and the carry bit for bit, the
-             kernels' launch counts equal, the device kernels of a tick
-             counted by torch.profiler equal; host-side launches per tick of
-             both; the single-robot tick of both in turns; ms/tick at B =
+             kernels' launch counts equal (lm_continue the captured tick's
+             own), the device kernels of a tick counted by torch.profiler
+             equal but lm_continue's; host-side launches per tick of both
+             (one graph launch and no done check a tick), the loop's body
+             runs and the parent graph's nodes; the single-robot tick of both in turns; ms/tick at B =
              1024 and 4096 (obstacle, social) in turns, capture seconds,
              device memory; the device ms of each stage graph, and the
              trajectorizer's kernel beside its plain loop's own graph; the
              staged programs and the phase that holds each
   debug_tick social config with debug_optimizer=True, B = 4096, 3 ticks,
-             then stress36 (D = 12) at B = 1024, 1 tick: the captured debug
-             tick (a chunk graph per chunk position) equal to the eager one
+             then stress36 (D = 12) at B = 1024, 1 tick: the one-launch debug
+             tick (one loop body, the lanes' trace columns their own
+             iteration counts) equal to the eager one
              bit for bit, trace included, with the same launch counts; K7's
              damped step launched once per LM iteration run, K3/K4 never;
              the trace's invariants; every result equal to the plain tick's,
@@ -72,7 +78,8 @@ Phases, each printing one JSON line:
              memory
   jacobi     the same prepared problems through lm_solve with Jacobi scaling
              (the damped step with the scale), and through a caller's
-             linear_solve, bit for bit; launches and busy ms of both
+             linear_solve, bit for bit; launches and busy ms of both; on the
+             social (D = 6) and the stress36 (D = 12) batches
   latent_evaluation  one evaluation of the social config with
              pure_angle_weight 0.5 and curvature_weight 0.3 (the latent
              critics), B = 1024: the latent evaluation (rollout_sample, K2,
@@ -106,10 +113,12 @@ Phases, each printing one JSON line:
              seconds, the eager stages' breakdown, launches, memory (the
              eager tick's peak beside it)
   single_step  make_step (one robot, a batch of one) for the social,
-             obstacle, omni6 and stress36 configs and the social one with
-             the latent critics, 8 seeds, 2 ticks each:
-             command, status, LM iterations, termination and carry equal to
-             the same scenario's lane of a B = 1024 tick bit for bit; the
+             obstacle, omni6 and stress36 configs, the social one with
+             the latent critics and with the debug trace, 8 seeds, 2 ticks
+             each: command, status, LM iterations, termination, carry (and
+             the trace) equal to the same scenario's lane of a B = 1024
+             tick bit for bit; the loop's body runs and host operations a
+             tick; the
              warm single-robot tick latency (min, p50, p90 on the host
              clock, from tensors and from NumPy) and one profiled tick
   controller SocialMPCController over 6 ticks of a 12 m straight plan with
@@ -144,7 +153,8 @@ Phases, each printing one JSON line:
              process; beside it, multihost with NCCL and two ranks on the
              one card must fail the run
   kernels    every kernel at the social main path's shapes (inputs captured from a
-             real tick; the trajectorizer's, the tick's plan windows):
+             real tick; the trajectorizer's, the tick's plan windows;
+             lm_continue's, the LM state's done flags, in each of its roles):
              error vs the plain version against a stated
              tolerance, kernel / plain / library ms, the bound, launches (K7:
              its damped step with and without the Jacobi scale and its
@@ -155,8 +165,9 @@ Phases, each printing one JSON line:
 
 ``python3 chip_smoke.py --lm-sync-sweep`` runs, instead of the phases after
 ``build``, the one measurement behind the LM loop's ``DEFAULT_CHECK_EVERY``:
-ms/tick by how often the loop asks the device whether every lane is done, on
-the eager and on the captured tick, at B = 1, 1024 and 4096.
+ms/tick by how many LM iterations lie between two checks whether every lane
+is done: on the eager tick the host asks, on the one-launch tick lm_continue
+asks on the device at the end of each loop body; at B = 1, 1024 and 4096.
 
 Any failed check raises: the exit code is then not 0 and no ``ok`` line is
 printed. Without a CUDA device the script exits with code 1 at once. The last
@@ -648,10 +659,11 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # trajectorizer's kernel repeats its plain loop operation for operation with
 # round-to-nearest intrinsics and the functions ATen calls: its error is the
 # number of output elements whose bits differ from the plain version on the
-# card, tolerance 0.
+# card, tolerance 0. lm_continue counts and compares integers: its counters
+# and its condition must equal its plain version's, tolerance 0.
 TOL = {"sfm_scan": 1e-4, "rollout_prep": 1.0, "bicubic": 1e-5, "fused_iter": 1e-5,
        "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 0,
-       "rollout_sample": 0, "trajectorize": 0}
+       "rollout_sample": 0, "trajectorize": 0, "lm_continue": 0}
 K6_RTOL, K6_ATOL, K6_ATOL_ROWCOL = 2e-5, 1e-5, 2e-4
 
 
@@ -1231,6 +1243,12 @@ KERNEL_INFO = {
         "replaces": "nav2_social_mpc_controller_tpu/controller/trajectorizer.py:123 "
                     "(lax.scan, no Pallas kernel)", "kind": "the port's own kernel",
     },
+    "lm_continue": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tick_graph.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/lm.py:401 "
+                    "(the LM lax.while_loop's cond, no Pallas kernel)",
+        "kind": "the port's own kernel",
+    },
 }
 
 # Kernels of the default tick (K3/K4 iteration) and of the debug tick (general
@@ -1241,8 +1259,72 @@ KERNEL_INFO = {
 # standalone K6 is the reference rollout_sample is held to. Every tick's head
 # runs the trajectorizer once.
 DEFAULT_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "propose",
-                        "commit")
-DEBUG_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "spd_solve")
+                        "commit", "lm_continue")
+DEBUG_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "spd_solve",
+                      "lm_continue")
+# The one-launch tick's loop kernel: lm_continue runs only where the device
+# loops (make_step_batch's tick on the card), never on an eager tick
+# (capture=False) or in the compacted tick's host-checked chunks.
+LOOP_KERNEL = "lm_continue"
+
+
+def without_loop_names(by_name):
+    """{device kernel name: count} of a profile but the loop kernel's."""
+    return {k: n for k, n in by_name.items() if LOOP_KERNEL not in k}
+
+
+def without_loop(kernels):
+    """The kernels (names, or name -> launches) but the loop's own: what a
+    one-launch tick and an eager tick must share."""
+    if isinstance(kernels, dict):
+        return {k: n for k, n in kernels.items() if k != LOOP_KERNEL}
+    return tuple(k for k in kernels if k != LOOP_KERNEL)
+
+
+def check_lm_continue(lm_cfg, done, reps):
+    """lm_continue (outside a graph: it sets no loop's condition) against its
+    plain version on the card, on the LM state's done flags of a real tick
+    and on all-done flags, in every role the parent graph gives it: the
+    tick's first check, a body's end, the remainder loop's first check and
+    the check of a tick without checks. Error: the largest difference of
+    the counters and the condition; the bound: the B flags read once and
+    the counters read and written once (its compares are ~B operations)."""
+    from nav2_social_mpc_controller_tpu_torch.controller import tick_graph as K
+
+    b = done.shape[0]
+    m = lm_cfg.max_iterations
+    roles = [dict(reset=True, add=0, need=8, check_done=True, slot=-1),
+             dict(reset=False, add=8, need=8, check_done=True, slot=2),
+             dict(reset=False, add=0, need=m % 8 or 8, check_done=True, slot=-1),
+             dict(reset=False, add=8, need=m, check_done=False, slot=3)]
+    worst, calls = 0, 0
+    for flags in (done, torch.ones_like(done)):
+        for it0 in (0, 16, m - 8, m):
+            for role in roles:
+                res = []
+                for fn in (K.lm_continue, K.lm_continue_plain):
+                    stats = torch.tensor([it0, 5, 2, 1], dtype=torch.int64, device=done.device)
+                    out = torch.full((1,), 7, dtype=torch.int32, device=done.device)
+                    fn(flags, stats, out, max_iterations=m, **role)
+                    res.append(torch.cat([stats, out.long()]))
+                worst = max(worst, int((res[0] - res[1]).abs().max()))
+                calls += 1
+    torch.cuda.synchronize()
+    stats = torch.zeros(4, dtype=torch.int64, device=done.device)
+    out = torch.zeros(1, dtype=torch.int32, device=done.device)
+    bnd, by = bound(b + 3 * 8 * 2 + 4, float(b))
+    return {
+        "shape": f"B={b}", "calls_compared": calls,
+        "max_err": worst, "max_abs_err": worst, "tol": TOL["lm_continue"],
+        "ms": time_cuda(lambda: K.lm_continue(done, stats, out, max_iterations=m, **roles[1]),
+                        reps),
+        "host_ms": time_host(
+            lambda: K.lm_continue(done, stats, out, max_iterations=m, **roles[1]), reps),
+        "plain_ms": time_cuda(
+            lambda: K.lm_continue_plain(done, stats, out, max_iterations=m, **roles[1]), 3,
+            warm=1),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
 
 
 def check_all_kernels(cfg, cap, reps):
@@ -1256,6 +1338,7 @@ def check_all_kernels(cfg, cap, reps):
         "commit": check_commit(cap["lm_cfg"], cap["commit"], reps),
         "spd_solve": check_spd_solve(cap["lm_cfg"], cap, reps),
         "trajectorize": check_trajectorize(*cap["trajectorize"], reps),
+        "lm_continue": check_lm_continue(cap["lm_cfg"], cap["commit"][7], reps),
     }
     for name, r in out.items():
         if not r["max_err"] <= r["tol"]:
@@ -1559,6 +1642,7 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
     _build.reset_launch_counts()
     outs, carry = run_ticks(step, sc, poses, carry0)
     launches = dict(_build.launch_counts)
+    loops = loop_record(step)
 
     check_launches(name, launches, DEFAULT_PATH_KERNELS, ticks=n_ticks)
     check_one_sample_per_evaluation(name, launches)
@@ -1598,6 +1682,7 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
         "valid_people_per_scenario": n_valid_people, "share_with_a_person_in_view": with_people,
         "launches": launches, "launches_per_tick": {k: v / n_ticks for k, v in launches.items()},
         "mean_lm_iterations_per_tick": iters_mean, "termination_counts_last_tick": term,
+        "host_operations": dict(step.tick.host_launches), **loops,
     }
     if not compare_cpu:
         emit(line)
@@ -1701,13 +1786,78 @@ def is_copy(name):
     return name.lower().startswith(("memcpy", "memset")) or "direct_copy_kernel" in name
 
 
-def count_kernels_and_copies(fn):
+def one_launch_tick(step):
+    """The program of `step`'s last tick if that tick was one launch of a
+    parent graph (make_step_batch's on the card), else None."""
+    prog = getattr(getattr(step, "tick", None), "_last", None)
+    return prog if getattr(prog, "parent", None) is not None else None
+
+
+def one_launch_profile(step):
+    """(device kernels, device copies, busy ms, {kernel name: count}) of the
+    last tick of a one-launch `step`. torch.profiler (CUPTI) lists a
+    conditional WHILE node's body once however often it runs, so the tick
+    is composed: the head's, the tail's and each loop's chunk graph
+    profiled alone (replayed: the next tick rewrites every buffer before it
+    reads it), the chunks times their bodies' runs in that tick (the
+    device's counter), and lm_continue once a loop and once a body run
+    (its time, ~2 us a launch, not in the busy ms)."""
+    prog = one_launch_tick(step)
+    runs = prog.last_runs()
+    kernels = copies = 0
+    busy, by_name = 0.0, {}
+    stages = [("head", prog.head, 1), *(
+        (f"chunk_{n}", c, r) for n, c, r in zip(prog.lengths, prog.chunks, runs)),
+        ("tail", prog.tail, 1)]
+    for what, stage, times in stages:
+        k, c, ms, names = count_kernels_and_copies(stage.graph.replay, f"the {what} graph")
+        kernels, copies, busy = kernels + k * times, copies + c * times, busy + ms * times
+        for name, n in names.items():
+            by_name[name] = by_name.get(name, 0) + n * times
+    loop = len(runs) + sum(runs)
+    by_name[f"{LOOP_KERNEL}_kernel"] = loop
+    return kernels + loop, copies, busy, by_name
+
+
+def parent_graph_ms(step, reps=20):
+    """One launch of the last program's parent graph: its device ms, timed
+    as time_cuda times a kernel (the one-launch tick's device span from its
+    static inputs), and the host ms the launch call takes to return. The
+    launch counts owed by the device are settled first and its loop
+    counters left as they were."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+
+    prog = one_launch_tick(step)
+    _build.launch_counts.settle()
+    saved = prog.counter.stats.clone()
+    out = {"parent_graph_device_ms": time_cuda(prog.parent.launch, reps),
+           "parent_graph_launch_host_ms": time_host(prog.parent.launch, 5)}
+    prog.counter.stats.copy_(saved)
+    return out
+
+
+def tick_activity(step, run, top=8):
+    """count_device_launches of one tick run(), for a one-launch tick
+    composed by one_launch_profile (the top kernels then by count)."""
+    if one_launch_tick(step) is None:
+        return count_device_launches(run, top)
+    run()
+    torch.cuda.synchronize()
+    kernels, copies, busy, by_name = one_launch_profile(step)
+    most = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return kernels + copies, busy, [[name[:72], n, None] for name, n in most]
+
+
+def count_kernels_and_copies(fn, what="a call"):
     """(device kernels, device copies, busy ms, {kernel name: count}) of one
     call of fn(), from torch.profiler; fails if the profiler records no
-    device activity."""
-    rows = device_activity(fn)
-    if not rows:
-        fail("torch.profiler recorded no device activity")
+    device activity in three tries."""
+    for _ in range(3):
+        rows = device_activity(fn)
+        if rows:
+            break
+    else:
+        fail(f"torch.profiler recorded no device activity for {what}")
     by_name = {}
     for name, n, _ in rows:
         if not is_copy(name):
@@ -1772,7 +1922,7 @@ def phase_timing(configs, dev):
                 stages["solve"].append(ms)
                 ms, _ = sync_clock(lambda: step_post(cfg, ctx, carry_in, u, stats))
                 stages["tick_tail"].append(ms)
-        n_dev, dev_ms, top_kernels = count_device_launches(lambda: step(scen, carry_in))
+        n_dev, dev_ms, top_kernels = tick_activity(step, lambda: step(scen, carry_in))
         ms = float(np.mean(ticks))
         cells.append({
             "config": name, "batch": batch, "captured": step.captured,
@@ -1793,8 +1943,9 @@ def phase_timing(configs, dev):
 
 def phase_lm_sync_sweep(configs, dev, policies=(0, 1, 4, 8)):
     """ms/tick with lm_solve(check_every=k) for each k, on the eager tick and
-    on the captured tick (controller/graph.py's GraphTick with the same k,
-    whose chunks hold k iterations), timed in turns (forwards, backwards,
+    on the one-launch tick (controller/graph.py's GraphTick with the same k,
+    whose loop bodies hold k iterations, checked on the device), timed in
+    turns (forwards, backwards,
     forwards) so that no policy always runs first; at B = 1 (one robot),
     1024 and 4096. The results of a tick do not depend on k (done lanes are
     frozen bit for bit). `configs`: (name, cfg, valid people per scenario)."""
@@ -1809,14 +1960,16 @@ def phase_lm_sync_sweep(configs, dev, policies=(0, 1, 4, 8)):
     def eager_tick(cfg, k):
         dims = ProblemDims.from_config(cfg)
         lm_cfg = make_lm_config(cfg.optimizer)
+        t_len = lm_cfg.max_iterations if cfg.optimizer.debug_optimizer else 0
 
         def tick(scen, carry):
             ctx = step_pre(cfg, scen, carry)
             p = ctx.prep
             vg = build_value_grad(cfg, dims, p.rows, p.n_rows, p.people_proj, p.people_present,
                                   p.costmap)
-            u, stats = lm_solve(vg, p.u0, p.lower, p.upper, lm_cfg, check_every=k)
-            return step_post(cfg, ctx, carry, u, stats)
+            u, stats, *trace = lm_solve(vg, p.u0, p.lower, p.upper, lm_cfg, trace_len=t_len,
+                                        check_every=k)
+            return step_post(cfg, ctx, carry, u, stats, *trace)
         return tick
 
     cells = []
@@ -1846,6 +1999,8 @@ def phase_lm_sync_sweep(configs, dev, policies=(0, 1, 4, 8)):
                 "min_ms_per_tick": {str(k): float(np.min(v)) for k, v in ticks.items()},
                 "max_ms_per_tick": {str(k): float(np.max(v)) for k, v in ticks.items()},
             })
+            if mode == "captured":  # the device's counters, every round's ticks
+                cells[-1]["loop_body_runs"] = {str(k): s.body_runs for k, s in steps.items()}
     emit({"phase": "lm_sync_sweep", "ticks_per_policy": 9, "cells": cells})
 
 
@@ -1877,15 +2032,14 @@ GRAPH_TIMED_ROUNDS = 3
 
 def program_stages(step):
     """(name, stage) of every graph of the one program `step`'s captured
-    tick holds: head, the chunks (by length n, `chunk_{n}`; with the trace
-    by position i, `chunk_at_{i}`; compacted, by rung width W and length,
-    `chunk_{W}x{n}`), the compacted tick's transitions and scatters, tail."""
+    tick holds: head, the chunks (the loops' bodies by length n,
+    `chunk_{n}`; compacted, by rung width W and length, `chunk_{W}x{n}`),
+    the compacted tick's transitions and scatters, tail."""
     prog, = step.tick._programs.values()
     stages = [("head", prog.head)]
     widths = getattr(prog, "widths", None)
     if widths is None:
-        tag = "chunk_at_" if prog.tick.trace_len else "chunk_"
-        stages += [(f"{tag}{key}", c) for key, c in prog.chunks.items()]
+        stages += [(f"chunk_{n}", c) for n, c in zip(prog.lengths, prog.chunks)]
     else:
         for k, w in enumerate(widths):
             stages += [(f"chunk_{w}x{n}", c) for n, c in prog.chunks[k].items()]
@@ -1893,6 +2047,18 @@ def program_stages(step):
                 stages.append((f"transition_{w}_to_{widths[k + 1]}", prog.transitions[k]))
         stages += [(f"scatter_{w}", prog.scatters[k]) for k, w in enumerate(widths) if k]
     return stages + [("tail", prog.tail)]
+
+
+def loop_record(step):
+    """What the one-launch tick of `step` says of its last program: the LM
+    iterations of its last tick and the loops' body runs since the tick's
+    reset_host_launches (both read from the device counter), and the
+    parent graph's nodes, in all and by type (its own, its child graphs'
+    and its loops' bodies')."""
+    tick = step.tick
+    types = tick._last.parent.node_types()
+    return {"lm_iterations_last_tick": len(tick.width_log), "loop_body_runs": tick.body_runs,
+            "parent_graph_nodes": sum(types.values()), "parent_graph_node_types": types}
 
 
 def stage_device_ms(step, reps=20):
@@ -1924,27 +2090,32 @@ def trajectorize_alone(cfg, sc, pose, reps=20):
 
 
 def host_launches_per_tick(tick, n_ticks):
-    """What the host launched a tick for the captured tick: graph replays,
-    input copies, output clones, and per done check a reduction and a copy
-    to the host."""
+    """What the host launched a tick for the captured tick: graph launches,
+    input copies, output clones, and per done check (the compacted tick's
+    only) a reduction and a copy to the host."""
     h = tick.host_launches
     return (h["graph_replays"] + h["input_copies"] + h["output_clones"]
             + 2 * h["done_checks"]) / n_ticks
 
 
 def phase_graph(paths, dev):
-    """The captured tick (make_step_batch's default on the card, CUDA graphs
-    replayed) against the eager tick (capture=False), on the four configs.
+    """The one-launch tick (make_step_batch's default on the card: one
+    parent graph a tick, its LM solve a conditional WHILE node) against the
+    eager tick (capture=False), on the four configs.
 
     `paths`: (name, cfg, valid people, scenario batch, per-tick poses) at the
     main paths' shapes, the carry fed back: every output and the carry bit
-    for bit; the kernels' launch counts equal (a replay adds its capture's
-    tally); the device kernels of one tick, counted by torch.profiler, equal
-    (the captured tick adds copies only: inputs in, the LM state written
-    back, outputs cloned); host-side launches per tick of both. Then B = 1
-    (make_step), SINGLE_STEP_SEEDS seeds x 2 ticks each, bit for bit, and
-    the single-robot tick of both in turns; then ms/tick at B = 1024 and
-    4096 (obstacle, social) in turns, capture seconds and device memory."""
+    for bit; the kernels' launch counts equal but lm_continue's (the chunk's
+    tally times the bodies' runs, read from the device); the device kernels
+    of one tick equal but the eager loop's done-check reductions, which are
+    lm_continue's work in the one-launch tick (its kernels composed by
+    one_launch_profile: the profiler lists a WHILE body once); one graph
+    launch and no done check a tick; host-side launches per tick of both,
+    the loop's body runs, the parent graph's nodes, device ms and launch
+    host ms. Then B = 1 (make_step), SINGLE_STEP_SEEDS seeds x 2 ticks each,
+    bit for bit, and the single-robot tick of both in turns; then ms/tick at
+    B = 1024 and 4096 (obstacle, social) in turns, capture seconds and
+    device memory."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
         make_carry, make_step, make_step_batch,
@@ -1969,17 +2140,30 @@ def phase_graph(paths, dev):
             same_bits(f"graph {name} B = {batch} tick {t}", got, want)
         same_bits(f"graph {name} B = {batch}", (outs["captured"][1],), (outs["eager"][1],),
                   parts=("carry",))
-        if launches["captured"] != launches["eager"]:
+        if without_loop(launches["captured"]) != without_loop(launches["eager"]):
             fail(f"graph {name}: kernel launches {launches['captured']} captured, "
                  f"{launches['eager']} eager")
         check_launches(f"graph {name}", launches["captured"], DEFAULT_PATH_KERNELS,
                        ticks=len(poses))
         host = host_launches_per_tick(steps["captured"].tick, len(poses))
+        host_ops = dict(steps["captured"].tick.host_launches)
+        if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
+            fail(f"graph {name}: {host_ops} over {len(poses)} ticks, not one graph launch and "
+                 f"no done check a tick")
+        loops = loop_record(steps["captured"])
         carry = make_carry(cfg, batch, device=dev)
-        prof = {kind: count_kernels_and_copies(lambda: step(with_pose(sc, poses[0]), carry))
-                for kind, step in steps.items()}
-        if prof["captured"][3] != prof["eager"][3]:
-            got, want = prof["captured"][3], prof["eager"][3]
+        prof = {"eager": count_kernels_and_copies(
+            lambda: steps["eager"](with_pose(sc, poses[0]), carry))}
+        steps["captured"](with_pose(sc, poses[0]), carry)
+        torch.cuda.synchronize()
+        prof["captured"] = one_launch_profile(steps["captured"])
+        # the eager loop's done checks (a reduction each) are lm_continue's
+        # work in the one-launch tick
+        checks = {k: n for k, n in prof["eager"][3].items() if "and_kernel" in k}
+        loop_kernels = {k: n for k, n in prof["captured"][3].items() if LOOP_KERNEL in k}
+        eager_rest = {k: n for k, n in prof["eager"][3].items() if k not in checks}
+        if not loop_kernels or without_loop_names(prof["captured"][3]) != eager_rest:
+            got, want = prof["captured"][3], eager_rest
             diff = {k[:160]: [want.get(k, 0), got.get(k, 0)] for k in set(got) | set(want)
                     if got.get(k, 0) != want.get(k, 0)}
             fail(f"graph {name}: the profiler counts {prof['captured'][0]} device kernels in "
@@ -1995,8 +2179,10 @@ def phase_graph(paths, dev):
             "device_copies_one_tick": {k: v[1] for k, v in prof.items()},
             "device_busy_ms_one_tick": {k: v[2] for k, v in prof.items()},
             "host_launches_per_tick": {"eager": sum(prof["eager"][:2]), "captured": host},
-            "host_operations": dict(steps["captured"].tick.host_launches),
-            "capture_s": steps["captured"].tick.capture_seconds,
+            "host_operations": host_ops, "lm_continue_kernels_one_tick": loop_kernels,
+            "eager_done_check_reductions_one_tick": checks,
+            **parent_graph_ms(steps["captured"]),
+            **loops, "capture_s": steps["captured"].tick.capture_seconds,
         })
         del steps, outs
 
@@ -2038,6 +2224,7 @@ def phase_graph(paths, dev):
             if k >= 5:
                 ms[kind].append((time.perf_counter() - t0) * 1e3)
     one_robot = {"config": name, **{k: host_ms_stats(v) for k, v in ms.items()},
+                 **loop_record(steps["captured"]),
                  "stage_device_ms": stage_device_ms(steps["captured"]),
                  "trajectorize": trajectorize_alone(cfg, sc, sc.robot.pose)}
     del steps
@@ -2069,8 +2256,11 @@ def phase_graph(paths, dev):
 # The staged programs the card replays, and the phase that holds each
 # against its eager tick (each of those phases prints its stage graphs).
 GRAPH_PROGRAMS = {
-    "make_step_batch": {"stages": "head, chunk_{n}, tail", "phase": "graph"},
-    "make_step_batch + debug_optimizer": {"stages": "head, chunk_at_{i}, tail",
+    "make_step_batch": {"stages": "head, chunk_{n}, tail", "launch":
+                        "one parent graph: head, WHILE {chunk_{n}, lm_continue}, tail",
+                        "phase": "graph"},
+    "make_step_batch + debug_optimizer": {"stages": "head, chunk_{n}, tail",
+                                          "launch": "one parent graph, as above",
                                           "phase": "debug_tick"},
     "make_step_batch_compacted": {
         "stages": "head, chunk_{W}x{n}, transition_{W}_to_{W'}, scatter_{W}, tail",
@@ -2126,7 +2316,7 @@ def profile_last_tick(step, sc, poses, fresh_carry):
     from torch.profiler."""
     carry = run_ticks(step, sc, poses[:-1], fresh_carry())[1]
     scen = with_pose(sc, poses[-1])
-    n_dev, dev_ms, _ = count_device_launches(lambda: step(scen, carry))
+    n_dev, dev_ms, _ = tick_activity(step, lambda: step(scen, carry))
     return n_dev, dev_ms
 
 
@@ -2209,8 +2399,9 @@ def general_solve_vs_composition(where, cfg, lm_cfg, dev, sc, pose, trace_len):
 def phase_debug_tick(name, cfg, dev, sc, poses):
     """The debug-trace tick at full width: `cfg` with debug_optimizer=True on
     the batch the main path solved, the main path's ticks with the carry fed
-    back. make_step_batch's default replays it as CUDA graphs (a chunk graph
-    per chunk position, writing its iterations' trace columns); the eager
+    back. make_step_batch's default launches it as one CUDA graph a tick
+    (one loop body, whose lanes write the trace columns of their own
+    iteration counts); the eager
     debug tick (capture=False) runs the same ticks: every leaf, the trace
     included, equal bit for bit, and the same launch counts. The general LM
     iteration launches K7's damped step once per iteration the loop runs and
@@ -2255,10 +2446,14 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
     for t, (got, want) in enumerate(zip(outs, runs["eager"][0])):
         same_bits(f"{where} tick {t}", got, want, parts=("cmd", "aux"))
     same_bits(where, (carry,), (runs["eager"][1],), parts=("carry",))
-    if by_kind["captured"] != by_kind["eager"]:
+    if without_loop(by_kind["captured"]) != without_loop(by_kind["eager"]):
         fail(f"{where}: kernel launches {by_kind['captured']} captured, {by_kind['eager']} eager")
     launches = by_kind["captured"]
     check_launches(where, launches, DEBUG_PATH_KERNELS, ticks=len(poses))
+    if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
+        fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch and no done "
+             f"check a tick")
+    loops = loop_record(steps["captured"])
     check_one_sample_per_evaluation(where, launches)
 
     ran = sum(loop_iterations(aux.solve.iterations, t_len) for _, aux in outs)
@@ -2316,7 +2511,8 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
         "lm_loop_iterations_last_tick": ran_last,
         "device_launches_per_loop_iteration_last_tick": {
             k: None if v[0] is None else v[0] / ran_last for k, v in profiles.items()},
-        "host_launches_per_tick": host, "host_operations": host_ops,
+        "host_launches_per_tick": host, "host_operations": host_ops, **loops,
+        **parent_graph_ms(steps["captured"]),
         "stage_device_ms": stage_device_ms(steps["captured"]),
         "capture_s": steps["captured"].tick.capture_seconds, "memory": memory,
         "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean()) for _, a in outs],
@@ -2327,13 +2523,14 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
     return launches
 
 
-def phase_jacobi(cfg, dev, sc, pose):
+def phase_jacobi(name, cfg, dev, sc, pose):
     """A Jacobi-scaled solve of the prepared problems of one tick
     (LMConfig(jacobi_scaling=True) through lm_solve: the general iteration,
     K7's damped step with the scale, once per loop iteration), beside the
     unscaled general solve; and the same scaled solve through a caller's
     linear_solve (K7's standalone solve in the plain composition), which must
-    give the same bits. Gated: all lanes usable, the solution inside its box.
+    give the same bits; on `name`'s config (social: D = 6, stress36: D = 12).
+    Gated: all lanes usable, the solution inside its box.
     The share of lanes with the unscaled solve's iteration count is printed,
     not gated (scaling is a no-op only where the diagonal clamp binds in
     neither space, and cap-bound lanes chatter at float32). Returns the
@@ -2348,7 +2545,7 @@ def phase_jacobi(cfg, dev, sc, pose):
     lm_cfg = make_lm_config(cfg.optimizer)
     jac_cfg = lm_cfg._replace(jacobi_scaling=True)
     launches, ran, vs_caller, (u_jac, s_jac) = general_solve_vs_composition(
-        "jacobi", cfg, jac_cfg, dev, sc, pose, 0)
+        f"jacobi {name}", cfg, jac_cfg, dev, sc, pose, 0)
     with torch.no_grad():
         prep = step_pre(cfg, with_pose(sc, pose), make_carry(cfg, batch, device=dev)).prep
         vg = build_value_grad(cfg, prep)
@@ -2356,17 +2553,17 @@ def phase_jacobi(cfg, dev, sc, pose):
                                    trace_len=lm_cfg.max_iterations)
         torch.cuda.synchronize()
     if launches["spd_solve"] != ran:
-        fail(f"jacobi: spd_solve launched {launches['spd_solve']} times, the loop ran {ran}")
+        fail(f"jacobi {name}: spd_solve launched {launches['spd_solve']} times, the loop ran {ran}")
     if launches["propose"] or launches["commit"]:
-        fail("jacobi: the scaled solve went through propose/commit")
+        fail(f"jacobi {name}: the scaled solve went through propose/commit")
     if not bool(s_jac.usable.all()):
-        fail(f"jacobi: {int((~s_jac.usable).sum())} lanes unusable")
+        fail(f"jacobi {name}: {int((~s_jac.usable).sum())} lanes unusable")
     if not bool((torch.isfinite(u_jac) & (u_jac >= prep.lower) & (u_jac <= prep.upper)).all()):
-        fail("jacobi: a solution left its box")
+        fail(f"jacobi {name}: a solution left its box")
     delta = (u_jac - u_gen).abs().max(dim=1).values
     emit({
-        "phase": "jacobi", "batch": batch, "launches_spd_solve": launches["spd_solve"],
-        "launches": launches,
+        "phase": "jacobi", "config": name, "batch": batch, "d": int(u_jac.shape[1]),
+        "launches_spd_solve": launches["spd_solve"], "launches": launches,
         "mean_lm_iterations": {"scaled": float(s_jac.iterations.float().mean()),
                                "unscaled": float(s_gen.iterations.float().mean())},
         "share_same_iteration_count": float((s_jac.iterations == s_gen.iterations).float().mean()),
@@ -2526,7 +2723,8 @@ def phase_latent_evaluation(cfg, dev, sc, pose):
 
 def phase_latent_tick(cells, dev):
     """The latent-critic tick (both latent critics on): make_step_batch's
-    default replays it as CUDA graphs, its evaluation the latent one. On
+    default launches it as one CUDA graph a tick, its evaluation the latent
+    one. On
     each of `cells` (name, latent cfg, scenario batch, per-tick poses), the
     ticks with the carry fed back through the captured and the eager tick
     (capture=False): every leaf bit for bit, the same launch counts, which
@@ -2572,12 +2770,17 @@ def phase_latent_tick(cells, dev):
             same_bits(f"{where} tick {t}", got, want, parts=("cmd", "aux"))
             check_tick_outputs(f"{where} tick {t}", lat, *got)
         same_bits(where, (carry,), (runs["eager"][1],), parts=("carry",))
-        if by_kind["captured"] != by_kind["eager"]:
+        if without_loop(by_kind["captured"]) != without_loop(by_kind["eager"]):
             fail(f"{where}: kernel launches {by_kind['captured']} captured, "
                  f"{by_kind['eager']} eager")
         launches = by_kind["captured"]
         check_launches(where, launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
         check_one_sample_per_evaluation(where, launches)
+        host_ops = dict(steps["captured"].tick.host_launches)
+        if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
+            fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch and no "
+                 f"done check a tick")
+        loops = loop_record(steps["captured"])
         if launches["fused_iter"] != launches["propose"] + len(poses):
             fail(f"{where}: {launches['fused_iter']} evaluations for {launches['propose']} LM "
                  f"iterations in {len(poses)} ticks (one an iteration and one a tick)")
@@ -2596,7 +2799,8 @@ def phase_latent_tick(cells, dev):
             "device_launches_per_tick": {k: v[0] for k, v in profiles.items()},
             "device_busy_ms_per_tick": {k: v[1] for k, v in profiles.items()},
             "host_launches_per_tick": {"eager": profiles["eager"][0], "captured": host},
-            "host_operations": dict(steps["captured"].tick.host_launches),
+            "host_operations": host_ops, **loops,
+            **parent_graph_ms(steps["captured"]),
             "stage_device_ms": stage_device_ms(steps["captured"]),
             "capture_s": steps["captured"].tick.capture_seconds, "memory": memory,
             "mean_lm_iterations_per_tick": [float(a.solve.iterations.float().mean())
@@ -2656,7 +2860,7 @@ def phase_latent_tick(cells, dev):
     emit({"phase": "latent_tick", "config": f"{name} + pure_angle_weight 0.5 + "
           "curvature_weight 0.3, one robot (make_step, B = 1)",
           "bit_equal_seeds": SINGLE_STEP_SEEDS, "ticks": 2, "host_ms": stats,
-          "ceiling_ms": ONE_ROBOT_CEILING_MS,
+          "ceiling_ms": ONE_ROBOT_CEILING_MS, **loop_record(steps["captured"]),
           "capture_s": steps["captured"].tick.capture_seconds,
           "stage_device_ms": stage_device_ms(steps["captured"])})
     if not stats["captured"]["p90"] < ONE_ROBOT_CEILING_MS:
@@ -2752,7 +2956,9 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
 
         res = held(poses, "main")
         launches = res["captured"][2]
-        check_launches(where, launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
+        # the compacted tick keeps its host checks between chunks: no loop on
+        # the device, no lm_continue
+        check_launches(where, launches, without_loop(DEFAULT_PATH_KERNELS), ticks=len(poses))
         check_one_sample_per_evaluation(where, launches)
         host = {kind: host_launches_per_tick(steps[kind].tick, len(poses))
                 for kind in ("captured", "plain")}
@@ -2868,19 +3074,25 @@ def phase_single_step(configs, dev):
                 }
                 pairs.update({f"carry.{f}": (x, y[i])
                               for f, x, y in zip(carry._fields, carry, carry_w)})
+                if aux.lm_trace is not None:  # the debug tick: its trace too
+                    pairs.update({f"lm_trace.{f}": (x, y[i]) for f, x, y in
+                                  zip(aux.lm_trace._fields, aux.lm_trace, aux_w.lm_trace)})
                 for what, (x, y) in pairs.items():
-                    if not torch.equal(x, y):
+                    if bits_differ([x], [y]) != 0:
                         fail(f"single_step {name}: seed {i} tick {t}: {what} of the B = 1 tick "
                              f"differs from its lane of the B = {B_WIDE} tick")
         torch.cuda.synchronize()
         got = dict(_build.launch_counts)
-        check_launches(f"single_step {name}", got, DEFAULT_PATH_KERNELS,
+        debug = cfg.optimizer.debug_optimizer
+        check_launches(f"single_step {name}", got,
+                       DEBUG_PATH_KERNELS if debug else DEFAULT_PATH_KERNELS,
                        ticks=SINGLE_STEP_SEEDS * len(poses))
         check_one_sample_per_evaluation(f"single_step {name}", got)
         for k, v in got.items():
             launches[k] += v
         cells.append({"config": name, "seeds": SINGLE_STEP_SEEDS, "ticks": len(poses),
-                      "wide_batch": B_WIDE, "bit_equal": True, "launches": got})
+                      "wide_batch": B_WIDE, "bit_equal": True, "trace_compared": debug,
+                      "launches": got, **loop_record(step)})
 
     # Latency of one robot's warm tick (social), the carry fed back, the
     # robot riding its plan; from tensors already on the card, then from
@@ -2916,7 +3128,10 @@ def phase_single_step(configs, dev):
         return one_np._replace(robot=one_np.robot._replace(pose=ride(k).cpu().numpy()))
 
     timed(from_tensors, 8)  # warm-up
+    step.tick.reset_host_launches()
     ms_t, iters_t = timed(from_tensors, SINGLE_STEP_TIMED_TICKS)
+    host_t = {k: v / SINGLE_STEP_TIMED_TICKS for k, v in step.tick.host_launches.items()}
+    runs_t = step.tick.body_runs / SINGLE_STEP_TIMED_TICKS  # the device's loop counter
     ms_n, _ = timed(from_numpy, SINGLE_STEP_TIMED_TICKS)
     conv = []
     for _ in range(20):
@@ -2928,7 +3143,7 @@ def phase_single_step(configs, dev):
     carry = make_carry(cfg, device=dev)
     for k in range(3):
         _, _, carry = step(from_tensors(k), carry)
-    n_dev, dev_ms, top = count_device_launches(lambda: step(from_tensors(3), carry))
+    n_dev, dev_ms, top = tick_activity(step, lambda: step(from_tensors(3), carry))
     np_bytes = sum(np.asarray(x).nbytes for x in
                    (one_np.costmap.data, one_np.esdf.distances, one_np.esdf.indexes))
     emit({"phase": "single_step", "cells": cells,
@@ -2937,8 +3152,9 @@ def phase_single_step(configs, dev):
               "host_ms_numpy_input": host_ms_stats(ms_n),
               "numpy_to_device_ms": host_ms_stats(conv), "grid_bytes_copied": int(np_bytes),
               "mean_lm_iterations": float(np.mean(iters_t)),
-              "lm_host_syncs_per_tick": float(np.mean(
-                  [-(-i // DEFAULT_CHECK_EVERY) for i in iters_t])),
+              "lm_loop_body_runs_per_tick": runs_t,
+              "lm_loop_body_iterations": DEFAULT_CHECK_EVERY,
+              "host_operations_per_tick": host_t,
               "device_launches_one_tick": n_dev, "device_busy_ms_one_tick": dev_ms,
               "top_device_kernels": top,
               "meets_50_ms": bool(np.percentile(ms_t, 90) <= 50.0),
@@ -3089,6 +3305,10 @@ def phase_sim(cfg, dev, sc_np):
         torch.cuda.synchronize()
         ms[kind].append((time.perf_counter() - t0) * 1e3 / SIM_TICKS)
         launches[kind] = dict(_build.launch_counts)
+        step_ops = sim.step.tick.host_launches
+        if step_ops["graph_replays"] != SIM_TICKS or step_ops["done_checks"] != 0:
+            fail(f"sim {kind}: the step's host operations {step_ops} over {SIM_TICKS} ticks, "
+                 f"not one graph launch and no done check a tick")
         own = sim.host_launches
         host[kind] = {"step": host_launches_per_tick(sim.step.tick, SIM_TICKS),
                       "world_update": (own["graph_replays"] + own["tick_copies"]) / SIM_TICKS}
@@ -3127,6 +3347,7 @@ def phase_sim(cfg, dev, sc_np):
         advance_people(cfg, people, pose, speed, sc.esdf, 0.05)
         torch.cuda.synchronize()
         ppl_ms.append((time.perf_counter() - t1) * 1e3)
+    loops = loop_record(sims["captured"].step)  # the last captured campaign's
     prog, = sims["captured"]._programs.values()
     world_ms = time_cuda(prog.graph.replay, 20)
     del sims, prog
@@ -3169,6 +3390,7 @@ def phase_sim(cfg, dev, sc_np):
               "captured_world_graph": world_ms / tick_ms["captured"]["mean"]},
           "host_launches_per_simulated_tick": {
               k: {**v, "total": v["step"] + v["world_update"]} for k, v in host.items()},
+          "step_loop": loops,
           "status_ok_share": float((res.status == 0).float().mean()),
           "min_people_dist_p50": float(res.min_people_dist.median()),
           "lanes_bit_equal_to_b1": [0, 1], "lane_ticks": SIM_LANE_TICKS,
@@ -3208,7 +3430,8 @@ def phase_stream(cfg, dev, seconds=3.0):
     check_launches("stream", launches, DEFAULT_PATH_KERNELS)
     emit({"phase": "stream", "captured": step.captured, "frequency_hz": 20.0,
           "seconds": seconds, "ticks": loop.ticks,
-          "missed": loop.missed, "overruns": loop.overruns, "launches": launches})
+          "missed": loop.missed, "overruns": loop.overruns, "launches": launches,
+          **loop_record(step)})
     return launches
 
 
@@ -3352,10 +3575,16 @@ def phase_distributed(cfg, dev, sc, poses):
             return outs, carry
 
         run_dist()  # warm: the NCCL communicator is made at the first all_reduce
+        dstep.tick.reset_host_launches()
         _build.reset_launch_counts()
         outs_d, carry_d = run_dist()
         launches = dict(_build.launch_counts)
         check_launches("distributed", launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
+        host_ops = dict(dstep.tick.host_launches)
+        if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
+            fail(f"distributed: the local step's host operations {host_ops} over {len(poses)} "
+                 f"ticks, not one graph launch and no done check a tick")
+        loops = loop_record(dstep)
         check_one_sample_per_evaluation("distributed", launches)
         outs_u, carry_u = run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev))
         for t, ((cmd_d, aux_d, m), (cmd_u, aux_u)) in enumerate(zip(outs_d, outs_u)):
@@ -3392,7 +3621,10 @@ def phase_distributed(cfg, dev, sc, poses):
           "metrics_last_tick": {k: float(getattr(outs_d[-1][2], k))
                                 for k in outs_d[-1][2]._fields},
           "ms_per_tick": ms, "ms_per_tick_median": {k: float(np.median(v)) for k, v in ms.items()},
-          "launches": launches})
+          "host_operations": host_ops, "host_launches_per_tick": (
+              host_ops["graph_replays"] + host_ops["input_copies"] + host_ops["output_clones"])
+          / len(poses),
+          **loops, "launches": launches})
     return launches, carry_d
 
 
@@ -3527,8 +3759,9 @@ def main():
     obstacle = benchmark_obstacle_only_config()
     if sys.argv[1:] == ["--lm-sync-sweep"]:
         social = benchmark_social_config()
-        phase_lm_sync_sweep([("obstacle", obstacle, 0), ("social", social, social.n_agents)],
-                            dev)
+        phase_lm_sync_sweep([("obstacle", obstacle, 0), ("social", social, social.n_agents),
+                             ("social debug", replace_optimizer(social, debug_optimizer=True),
+                              social.n_agents)], dev)
         print(smi, flush=True)
         return 0
     if sys.argv[1:]:
@@ -3551,7 +3784,8 @@ def main():
     del sc_obstacle, sc_omni6
     launches_debug = phase_debug_tick("social", social, dev, sc, poses)
     phase_debug_tick("stress36", stress36, dev, sc36, poses36)
-    launches_jacobi = phase_jacobi(social, dev, sc, poses[0])
+    launches_jacobi = phase_jacobi("social", social, dev, sc, poses[0])
+    phase_jacobi("stress36", stress36, dev, sc36, poses36[0])
     sc_lat, poses_lat = make_batch(social, B_WIDE, dev, n_valid_people=social.n_agents)
     phase_latent_evaluation(social, dev, sc_lat, poses_lat[0])
     launches_latent = phase_latent_tick(
@@ -3568,7 +3802,9 @@ def main():
     launches_single = phase_single_step(
         [("social", social, social.n_agents), ("obstacle", obstacle, 0),
          ("omni6", omni6, omni6.n_agents), ("stress36", stress36, stress36.n_agents),
-         ("social latent", latent_config(social), social.n_agents)], dev)
+         ("social latent", latent_config(social), social.n_agents),
+         ("social debug", replace_optimizer(social, debug_optimizer=True), social.n_agents)],
+        dev)
     launches_controller = phase_controller(social, dev)
     sc_native = phase_native(social, dev)
     launches_sim = phase_sim(social, dev, sc_native)

@@ -1,8 +1,11 @@
 """Builds and loads the package's CUDA kernels.
 
-The eight sources under ``csrc/`` (nine kernels: ``tr_iter.cu`` holds K3
+The nine sources under ``csrc/`` (ten kernels: ``tr_iter.cu`` holds K3
 and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
-package's jitted trajectorizer scan) expose a plain C interface (no PyTorch
+package's jitted trajectorizer scan; ``tick_graph.cu`` is the port's own
+too, the LM loop's condition ``lm_continue`` and the parent graph that runs
+a tick as one launch, the counterpart of the JAX package's LM
+``lax.while_loop``) expose a plain C interface (no PyTorch
 headers), so each compiles in seconds (the headers ``chol.cuh``,
 ``damped_step.cuh``, ``bicubic.cuh`` and ``rollout.cuh`` hold the code that
 two kernels share).
@@ -22,7 +25,10 @@ the trust-region ratio rho decides accept/reject.
 The launch counters live here too: each kernel wrapper adds one to its entry
 of ``launch_counts`` where it launches its kernel, and nowhere else, so a run
 can show that it really went through the kernels. K7's two entries, the
-damped step and the standalone solve, count under ``spd_solve``.
+damped step and the standalone solve, count under ``spd_solve``. A tick
+launched as one graph (controller/graph.py) runs its LM loop's body as often
+as the device decides: what it owes the counters is read from the device
+when the counts are read (``LaunchCounts``), never inside the tick.
 """
 
 import ctypes
@@ -42,10 +48,73 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-launch_counts = {
+
+class LaunchCounts(dict):
+    """Kernel name -> launches. Sources whose launches only the device has
+    counted (``owe(source)``: a source with a ``drain()`` that returns
+    {name: launches} since its last drain) are drained into the counts when
+    they are read, outside any capture. ``add`` counts without draining, for
+    the host's own tallies inside a tick."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self._owed = []
+
+    def owe(self, source) -> None:
+        if not any(s is source for s in self._owed):
+            self._owed.append(source)
+
+    def add(self, name: str, n: int) -> None:
+        dict.__setitem__(self, name, dict.__getitem__(self, name) + n)
+
+    def settle(self) -> None:
+        """Drain every source that owes launches (a read of the device)."""
+        if not self._owed:
+            return
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return
+        owed, self._owed = self._owed, []
+        for source in owed:
+            for name, n in source.drain().items():
+                self.add(name, n)
+
+    def __getitem__(self, name):
+        self.settle()
+        return dict.__getitem__(self, name)
+
+    def __iter__(self):
+        self.settle()
+        return dict.__iter__(self)
+
+    def keys(self):
+        self.settle()
+        return dict.keys(self)
+
+    def values(self):
+        self.settle()
+        return dict.values(self)
+
+    def items(self):
+        self.settle()
+        return dict.items(self)
+
+    def __eq__(self, other):
+        self.settle()
+        return dict.__eq__(self, other)
+
+    __hash__ = None
+
+    def __repr__(self):
+        self.settle()
+        return dict.__repr__(self)
+
+
+launch_counts = LaunchCounts({
     "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "rollout_sample": 0, "fused_iter": 0,
-    "propose": 0, "commit": 0, "spd_solve": 0, "trajectorize": 0,
-}
+    "propose": 0, "commit": 0, "spd_solve": 0, "trajectorize": 0, "lm_continue": 0,
+})
 
 _lock = threading.Lock()
 _lib = None
@@ -90,10 +159,24 @@ _SIGNATURES = {
     # points, n, pose0, poses, cmds, n_steps, ok, B, P, S, lookahead_dist,
     # desired_linear_vel, max_angular_vel, time_step, omnidirectional, stream
     "social_mpc_trajectorize_f32": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    # head, tail, n_loops, chunks, lengths, done, n, stats, out,
+    # max_iterations, check_done, graph_out, exec_out, bodies_out
+    "social_mpc_tick_graph_build": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    # exec, stream
+    "social_mpc_tick_graph_launch": [_P, _P],
+    # graph, exec
+    "social_mpc_tick_graph_destroy": [_P, _P],
+    # graph, counts (32 int64)
+    "social_mpc_graph_node_types": [_P, _P],
+    # done, n, stats, out, reset, add, need, max_iterations, check_done,
+    # slot, stream
+    "social_mpc_lm_continue": [_P, _I, _P, _P] + [_I] * 6 + [_P],
 }
 
 
 def reset_launch_counts() -> None:
+    """Every count to 0, launches owed by the device included."""
+    launch_counts.settle()
     for k in launch_counts:
         launch_counts[k] = 0
 

@@ -265,9 +265,10 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
     With ``capture`` (the default), every config (with or without
     debug_optimizer or latent critics) gets the staged tick of
     controller/graph.py: on CUDA recorded as CUDA graphs at the first call
-    with each input signature and replayed after, the port's counterpart of
-    the JAX package's jax.jit; on the CPU the same stages run as plain
-    functions. ``capture=False`` runs the tick eagerly from Python, the
+    with each input signature and launched after as one parent graph whose
+    LM solve loops on the device, the port's counterpart of the JAX
+    package's jax.jit and lax.while_loop; on the CPU the same stages run as
+    plain functions. ``capture=False`` runs the tick eagerly from Python, the
     reference the graphs are held to. The returned step's ``captured`` says
     which runs."""
     dev = resolve_device(device)
@@ -283,7 +284,7 @@ def make_step_batch(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
 class StepFunction:
     """step(scenario, carry) -> (cmd, aux, carry'): `run` with the tick it
     drives as `tick` (a graph.GraphTick for the staged tick). ``captured``
-    says whether the tick replays CUDA graphs."""
+    says whether the tick runs as CUDA graphs."""
 
     def __init__(self, run, tick):
         self._run = run
@@ -390,7 +391,7 @@ def make_step(cfg: SocialMPCConfig, device="cuda", dtype=torch.float32,
     the same scenario's lane of a wider batch). Like the JAX package's
     make_step, it does not check the windows (validate_scenario_windows;
     SocialMPCController checks once, on its first tick). ``capture`` is
-    make_step_batch's: the batch of one replays CUDA graphs on the card."""
+    make_step_batch's: the batch of one is one graph launch on the card."""
     dev = resolve_device(device)
     batched = make_step_batch(cfg, device=dev, dtype=dtype, validate=False, capture=capture)
 

@@ -41,6 +41,12 @@ from nav2_social_mpc_controller_tpu_torch.controller.graph import (
 from nav2_social_mpc_controller_tpu_torch.solver import batched, lm
 
 
+def chunk_schedule(max_iterations: int, check_every: int):
+    """The iteration counts of the chunks, in order: the eager loop's
+    stretches between two checks."""
+    return [min(check_every, max_iterations - it) for it in range(0, max_iterations, check_every)]
+
+
 def scatter_back(head, level: batched.Level) -> None:
     """The rung's state written back into the head's state at its lanes."""
     for f, p in zip(head.state, level.state):
@@ -60,9 +66,11 @@ class _CompactedProgram(_Program):
 
     def _build(self):
         tick, lm_cfg = self.tick, self.tick.lm_cfg
-        b = self.scenario.robot.pose.shape[0]
+        b = self.batch
         capacity = batched.compacted_capacity(b, tick.capacity_frac)
         batched.check_compaction(b, capacity, lm_cfg, tick.check_every)
+        self.schedule = chunk_schedule(lm_cfg.max_iterations, tick.check_every)
+        self.log = []
         self.widths = [b] + batched.width_ladder(b, capacity)
         self.chunks = [{n: _Stage(lambda level, n=n: lm_chunk(lm_cfg, level, n))
                         for n in sorted(set(self.schedule))} for _ in self.widths]
@@ -79,6 +87,17 @@ class _CompactedProgram(_Program):
                 levels.append(run(self.transitions[k], h, levels[k]))
         for k in range(1, len(self.widths)):
             run(self.scatters[k], h, levels[k])
+
+    def _run(self):
+        h = self.head()
+        replays = self._solve(h)
+        out = self.tail(h)
+        if self.tick.captured:
+            self.tick.host_launches["graph_replays"] += replays + 2
+        return out
+
+    def width_log(self):
+        return self.log
 
     def _solve(self, h) -> int:
         counts = self.tick.host_launches
@@ -98,7 +117,7 @@ class _CompactedProgram(_Program):
         if k:
             self.scatters[k](h, level)
             replays += 1
-        self.tick.width_log = log
+        self.log = log
         return replays
 
 

@@ -419,6 +419,27 @@ def solve_prepared(cfg: SocialMPCConfig, prep: PreparedProblem):
     return (*lm_solve(value_grad, prep.u0, prep.lower, prep.upper, lm_cfg), None)
 
 
+def optimize(
+    cfg: SocialMPCConfig,
+    ref_poses,
+    ref_cmds,
+    n_traj_steps,
+    speed,
+    people: AgentsState,
+    costmap: Costmap,
+    esdf: ObstacleDistanceGrid,
+    carry: ControllerCarry,
+) -> OptimizeResult:
+    """The full Optimizer::optimize pipeline (optimizer.cpp:148-452) for a
+    batch: optimize_prepare, solve_prepared (the eager LM solve) and
+    optimize_finish."""
+    prep = optimize_prepare(
+        cfg, ref_poses, ref_cmds, n_traj_steps, speed, people, costmap, esdf, carry
+    )
+    u_flat, stats, lm_trace = solve_prepared(cfg, prep)
+    return optimize_finish(cfg, prep, u_flat, stats, lm_trace)
+
+
 def optimize_finish(cfg: SocialMPCConfig, prep: PreparedProblem, u_flat, stats: SolveStats,
                     lm_trace=None) -> OptimizeResult:
     """Extraction half of Optimizer::optimize: saving_velocities[j] = block

@@ -89,3 +89,17 @@ def transform_global_plan(
         path=PathInput(points=new_points, yaw=new_yaw, n=n_new[:, 0].to(torch.int32)),
         start_index=begin[:, 0].to(torch.int32),
     )
+
+
+def get_goal_point(path: PathInput, robot_pose, goal_dist: float):
+    """The first plan pose at distance >= goal_dist from the robot, else the
+    last valid one (path_handler.cpp:115-137), for a batch: path batched,
+    robot_pose (B, 3); returns (B, 2) points."""
+    p = path.points.shape[1]
+    idx = torch.arange(p, device=path.points.device)[None, :]
+    drob = path.points - robot_pose[:, None, 0:2]
+    hit = path.valid & (torch.sqrt((drob * drob).sum(-1)) >= goal_dist)
+    first_hit = torch.where(hit, idx, p).min(dim=1).values
+    last = (path.n.long() - 1).clamp(0, p - 1)
+    pick = torch.where(hit.any(dim=1), first_hit, last).clamp(0, p - 1)
+    return torch.gather(path.points, 1, pick[:, None, None].expand(-1, 1, 2))[:, 0]

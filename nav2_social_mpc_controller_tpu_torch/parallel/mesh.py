@@ -160,11 +160,14 @@ def make_distributed_step(cfg: SocialMPCConfig, mesh: Mesh, dtype=torch.float32)
     ``multihost.host_local_to_global``) on ``mesh.device``; the command, aux
     and carry come back as this rank's rows, the metrics reduced over every
     rank (``reduce_metrics``). The rows run through ``make_step_batch``, the
-    same kernels as one process; every rank must call the step each tick."""
+    same kernels as one process; every rank must call the step each tick.
+    ``step.tick`` is that local step's tick (controller/graph.py's
+    GraphTick)."""
     local_step = make_step_batch(cfg, device=mesh.device, dtype=dtype)
 
     def step(scenario, carry):
         cmd, aux, new_carry = local_step(scenario, carry)
         return cmd, aux, new_carry, reduce_metrics(mesh, aux, dtype)
 
+    step.tick = local_step.tick
     return step

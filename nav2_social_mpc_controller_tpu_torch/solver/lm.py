@@ -46,9 +46,10 @@ Semantics reproduced from Ceres:
 A lane that is done stays frozen bit for bit (commit passes it through), so
 the results do not depend on WHEN the loop stops: running all
 max_iterations, or stopping once every lane is done, give identical outputs.
-Asking "is every lane done?" costs a device-to-host synchronisation, so
-``check_every`` says how often it is asked (0 = never: a fixed number of
-iterations and no synchronisation at all).
+Asking "is every lane done?" costs this eager loop a device-to-host
+synchronisation (the one-launch tick of controller/graph.py asks on the
+device), so ``check_every`` says how often it is asked (0 = never: a fixed
+number of iterations and no synchronisation at all).
 """
 
 from typing import Callable, NamedTuple
@@ -73,17 +74,17 @@ from nav2_social_mpc_controller_tpu_torch.solver.cuda_iter import (  # noqa: F40
 )
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import spd_solve
 
-# How often the loop asks the device whether every lane is done. Measured on an
-# H100 (PERF.md, "LM loop host syncs"; ``chip_smoke.py --lm-sync-sweep``): on
-# the eager tick, bound by the host's launch rate, checking every iteration,
-# every 4th, every 8th or never gives tick times that differ by less than
-# their own spread. On the captured tick (controller/graph.py) each check
-# leaves the card idle for a round trip to the host: every 8th was faster
-# than every 4th in 11 of 12 cells (obstacle and social at B = 1, 1024 and
-# 4096, two runs), and never asking faster than every 8th in 10 of 12, by
-# 0.1-0.6 ms. Every 8th keeps the early exit for batches whose lanes all
-# converge well before the cap, and the compacted solver (solver/batched.py)
-# needs checks to compact at.
+# How often the loop asks whether every lane is done. Measured on an H100
+# (PERF.md §5; ``chip_smoke.py --lm-sync-sweep``): on the eager tick, bound by
+# the host's launch rate, checking every iteration, every 4th, every 8th or
+# never gives tick times that differ by less than their own spread. On the
+# one-launch tick (controller/graph.py) the check is lm_continue's on the
+# device, once a loop body, and each body run costs ~23 us beyond its
+# iterations: every 8th was within 0.23 ms of the best policy in every cell
+# of the plain tick (obstacle and social at B = 1, 1024 and 4096), never
+# asking best at B >= 1024, where some lane always runs to the cap, every
+# 8th best at B = 1, where lanes converge early. The compacted solver
+# (solver/batched.py) needs checks to compact at.
 DEFAULT_CHECK_EVERY = 8
 
 
@@ -198,6 +199,25 @@ def record_trace(trace: LMTrace, it: int, st: LMState, aux) -> None:
         (st.cost, aux.actual_change, grad_max, aux.step_norm, aux.rho, st.radius, aux.accept),
     ):
         buf[:, col] = torch.where(aux.active, v, buf[:, col])
+
+
+def record_trace_by_lane(trace: LMTrace, st: LMState, aux) -> None:
+    """record_trace with each lane's column taken on the device from its own
+    iteration count, st.iters clamped to T-1: the loop's index is never
+    needed, so one captured iteration serves every column. An active lane
+    has run every iteration before this one, so its count is the loop's
+    index; a done lane writes nothing. The (B, T) mask of the written
+    entries selects, in place, between the new row and what the trace holds
+    (one torch.where a leaf), so the bits are record_trace's."""
+    t = trace.cost.shape[1]
+    col = st.iters.clamp(max=t - 1)[:, None]
+    hit = (torch.arange(t, device=col.device)[None, :] == col) & aux.active[:, None]
+    grad_max = st.g.abs().max(dim=1).values
+    for buf, v in zip(
+        trace,
+        (st.cost, aux.actual_change, grad_max, aux.step_norm, aux.rho, st.radius, aux.accept),
+    ):
+        torch.where(hit, v[:, None], buf, out=buf)
 
 
 def jacobi_scale(jtj0):

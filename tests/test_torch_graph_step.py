@@ -1,17 +1,19 @@
 """The staged tick of ``controller/graph.py`` (make_step_batch's tick as
 CUDA graphs on the card) held against the eager tick.
 
-On the CPU the same stages run uncaptured: the head, the LM chunks with
-their in-place copy-back (a remainder chunk where max_iterations is no
-multiple of check_every), the tail, the static input buffers and the cloned
-outputs. They must give the eager tick's results bit for bit, with any
+On the CPU the same stages run uncaptured: the head, the LM loops with
+their chunks' in-place copy-back (a remainder loop where max_iterations is
+no multiple of check_every), the tail, the static input buffers and the
+cloned outputs. They must give the eager tick's results bit for bit, with any
 check_every, and outputs that alias neither each other nor the buffers; one
 float64 case is held against the JAX package's make_step_batch. The debug
-tick (debug_optimizer: the general iteration, a chunk per position, the
+tick (debug_optimizer: the general iteration, one loop body for every column, the
 trace) is held likewise, against the eager debug tick and the JAX step, and
 so is the latent tick (both latent critics, ops/latent.py's evaluation), with
 and without the trace, at B = 4 and through make_step at B = 1. The tests
-marked ``gpu`` hold the captured ticks against the eager ones on the card:
+marked ``gpu`` hold the one-launch ticks (a parent graph whose LM solve is
+a conditional WHILE node) against the eager ones on the card, and check
+that a tick reads nothing of the device:
 
     python -m pytest tests/test_torch_graph_step.py -q --noconftest -p no:cacheprovider -m gpu
 """
@@ -25,7 +27,7 @@ import pytest
 import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
-from nav2_social_mpc_controller_tpu_torch.controller import graph
+from nav2_social_mpc_controller_tpu_torch.controller import graph, tick_graph
 from nav2_social_mpc_controller_tpu_torch.controller.controller import (
     make_carry,
     make_step,
@@ -108,11 +110,11 @@ def test_staged_tick_equals_eager_tick_bit_for_bit(name, batch, n_ticks):
 
 
 @pytest.mark.parametrize("check_every,schedule", [
-    (0, [40]), (1, [1] * 40), (4, [4] * 10), (7, [7] * 5 + [5])])
+    (0, [40]), (1, [1]), (4, [4]), (7, [7, 5])])
 def test_check_every_changes_no_bit(check_every, schedule):
-    """The chunk schedule (a remainder chunk of 5 at check_every = 7) and
-    the results: the same bits whatever the host's check policy."""
-    assert graph.chunk_schedule(40, check_every) == schedule
+    """The loops' bodies (a remainder loop of 5 at check_every = 7) and the
+    results: the same bits whatever the check policy."""
+    assert tick_graph.loop_lengths(40, check_every) == schedule
     cfg, sc, poses = _batch("social", 8)
     got = _ticks(graph.GraphTick(cfg, "cpu", check_every=check_every), cfg, sc, poses[:2])
     _assert_same_bits(got, _eager("social", 8, 3)[:2])
@@ -234,7 +236,7 @@ def _lane(tree, i):
 
 def test_staged_debug_latent_tick_equals_eager_bit_for_bit():
     """debug_optimizer with the latent critics: the staged tick (the general
-    iteration in a chunk per position, the trace) equals the eager debug
+    iteration in one loop body, the trace) equals the eager debug
     latent tick bit for bit, trace included, and its results without the
     trace equal the staged latent tick's (the general iteration repeats the
     default one's arithmetic)."""
@@ -259,10 +261,11 @@ def _eager_debug(name, batch, n_ticks):
 @pytest.mark.parametrize("name,batch,n_ticks", [("social", 8, 3), ("stress36", 2, 1)])
 def test_staged_debug_tick_equals_eager_debug_tick_bit_for_bit(name, batch, n_ticks):
     """With debug_optimizer the staged tick runs the general iteration in
-    chunks, one per chunk position (their trace columns); with the carry fed
-    back it gives the eager debug tick's results bit for bit, the
-    (B, max_iterations) trace included, and those of the staged plain tick
-    (the general iteration repeats the default one's arithmetic)."""
+    one loop body, whose lanes write the trace columns of their own
+    iteration counts; with the carry fed back it gives the eager debug
+    tick's results bit for bit, the (B, max_iterations) trace included, and
+    those of the staged plain tick (the general iteration repeats the
+    default one's arithmetic)."""
     cfg, sc, poses = _batch(name, batch)
     step = make_step_batch(_debug(cfg), device="cpu")
     assert isinstance(step.tick, graph.GraphTick) and step.tick.trace_len == 40
@@ -271,7 +274,7 @@ def test_staged_debug_tick_equals_eager_debug_tick_bit_for_bit(name, batch, n_ti
     _assert_same_bits(got, want)
     assert all(aux.lm_trace.cost.shape == (batch, 40) for _, aux, _ in got)
     prog, = step.tick._programs.values()
-    assert sorted(prog.chunks) == list(range(5))  # 40 iterations, a check every 8
+    assert prog.lengths == [8] and len(prog.chunks) == 1  # 40 iterations, a check every 8
     for (cmd, aux, carry), (cmd_p, aux_p, carry_p) in zip(got, _eager(name, batch, n_ticks)):
         _assert_same_bits((cmd, aux._replace(lm_trace=None), carry), (cmd_p, aux_p, carry_p))
     host = step.tick.host_launches
@@ -324,12 +327,22 @@ def card():
     return torch.device("cuda")
 
 
+def _assert_same_counts(captured, eager):
+    """The one-launch tick's kernel launch counts (tallied from the device's
+    loop counter) equal the eager tick's; lm_continue, the loop's own
+    kernel, runs in the captured tick only."""
+    assert captured["lm_continue"] > 0 and eager["lm_continue"] == 0
+    assert {k: n for k, n in captured.items() if k != "lm_continue"} == \
+        {k: n for k, n in eager.items() if k != "lm_continue"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,batch,n_ticks", [("social", 64, 3), ("stress36", 16, 1)])
 def test_captured_tick_equals_eager_tick_on_the_card(card, name, batch, n_ticks):
-    """On the card make_step_batch replays CUDA graphs; its results equal
-    the eager tick's bit for bit, and the kernel launch counts (tallied per
-    replay) equal the eager tick's."""
+    """On the card make_step_batch launches one CUDA graph a tick, its LM
+    solve a loop on the device; its results equal the eager tick's bit for
+    bit, and the kernel launch counts (the chunk's tally times the loop
+    body's runs, read from the device) equal the eager tick's."""
     cfg, sc, poses = _batch(name, batch, device=card)
     counts = {}
     outs = {}
@@ -341,14 +354,14 @@ def test_captured_tick_equals_eager_tick_on_the_card(card, name, batch, n_ticks)
         torch.cuda.synchronize()
         counts[capture] = dict(_build.launch_counts)
     _assert_same_bits(outs[True], outs[False])
-    assert counts[True] == counts[False]
+    _assert_same_counts(counts[True], counts[False])
     assert counts[True]["propose"] > 0 and counts[True]["sfm_scan"] == n_ticks
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,batch,n_ticks", [("social", 64, 3), ("stress36", 16, 1)])
 def test_captured_debug_tick_equals_eager_debug_tick_on_the_card(card, name, batch, n_ticks):
-    """On the card the debug tick replays CUDA graphs too; its results equal
+    """On the card the debug tick is one graph launch too; its results equal
     the eager debug tick's bit for bit, trace included, and the kernel
     launch counts (K7's damped step, no K3 or K4) the eager tick's."""
     cfg, sc, poses = _batch(name, batch, device=card)
@@ -362,7 +375,7 @@ def test_captured_debug_tick_equals_eager_debug_tick_on_the_card(card, name, bat
         torch.cuda.synchronize()
         counts[capture] = dict(_build.launch_counts)
     _assert_same_bits(outs[True], outs[False])
-    assert counts[True] == counts[False]
+    _assert_same_counts(counts[True], counts[False])
     assert counts[True]["spd_solve"] > 0 and counts[True]["propose"] == 0
 
 
@@ -372,7 +385,7 @@ def test_captured_debug_tick_equals_eager_debug_tick_on_the_card(card, name, bat
 def test_captured_latent_tick_equals_eager_latent_tick_on_the_card(card, name, batch, n_ticks,
                                                                   debug):
     """On the card the latent tick (both latent critics; with debug the
-    general iteration and its trace) replays CUDA graphs; its results equal
+    general iteration and its trace) is one graph launch; its results equal
     the eager latent tick's bit for bit and the kernel launch counts the
     eager tick's: an evaluation launches rollout_sample once and K2 once,
     the standalone K1 never. B = 1 through make_step likewise."""
@@ -388,7 +401,7 @@ def test_captured_latent_tick_equals_eager_latent_tick_on_the_card(card, name, b
         torch.cuda.synchronize()
         counts[capture] = dict(_build.launch_counts)
     _assert_same_bits(outs[True], outs[False])
-    assert counts[True] == counts[False]
+    _assert_same_counts(counts[True], counts[False])
     assert counts[True]["rollout_sample"] == counts[True]["fused_iter"] > 0
     assert counts[True]["bicubic"] == 0 and counts[True]["rollout_prep"] == 0
     if debug:
@@ -439,3 +452,60 @@ def test_capture_holds_the_garbage_collector_off(card, monkeypatch):
     want = _ticks(make_step_batch(cfg, device=card, capture=False), cfg, sc, poses[:1],
                   device=card)
     _assert_same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("debug", [False, True])
+def test_one_launch_tick_reads_nothing_of_the_device(card, debug):
+    """After the first tick (capture, and the window check of new buffers),
+    a tick is the input copies, one graph launch and the output clones:
+    social B = 64 over three ticks inside torch.cuda.set_sync_debug_mode
+    ("error"), where a hidden synchronisation raises; host_launches counts
+    one launch and no done check a tick, the loop's counters say how many
+    LM iterations ran, and the results equal capture=False's."""
+    cfg, sc, poses = _batch("social", 64, device=card)
+    cfg = _debug(cfg) if debug else cfg
+    step = make_step_batch(cfg, device=card)
+    carry = make_carry(cfg, 64, device=card)
+    first = step(sc._replace(robot=sc.robot._replace(pose=poses[0])), carry)
+    step.tick.reset_host_launches()
+    got = [first]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pose in poses[1:]:
+            got.append(step(sc._replace(robot=sc.robot._replace(pose=pose)), got[-1][2]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = step.tick.host_launches
+    assert host == {"graph_replays": 2, "input_copies": 2 * 17, "output_clones":
+                    2 * (25 if debug else 18), "done_checks": 0}
+    prog, = step.tick._programs.values()
+    log, runs = step.tick.width_log, step.tick.body_runs  # read from the device
+    assert set(log) == {64} and len(log) % 8 == 0 and 0 < len(log) <= 40
+    assert len(log) <= 8 * runs <= 2 * 40  # two ticks of bodies of 8 iterations
+    assert int(got[-1][1].solve.iterations.max()) <= len(log)
+    types = prog.parent.node_types()
+    assert types["conditional"] == 1 and types["kernel"] > 100
+    want = _ticks(make_step_batch(cfg, device=card, capture=False), cfg, sc, poses, device=card)
+    _assert_same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("debug", [False, True])
+def test_single_robot_one_launch_tick_on_the_card(card, debug):
+    """make_step (B = 1): the one-launch tick equals capture=False bit for
+    bit, seed by seed over two ticks, with and without the debug trace."""
+    cfg, sc, poses = _batch("social", 2, device=card)
+    cfg = _debug(cfg) if debug else cfg
+    steps = {capture: make_step(cfg, device=card, capture=capture) for capture in (False, True)}
+    assert steps[True].captured and not steps[False].captured
+    for i in range(2):
+        res = {}
+        for capture, step in steps.items():
+            carry, res[capture] = make_carry(cfg, device=card), []
+            for pose in poses[:2]:
+                cmd, aux, carry = step(_lane(sc._replace(robot=sc.robot._replace(pose=pose)), i),
+                                       carry)
+                res[capture].append((cmd, aux, carry))
+        _assert_same_bits(res[True], res[False])
