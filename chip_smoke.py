@@ -57,7 +57,7 @@ Phases, each printing one JSON line:
              kernels' launch counts equal (lm_continue the captured tick's
              own), the device kernels of a tick counted by torch.profiler
              equal but lm_continue's; host-side launches per tick of both
-             (one graph launch and no done check a tick), the loop's body
+             (one graph launch a tick), the loop's body
              runs and the parent graph's nodes; the single-robot tick of both in turns; ms/tick at B =
              1024 and 4096 (obstacle, social) in turns, capture seconds,
              device memory; the device ms of each stage graph, and the
@@ -663,7 +663,8 @@ def capture_iteration(cfg, sc, carry, n_iters=3):
 # and its condition must equal its plain version's, tolerance 0.
 TOL = {"sfm_scan": 1e-4, "rollout_prep": 1.0, "bicubic": 1e-5, "fused_iter": 1e-5,
        "fused_iter_people": 3e-5, "propose": 1e-6, "commit": 1e-6, "spd_solve": 0,
-       "rollout_sample": 0, "trajectorize": 0, "lm_continue": 0}
+       "rollout_sample": 0, "trajectorize": 0, "lm_continue": 0,
+       "compact_continue": 0}
 K6_RTOL, K6_ATOL, K6_ATOL_ROWCOL = 2e-5, 1e-5, 2e-4
 
 
@@ -1249,6 +1250,12 @@ KERNEL_INFO = {
                     "(the LM lax.while_loop's cond, no Pallas kernel)",
         "kind": "the port's own kernel",
     },
+    "compact_continue": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tick_graph.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/batched.py:147 "
+                    "(the compacted solver's lax.while_loop cond, no Pallas kernel)",
+        "kind": "the port's own kernel",
+    },
 }
 
 # Kernels of the default tick (K3/K4 iteration) and of the debug tick (general
@@ -1262,23 +1269,27 @@ DEFAULT_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_ite
                         "commit", "lm_continue")
 DEBUG_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "spd_solve",
                       "lm_continue")
-# The one-launch tick's loop kernel: lm_continue runs only where the device
-# loops (make_step_batch's tick on the card), never on an eager tick
-# (capture=False) or in the compacted tick's host-checked chunks.
+# The one-launch ticks' loop kernels: lm_continue runs only where the device
+# loops (make_step_batch's tick and the simulator's loop over ticks on the
+# card), compact_continue only where it runs the compacted tick's schedule;
+# neither runs on an eager tick (capture=False).
 LOOP_KERNEL = "lm_continue"
+LOOP_KERNELS = (LOOP_KERNEL, "compact_continue")
+COMPACTED_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "propose",
+                          "commit", "compact_continue")
 
 
 def without_loop_names(by_name):
-    """{device kernel name: count} of a profile but the loop kernel's."""
-    return {k: n for k, n in by_name.items() if LOOP_KERNEL not in k}
+    """{device kernel name: count} of a profile but the loop kernels'."""
+    return {k: n for k, n in by_name.items() if not any(lk in k for lk in LOOP_KERNELS)}
 
 
 def without_loop(kernels):
-    """The kernels (names, or name -> launches) but the loop's own: what a
+    """The kernels (names, or name -> launches) but the loops' own: what a
     one-launch tick and an eager tick must share."""
     if isinstance(kernels, dict):
-        return {k: n for k, n in kernels.items() if k != LOOP_KERNEL}
-    return tuple(k for k in kernels if k != LOOP_KERNEL)
+        return {k: n for k, n in kernels.items() if k not in LOOP_KERNELS}
+    return tuple(k for k in kernels if k not in LOOP_KERNELS)
 
 
 def check_lm_continue(lm_cfg, done, reps):
@@ -1327,6 +1338,61 @@ def check_lm_continue(lm_cfg, done, reps):
     }
 
 
+def check_compact_continue(lm_cfg, done, reps):
+    """compact_continue (outside a graph: it sets no condition) against its
+    plain version on the card, on the LM state's done flags of a real tick
+    and on all-done flags, at full width (the next rung B/2) and at a
+    narrower rung (its first B/4 flags), in every role the compacted
+    tick's parent graph gives it (a tick's first check, a rung's entry and
+    its body's check, the last rung's, the finish), from states before, at
+    and after the last check, reached and stopped. Error: the largest
+    difference of the counters and the flags; the bound: the W flags read
+    once, the counters the timed role (a tick's first check at full width)
+    reads or writes, once each, and its three flags written."""
+    from nav2_social_mpc_controller_tpu_torch.controller import tick_graph as K
+
+    b, m = done.shape[0], lm_cfg.max_iterations
+    n_rungs = 3
+    worst, calls = 0, 0
+    for flags in (done, torch.ones_like(done), done[:b // 4].contiguous()):
+        w = flags.shape[0]
+        for it0, rung, stopped in ((0, 0, 0), (16, 1, 0), (m - 4, 1, 0), (m, 2, 0), (8, 1, 1)):
+            for role in (dict(rung=0, reset=True, next_width=w // 2),
+                         dict(rung=1, reset=False, next_width=w // 2),
+                         dict(rung=2, reset=False, next_width=0),
+                         dict(rung=0, reset=False, next_width=0, finish=True)):
+                res = []
+                for fn in (K.compact_continue, K.compact_continue_plain):
+                    stats = torch.arange(4 + 5 * n_rungs, dtype=torch.int64, device=done.device)
+                    stats[:4] = torch.tensor([it0, 5, rung, stopped])
+                    out = torch.full((n_rungs,), 7, dtype=torch.int32, device=done.device)
+                    fn(flags, stats, out, n_rungs=n_rungs, check_every=8, max_iterations=m,
+                       **role)
+                    res.append(torch.cat([stats, out.long()]))
+                worst = max(worst, int((res[0] - res[1]).abs().max()))
+                calls += 1
+    torch.cuda.synchronize()
+    stats = K.compact_stats(n_rungs, done.device)
+    out = torch.zeros(n_rungs, dtype=torch.int32, device=done.device)
+    body = dict(rung=0, n_rungs=n_rungs, next_width=b // 2, reset=True, check_every=8,
+                max_iterations=m)
+    # The first check writes s[0], s[2], s[3] and the rung's iteration
+    # slots s[4..4+L) (its reset), reads and writes s[1], and, unless no lane
+    # is active, reads and writes one more: a transition's or a full chunk's
+    # run counter (and s[0], s[4] again, or s[2]).
+    active = bool((~done).any())
+    bnd, by = bound(b + 8 * (3 + n_rungs) + 2 * 8 * (1 + active) + 4 * 3, float(b))
+    return {
+        "shape": f"W={b}", "calls_compared": calls,
+        "max_err": worst, "max_abs_err": worst, "tol": TOL["compact_continue"],
+        "ms": time_cuda(lambda: K.compact_continue(done, stats, out, **body), reps),
+        "host_ms": time_host(lambda: K.compact_continue(done, stats, out, **body), reps),
+        "plain_ms": time_cuda(lambda: K.compact_continue_plain(done, stats, out, **body), 3,
+                              warm=1),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+
+
 def check_all_kernels(cfg, cap, reps):
     out = {
         "sfm_scan": check_sfm(cfg, cap["sfm"], reps),
@@ -1339,6 +1405,7 @@ def check_all_kernels(cfg, cap, reps):
         "spd_solve": check_spd_solve(cap["lm_cfg"], cap, reps),
         "trajectorize": check_trajectorize(*cap["trajectorize"], reps),
         "lm_continue": check_lm_continue(cap["lm_cfg"], cap["commit"][7], reps),
+        "compact_continue": check_compact_continue(cap["lm_cfg"], cap["commit"][7], reps),
     }
     for name, r in out.items():
         if not r["max_err"] <= r["tol"]:
@@ -1793,29 +1860,41 @@ def one_launch_tick(step):
     return prog if getattr(prog, "parent", None) is not None else None
 
 
+def last_tick_stages(prog):
+    """([(name, stage, runs in the last tick)], (loop kernel, its launches
+    in the last tick)) of a one-launch program, as the device recorded them
+    in its loop counter (the runs of each stage run in a loop, prog.slots,
+    and the condition kernel's launches, counted since the launch counts
+    were last settled): the caller settles them just before the tick and
+    calls this before anything reads them again. The head and the tail run
+    once a tick."""
+    s = prog.counter.stats.tolist()
+    runs = {id(stage): s[slot] for slot, stage in prog.slots}
+    return ([(name, stage, runs.get(id(stage), 1)) for name, stage in program_stages(prog)],
+            (prog.counter.kernel, s[1]))
+
+
 def one_launch_profile(step):
     """(device kernels, device copies, busy ms, {kernel name: count}) of the
     last tick of a one-launch `step`. torch.profiler (CUPTI) lists a
-    conditional WHILE node's body once however often it runs, so the tick
-    is composed: the head's, the tail's and each loop's chunk graph
-    profiled alone (replayed: the next tick rewrites every buffer before it
-    reads it), the chunks times their bodies' runs in that tick (the
-    device's counter), and lm_continue once a loop and once a body run
-    (its time, ~2 us a launch, not in the busy ms)."""
+    conditional node's body once however often it runs, so the tick is
+    composed: each stage graph that ran profiled alone (replayed: the next
+    tick rewrites every buffer before it reads it) times its runs in that
+    tick (last_tick_stages, from the device's record: the launch counts
+    settled just before the tick), and the loop kernel at its launches (its
+    time, ~2 us a launch, not in the busy ms)."""
     prog = one_launch_tick(step)
-    runs = prog.last_runs()
+    stages, (loop_name, loop) = last_tick_stages(prog)
     kernels = copies = 0
     busy, by_name = 0.0, {}
-    stages = [("head", prog.head, 1), *(
-        (f"chunk_{n}", c, r) for n, c, r in zip(prog.lengths, prog.chunks, runs)),
-        ("tail", prog.tail, 1)]
     for what, stage, times in stages:
+        if not times:
+            continue
         k, c, ms, names = count_kernels_and_copies(stage.graph.replay, f"the {what} graph")
         kernels, copies, busy = kernels + k * times, copies + c * times, busy + ms * times
         for name, n in names.items():
             by_name[name] = by_name.get(name, 0) + n * times
-    loop = len(runs) + sum(runs)
-    by_name[f"{LOOP_KERNEL}_kernel"] = loop
+    by_name[f"{loop_name}_kernel"] = loop
     return kernels + loop, copies, busy, by_name
 
 
@@ -1839,8 +1918,11 @@ def parent_graph_ms(step, reps=20):
 def tick_activity(step, run, top=8):
     """count_device_launches of one tick run(), for a one-launch tick
     composed by one_launch_profile (the top kernels then by count)."""
+    from nav2_social_mpc_controller_tpu_torch import _build
+
     if one_launch_tick(step) is None:
         return count_device_launches(run, top)
+    _build.launch_counts.settle()
     run()
     torch.cuda.synchronize()
     kernels, copies, busy, by_name = one_launch_profile(step)
@@ -2030,12 +2112,11 @@ def same_bits(where, got, want, parts=("cmd", "aux", "carry"), kinds=("captured"
 GRAPH_TIMED_ROUNDS = 3
 
 
-def program_stages(step):
-    """(name, stage) of every graph of the one program `step`'s captured
-    tick holds: head, the chunks (the loops' bodies by length n,
-    `chunk_{n}`; compacted, by rung width W and length, `chunk_{W}x{n}`),
-    the compacted tick's transitions and scatters, tail."""
-    prog, = step.tick._programs.values()
+def program_stages(prog):
+    """(name, stage) of every graph of a captured program's tick: head, the
+    chunks (the loops' bodies by length n, `chunk_{n}`; compacted, by rung
+    width W and length, `chunk_{W}x{n}`), the compacted tick's transitions
+    and scatters, tail."""
     stages = [("head", prog.head)]
     widths = getattr(prog, "widths", None)
     if widths is None:
@@ -2052,13 +2133,16 @@ def program_stages(step):
 def loop_record(step):
     """What the one-launch tick of `step` says of its last program: the LM
     iterations of its last tick and the loops' body runs since the tick's
-    reset_host_launches (both read from the device counter), and the
-    parent graph's nodes, in all and by type (its own, its child graphs'
-    and its loops' bodies')."""
+    reset_host_launches (both read from the device counter), and, if the
+    program has a parent graph of its own (one nested in a campaign has
+    none), its nodes, in all and by type (its own, its child graphs' and
+    its loops' bodies')."""
     tick = step.tick
-    types = tick._last.parent.node_types()
-    return {"lm_iterations_last_tick": len(tick.width_log), "loop_body_runs": tick.body_runs,
-            "parent_graph_nodes": sum(types.values()), "parent_graph_node_types": types}
+    record = {"lm_iterations_last_tick": len(tick.width_log), "loop_body_runs": tick.body_runs}
+    if tick._last.parent is not None:
+        types = tick._last.parent.node_types()
+        record.update(parent_graph_nodes=sum(types.values()), parent_graph_node_types=types)
+    return record
 
 
 def stage_device_ms(step, reps=20):
@@ -2066,7 +2150,8 @@ def stage_device_ms(step, reps=20):
     tick holds (program_stages), replayed back to back as time_cuda times a
     kernel. Direct replays: the launch counts stay; the next tick rewrites
     every buffer before it reads it."""
-    return {name: time_cuda(stage.graph.replay, reps) for name, stage in program_stages(step)}
+    prog, = step.tick._programs.values()
+    return {name: time_cuda(stage.graph.replay, reps) for name, stage in program_stages(prog)}
 
 
 def trajectorize_alone(cfg, sc, pose, reps=20):
@@ -2091,11 +2176,8 @@ def trajectorize_alone(cfg, sc, pose, reps=20):
 
 def host_launches_per_tick(tick, n_ticks):
     """What the host launched a tick for the captured tick: graph launches,
-    input copies, output clones, and per done check (the compacted tick's
-    only) a reduction and a copy to the host."""
-    h = tick.host_launches
-    return (h["graph_replays"] + h["input_copies"] + h["output_clones"]
-            + 2 * h["done_checks"]) / n_ticks
+    input copies and output clones."""
+    return sum(tick.host_launches.values()) / n_ticks
 
 
 def phase_graph(paths, dev):
@@ -2110,7 +2192,7 @@ def phase_graph(paths, dev):
     of one tick equal but the eager loop's done-check reductions, which are
     lm_continue's work in the one-launch tick (its kernels composed by
     one_launch_profile: the profiler lists a WHILE body once); one graph
-    launch and no done check a tick; host-side launches per tick of both,
+    launch a tick; host-side launches per tick of both,
     the loop's body runs, the parent graph's nodes, device ms and launch
     host ms. Then B = 1 (make_step), SINGLE_STEP_SEEDS seeds x 2 ticks each,
     bit for bit, and the single-robot tick of both in turns; then ms/tick at
@@ -2147,20 +2229,22 @@ def phase_graph(paths, dev):
                        ticks=len(poses))
         host = host_launches_per_tick(steps["captured"].tick, len(poses))
         host_ops = dict(steps["captured"].tick.host_launches)
-        if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
-            fail(f"graph {name}: {host_ops} over {len(poses)} ticks, not one graph launch and "
-                 f"no done check a tick")
+        if host_ops["graph_replays"] != len(poses):
+            fail(f"graph {name}: {host_ops} over {len(poses)} ticks, not one graph launch a "
+                 "tick")
         loops = loop_record(steps["captured"])
         carry = make_carry(cfg, batch, device=dev)
         prof = {"eager": count_kernels_and_copies(
             lambda: steps["eager"](with_pose(sc, poses[0]), carry))}
+        _build.launch_counts.settle()  # the device's record then holds this tick's runs
         steps["captured"](with_pose(sc, poses[0]), carry)
         torch.cuda.synchronize()
         prof["captured"] = one_launch_profile(steps["captured"])
         # the eager loop's done checks (a reduction each) are lm_continue's
         # work in the one-launch tick
         checks = {k: n for k, n in prof["eager"][3].items() if "and_kernel" in k}
-        loop_kernels = {k: n for k, n in prof["captured"][3].items() if LOOP_KERNEL in k}
+        loop_kernels = {k: n for k, n in prof["captured"][3].items()
+                        if any(lk in k for lk in LOOP_KERNELS)}
         eager_rest = {k: n for k, n in prof["eager"][3].items() if k not in checks}
         if not loop_kernels or without_loop_names(prof["captured"][3]) != eager_rest:
             got, want = prof["captured"][3], eager_rest
@@ -2264,8 +2348,14 @@ GRAPH_PROGRAMS = {
                                           "phase": "debug_tick"},
     "make_step_batch_compacted": {
         "stages": "head, chunk_{W}x{n}, transition_{W}_to_{W'}, scatter_{W}, tail",
+        "launch": "one parent graph: head, per rung compact_continue, WHILE {chunk, "
+                  "compact_continue}, IF {remainder chunk}, IF {transition}; compact_continue, "
+                  "IF {scatter} per rung; tail",
         "phase": "compacted_tick"},
-    "Simulator world update": {"stages": "world", "phase": "sim"},
+    "Simulator campaign": {"stages": "the step's, handoff, world",
+                           "launch": "one parent graph: lm_continue, WHILE {the step's nodes, "
+                                     "handoff, world, lm_continue}",
+                           "phase": "sim"},
 }
 
 
@@ -2450,9 +2540,8 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
         fail(f"{where}: kernel launches {by_kind['captured']} captured, {by_kind['eager']} eager")
     launches = by_kind["captured"]
     check_launches(where, launches, DEBUG_PATH_KERNELS, ticks=len(poses))
-    if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
-        fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch and no done "
-             f"check a tick")
+    if host_ops["graph_replays"] != len(poses):
+        fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch a tick")
     loops = loop_record(steps["captured"])
     check_one_sample_per_evaluation(where, launches)
 
@@ -2777,9 +2866,8 @@ def phase_latent_tick(cells, dev):
         check_launches(where, launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
         check_one_sample_per_evaluation(where, launches)
         host_ops = dict(steps["captured"].tick.host_launches)
-        if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
-            fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch and no "
-                 f"done check a tick")
+        if host_ops["graph_replays"] != len(poses):
+            fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch a tick")
         loops = loop_record(steps["captured"])
         if launches["fused_iter"] != launches["propose"] + len(poses):
             fail(f"{where}: {launches['fused_iter']} evaluations for {launches['propose']} LM "
@@ -2887,19 +2975,24 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
     """The compacted warm-start tick at full width, on each of `cells`
     (name, cfg, scenario batch, per-tick poses): `cfg` with
     warm_start_mode="previous_solution", its ticks with the carry fed back,
-    through make_step_batch_compacted's default (its stages replayed as
-    CUDA graphs: chunks per rung of the width ladder, transitions, scatters),
-    through the eager compacted tick (capture=False) and through the
-    captured plain tick (make_step_batch). Every kernel works scenario by
-    scenario, so compaction changes no lane: every leaf of the three equals
-    bit for bit; the captured compacted tick ran the eager one's widths and
-    its kernel launch counts. On the first cell also WARM_TICKS ticks from
-    the first pose, perturbed per tick as bench.py perturbs it (+1e-6 * t),
-    held likewise. Printed: iterations x width of the compacted and the
-    plain solver (from the steps' width_log), mean iterations, ms/tick of
-    the three in turns, device launches and busy ms of a tick, stage graph
-    device ms, host launches a tick, capture seconds, peak memory. Returns
-    the first cell's captured compacted ticks' launch counts."""
+    through make_step_batch_compacted's default (one launch of a parent
+    graph a tick: chunks per rung of the width ladder, transitions and
+    scatters under conditional nodes that compact_continue steers on the
+    device), through the eager compacted tick (capture=False) and through
+    the captured plain tick (make_step_batch). Every kernel works scenario
+    by scenario, so compaction changes no lane: every leaf of the three
+    equals bit for bit; the captured compacted tick ran the eager one's
+    widths and its kernel launch counts, but for compact_continue's own.
+    A captured tick is 36 host launches (17 input copies, one graph launch,
+    18 output clones), and its ticks after the first run
+    under torch.cuda.set_sync_debug_mode("error"). On the first cell also
+    WARM_TICKS ticks from the first pose, perturbed per tick as bench.py
+    perturbs it (+1e-6 * t), held likewise. Printed: iterations x width of
+    the compacted and the plain solver (from the steps' width_log), mean
+    iterations, ms/tick of the three in turns, device launches and busy ms
+    of a tick, stage graph device ms, the parent graph's nodes, device ms
+    and launch host ms, host launches a tick, capture seconds, peak memory.
+    Returns the first cell's captured compacted ticks' launch counts."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
         make_carry, make_step_batch, make_step_batch_compacted,
@@ -2944,7 +3037,7 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
                               kinds=("captured compacted", other))
                 same_bits(f"{where} {label}", (res["captured"][1],), (res[other][1],),
                           parts=("carry",), kinds=("captured compacted", other))
-            if res["captured"][2] != res["eager"][2]:
+            if without_loop(res["captured"][2]) != without_loop(res["eager"][2]):
                 fail(f"{where} {label}: kernel launches {res['captured'][2]} captured, "
                      f"{res['eager'][2]} eager")
             if res["captured"][3] != res["eager"][3]:
@@ -2956,12 +3049,25 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
 
         res = held(poses, "main")
         launches = res["captured"][2]
-        # the compacted tick keeps its host checks between chunks: no loop on
-        # the device, no lm_continue
-        check_launches(where, launches, without_loop(DEFAULT_PATH_KERNELS), ticks=len(poses))
+        # the schedule runs on the device: compact_continue, no lm_continue
+        check_launches(where, launches, COMPACTED_PATH_KERNELS, ticks=len(poses))
         check_one_sample_per_evaluation(where, launches)
         host = {kind: host_launches_per_tick(steps[kind].tick, len(poses))
                 for kind in ("captured", "plain")}
+        host_ops = dict(steps["captured"].tick.host_launches)
+        if host["captured"] != 36 or host_ops["graph_replays"] != len(poses):
+            fail(f"{where}: {host_ops} over {len(poses)} ticks, not 36 host launches (one "
+                 "graph launch) a tick")
+        carry = fresh()
+        steps["captured"](with_pose(sc, poses[0]), carry)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for pose in poses:
+                carry = steps["captured"](with_pose(sc, pose), carry)[2]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
         if path_launches is None:
             path_launches = launches
 
@@ -2983,7 +3089,7 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
             "launches": launches, "bit_equal": {"eager": True, "plain": True},
             "iterations_x_width": work(res),
             "ms_per_tick": {k: host_ms_stats(v) for k, v in ms.items()},
-            "host_launches_per_tick": host,
+            "host_launches_per_tick": host, "sync_debug_ticks": len(poses),
             "capture_s": steps["captured"].tick.capture_seconds, "memory": memory,
         }
         if name == cells[0][0]:
@@ -3002,6 +3108,7 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
         cell["device_launches_last_tick"] = {k: v[0] for k, v in profiles.items()}
         cell["device_busy_ms_last_tick"] = {k: v[1] for k, v in profiles.items()}
         cell["stage_device_ms"] = stage_device_ms(steps["captured"])
+        cell.update(loop_record(steps["captured"]), **parent_graph_ms(steps["captured"]))
         emit(cell)
         del steps, res
     return path_launches
@@ -3266,17 +3373,25 @@ def phase_native(cfg, dev):
 def phase_sim(cfg, dev, sc_np):
     """The closed-loop simulator on the card: a campaign of B_MAIN native
     social scenarios for SIM_TICKS ticks, captured (make_simulate's default:
-    the world update of a tick replayed as one CUDA graph) and the reference
-    loop (capture=False) in turns (reference, captured, captured,
-    reference, twice): the captured SimResult equal to the reference's bit for bit
-    and both launching the same kernels; finite poses, commands in their
-    bounds, the STATUS_OK share; ms per simulated tick of both, the people
-    update's share of each (the reference's people update timed alone, the
-    captured world graph's device ms) and the host's launches per simulated
-    tick; lanes 0 and 1 equal bit for bit to B = 1 simulations of those
-    scenarios over SIM_LANE_TICKS ticks, and the two behavioral scenarios of
-    tests/test_simulator.py. Returns the launch counts of the captured
-    campaign."""
+    the whole campaign one launch of a parent graph that loops over the
+    ticks on the device, each tick the step's nodes with its LM loops
+    nested, the hand-off and the world update) and the reference loop
+    (capture=False) in turns (reference, captured, captured, reference,
+    twice), after a first call of each (the captured one's seconds hold
+    its capture: the step's stages, nested, with no parent graph of the
+    step's own): the captured SimResult equal to the reference's bit for bit and
+    both launching the same kernels but the loop over ticks' SIM_TICKS + 1
+    lm_continue checks; one graph launch a campaign and none by the step;
+    a campaign of SIM_TICKS // 2 ticks with the same host launches and the
+    first half of the results bit for bit; a campaign under
+    torch.cuda.set_sync_debug_mode("error"); finite poses, commands in
+    their bounds, the STATUS_OK share; ms per simulated tick of both, the
+    people update's share of each (the reference's people update timed
+    alone, the captured world graph's device ms) and the host's launches
+    per simulated tick; lanes 0 and 1 equal bit for bit to B = 1
+    simulations of those scenarios over SIM_LANE_TICKS ticks, and the two
+    behavioral scenarios of tests/test_simulator.py. Returns the launch
+    counts of the captured campaign."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.core.config import benchmark_obstacle_only_config
     from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
@@ -3290,9 +3405,15 @@ def phase_sim(cfg, dev, sc_np):
     sims = {"eager": Simulator(cfg, SIM_TICKS, device=dev, capture=False),
             "captured": make_simulate(cfg, SIM_TICKS, device=dev)}
     if sims["eager"].captured or not sims["captured"].captured:
-        fail("sim: make_simulate does not capture the world update on the card")
-    for sim in sims.values():
-        sim(sc)  # warm: the step's capture and the world graph's
+        fail("sim: make_simulate does not capture the campaign on the card")
+    first_s = {}
+    for kind, sim in sims.items():  # warm: the captured one captures its campaign
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim(sc)
+        torch.cuda.synchronize()
+        first_s[kind] = time.perf_counter() - t0
+    step_capture_s = list(sims["captured"].step.tick.capture_seconds)
     ms, res, launches, host = {k: [] for k in sims}, {}, {}, {}
     for kind in ("eager", "captured", "captured", "eager") * 2:
         sim = sims[kind]
@@ -3305,23 +3426,62 @@ def phase_sim(cfg, dev, sc_np):
         torch.cuda.synchronize()
         ms[kind].append((time.perf_counter() - t0) * 1e3 / SIM_TICKS)
         launches[kind] = dict(_build.launch_counts)
-        step_ops = sim.step.tick.host_launches
-        if step_ops["graph_replays"] != SIM_TICKS or step_ops["done_checks"] != 0:
-            fail(f"sim {kind}: the step's host operations {step_ops} over {SIM_TICKS} ticks, "
-                 f"not one graph launch and no done check a tick")
-        own = sim.host_launches
-        host[kind] = {"step": host_launches_per_tick(sim.step.tick, SIM_TICKS),
-                      "world_update": (own["graph_replays"] + own["tick_copies"]) / SIM_TICKS}
+        step_ops = dict(sim.step.tick.host_launches)
+        own = dict(sim.host_launches)
+        if kind == "eager":
+            if step_ops["graph_replays"] != SIM_TICKS:
+                fail(f"sim {kind}: the step's host operations {step_ops} over {SIM_TICKS} "
+                     "ticks, not one graph launch a tick")
+            host[kind] = {"step": host_launches_per_tick(sim.step.tick, SIM_TICKS)}
+        else:
+            if any(step_ops.values()) or own["graph_replays"] != 1:
+                fail(f"sim {kind}: host operations {own}, the step's {step_ops}, not one graph "
+                     "launch a campaign and none by the step")
+            host[kind] = {"campaign": sum(own.values()) / SIM_TICKS, "per_campaign": own}
     for kind in sims:
         check_launches(f"sim {kind}", launches[kind], DEFAULT_PATH_KERNELS, ticks=SIM_TICKS)
-    if launches["captured"] != launches["eager"]:
+    outer = launches["captured"][LOOP_KERNEL] - launches["eager"][LOOP_KERNEL]
+    if without_loop(launches["captured"]) != without_loop(launches["eager"]) or \
+            outer != SIM_TICKS + 1:
         fail(f"sim: kernel launches {launches['captured']} captured, {launches['eager']} in the "
-             "reference loop")
+             f"reference loop (the loop over ticks' checks: {outer}, not {SIM_TICKS + 1})")
     for field, x, y in zip(res["captured"]._fields, res["captured"], res["eager"]):
         if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
             fail(f"sim: {field} of the captured simulation differs from the reference loop's")
     res = res["captured"]
     launches = launches["captured"]
+
+    # A campaign of half the ticks: the same host launches, the first half
+    # of the results. Then a campaign of the program itself (the windows
+    # are checked by run_batch) with no hidden synchronisation.
+    half_ticks = SIM_TICKS // 2
+    half = make_simulate(cfg, half_ticks, device=dev)
+    half(sc)  # captures
+    half.reset_host_launches()
+    r_half = half(sc)
+    if half.host_launches != host["captured"]["per_campaign"]:
+        fail(f"sim: host launches {half.host_launches} in {half_ticks} ticks, "
+             f"{host['captured']['per_campaign']} in {SIM_TICKS}")
+    for field, x, y in zip(res._fields, r_half, res):
+        if field in ("min_people_dist", "goal_dist"):
+            continue
+        if not torch.equal(x, y[:, :x.shape[1]]):
+            fail(f"sim: {field} of a {half_ticks}-tick campaign differs from the first "
+                 f"{half_ticks} ticks of the {SIM_TICKS}-tick one")
+    prog, = sims["captured"]._programs.values()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            again = prog(sc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for field, x, y in zip(res._fields, again, res):
+        if not torch.equal(x, y):
+            fail(f"sim: {field} of a campaign under sync debug mode differs")
+    campaign_nodes = prog.parent.node_types()
+    del half, r_half, again
+
     if not bool(torch.isfinite(res.robot_traj).all()):
         fail("sim: a robot pose is not finite")
     v, w = res.cmds[..., 0], res.cmds[..., 1]
@@ -3348,8 +3508,7 @@ def phase_sim(cfg, dev, sc_np):
         torch.cuda.synchronize()
         ppl_ms.append((time.perf_counter() - t1) * 1e3)
     loops = loop_record(sims["captured"].step)  # the last captured campaign's
-    prog, = sims["captured"]._programs.values()
-    world_ms = time_cuda(prog.graph.replay, 20)
+    world_ms = time_cuda(prog.stages[1].graph.replay, 20)
     del sims, prog
 
     # Lanes 0 and 1 against their own B = 1 simulations.
@@ -3389,7 +3548,13 @@ def phase_sim(cfg, dev, sc_np):
               "eager": float(np.mean(ppl_ms)) / tick_ms["eager"]["mean"],
               "captured_world_graph": world_ms / tick_ms["captured"]["mean"]},
           "host_launches_per_simulated_tick": {
-              k: {**v, "total": v["step"] + v["world_update"]} for k, v in host.items()},
+              "captured": {**host["captured"], "total": host["captured"]["campaign"]},
+              "eager": {**host["eager"], "total": host["eager"]["step"]
+                        + host["eager"]["world_update"]}},
+          "first_campaign_s": first_s, "step_capture_s": step_capture_s,
+          "half_campaign_ticks": half_ticks, "sync_debug_campaigns": 1,
+          "campaign_parent_graph_nodes": sum(campaign_nodes.values()),
+          "campaign_parent_graph_node_types": campaign_nodes,
           "step_loop": loops,
           "status_ok_share": float((res.status == 0).float().mean()),
           "min_people_dist_p50": float(res.min_people_dist.median()),
@@ -3581,9 +3746,9 @@ def phase_distributed(cfg, dev, sc, poses):
         launches = dict(_build.launch_counts)
         check_launches("distributed", launches, DEFAULT_PATH_KERNELS, ticks=len(poses))
         host_ops = dict(dstep.tick.host_launches)
-        if host_ops["graph_replays"] != len(poses) or host_ops["done_checks"] != 0:
+        if host_ops["graph_replays"] != len(poses):
             fail(f"distributed: the local step's host operations {host_ops} over {len(poses)} "
-                 f"ticks, not one graph launch and no done check a tick")
+                 "ticks, not one graph launch a tick")
         loops = loop_record(dstep)
         check_one_sample_per_evaluation("distributed", launches)
         outs_u, carry_u = run_ticks(step, sc, poses, make_carry(cfg, batch, device=dev))
@@ -3833,7 +3998,8 @@ def main():
                "controller": launches_controller, "sim": launches_sim,
                "stream": launches_stream, "distributed": launches_distributed}
     own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": None,
-                                             "rollout_prep": None}
+                                             "rollout_prep": None,
+                                             "compact_continue": "compacted"}
     emit({"kernels": [
         {"name": k, **KERNEL_INFO[k], "path": own_path[k],
          "launches": sum(by_path[p][k] for p in own_path[k].split(", ")) if own_path[k] else 0,

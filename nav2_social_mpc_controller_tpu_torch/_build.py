@@ -1,11 +1,12 @@
 """Builds and loads the package's CUDA kernels.
 
-The nine sources under ``csrc/`` (ten kernels: ``tr_iter.cu`` holds K3
+The nine sources under ``csrc/`` (eleven kernels: ``tr_iter.cu`` holds K3
 and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
 package's jitted trajectorizer scan; ``tick_graph.cu`` is the port's own
-too, the LM loop's condition ``lm_continue`` and the parent graph that runs
-a tick as one launch, the counterpart of the JAX package's LM
-``lax.while_loop``) expose a plain C interface (no PyTorch
+too, the loops' conditions ``lm_continue`` and ``compact_continue`` and the
+primitives of the parent graphs that run a tick, a compacted tick or a
+simulated campaign as one launch, the counterparts of the JAX package's
+``lax.while_loop``s and ``lax.scan``) expose a plain C interface (no PyTorch
 headers), so each compiles in seconds (the headers ``chol.cuh``,
 ``damped_step.cuh``, ``bicubic.cuh`` and ``rollout.cuh`` hold the code that
 two kernels share).
@@ -26,8 +27,9 @@ The launch counters live here too: each kernel wrapper adds one to its entry
 of ``launch_counts`` where it launches its kernel, and nowhere else, so a run
 can show that it really went through the kernels. K7's two entries, the
 damped step and the standalone solve, count under ``spd_solve``. A tick
-launched as one graph (controller/graph.py) runs its LM loop's body as often
-as the device decides: what it owes the counters is read from the device
+or a campaign launched as one graph (controller/graph.py,
+controller/graph_compacted.py, runtime/simulator.py) runs its loops' bodies
+as often as the device decides: what it owes the counters is read from the device
 when the counts are read (``LaunchCounts``), never inside the tick.
 """
 
@@ -114,6 +116,7 @@ class LaunchCounts(dict):
 launch_counts = LaunchCounts({
     "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "rollout_sample": 0, "fused_iter": 0,
     "propose": 0, "commit": 0, "spd_solve": 0, "trajectorize": 0, "lm_continue": 0,
+    "compact_continue": 0,
 })
 
 _lock = threading.Lock()
@@ -123,6 +126,7 @@ last_build_log = ""  # the compilers' output of the last build()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_ulonglong
 
 # name -> argtypes; every entry returns the cudaError_t of its launch.
 _SIGNATURES = {
@@ -159,18 +163,36 @@ _SIGNATURES = {
     # points, n, pose0, poses, cmds, n_steps, ok, B, P, S, lookahead_dist,
     # desired_linear_vel, max_angular_vel, time_step, omnidirectional, stream
     "social_mpc_trajectorize_f32": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
-    # head, tail, n_loops, chunks, lengths, done, n, stats, out,
-    # max_iterations, check_done, graph_out, exec_out, bodies_out
-    "social_mpc_tick_graph_build": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    # graph_out
+    "social_mpc_graph_create": [_P],
+    # graph, handle_out
+    "social_mpc_graph_handle": [_P, _P],
+    # graph, dep, child, node_out
+    "social_mpc_graph_add_child": [_P, _P, _P, _P],
+    # graph, dep, handle, is_while, node_out, body_out
+    "social_mpc_graph_add_conditional": [_P, _P, _U, _I, _P, _P],
+    # graph, dep, handle, done, n, stats, out, reset, add, need,
+    # max_iterations, check_done, slot, node_out
+    "social_mpc_graph_add_lm_continue": [_P, _P, _U, _P, _I, _P, _P] + [_I] * 6 + [_P],
+    # graph, dep, handles, n_handles, handle_mask, done, width, next_width,
+    # stats, out, rung, n_rungs, reset, check_every, max_iterations, finish,
+    # node_out
+    "social_mpc_graph_add_compact_continue": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P]
+    + [_I] * 6 + [_P],
+    # graph, exec_out
+    "social_mpc_graph_instantiate": [_P, _P],
     # exec, stream
-    "social_mpc_tick_graph_launch": [_P, _P],
-    # graph, exec
-    "social_mpc_tick_graph_destroy": [_P, _P],
+    "social_mpc_graph_launch": [_P, _P],
+    # graph, exec (or NULL)
+    "social_mpc_graph_destroy": [_P, _P],
     # graph, counts (32 int64)
     "social_mpc_graph_node_types": [_P, _P],
     # done, n, stats, out, reset, add, need, max_iterations, check_done,
     # slot, stream
     "social_mpc_lm_continue": [_P, _I, _P, _P] + [_I] * 6 + [_P],
+    # done, width, next_width, stats, out, rung, n_rungs, reset,
+    # check_every, max_iterations, finish, stream
+    "social_mpc_compact_continue": [_P, _I, _I, _P, _P] + [_I] * 6 + [_P],
 }
 
 

@@ -33,8 +33,9 @@ once:
 Between the input copies and the output clones the host reads nothing of
 the device. ``controller/graph_compacted.py`` stages
 make_step_batch_compacted's tick on the same head and tail, with chunks at
-each width of its ladder, the transitions between them, and the host's
-checks between chunks, each stage replayed on its own.
+each width of its ladder and the transitions between them, in one parent
+graph whose schedule ``compact_continue`` decides on the device;
+runtime/simulator.py nests this module's tick in its loop over ticks.
 
 The stages read static tensors: the scenario and carry leaves the tick reads
 are copied into buffers of the program (``copy_``, never rebound, since the
@@ -55,8 +56,7 @@ runs, with lm_continue's launches, are read from the device counter when
 the counts are read (``_build.LaunchCounts``), never inside the tick. The
 warm-up tick and the capture add nothing. The counters thus go on meaning
 "kernels the ticks ran". ``host_launches`` counts what the host does
-instead: graph launches, input copies, output clones (and the compacted
-tick's done checks).
+instead: graph launches, input copies and output clones.
 
 On the CPU (no graphs) the same stages run as plain functions on the same
 static buffers, the loops in Python on lm_continue's plain version, with
@@ -173,11 +173,10 @@ def collector_held():
 
 
 class _Stage:
-    """fn(*args) as a CUDA graph, captured once, or, uncaptured, called
-    every time. A captured stage either replays itself (the compacted
-    tick's stages) or is a child of a program's parent graph (keep_graph:
-    its cudaGraph_t is kept for the parent to clone, and the stage never
-    replays, nor is reset: its pool holds the memory the clone uses)."""
+    """fn(*args), uncaptured called every time, or captured once as a CUDA
+    graph that is a child of a parent graph (keep_graph: its cudaGraph_t is
+    kept for the parent to clone, and the stage is never reset: its pool
+    holds the memory the clone uses)."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -185,41 +184,43 @@ class _Stage:
         self.out = None
         self.tally = {}
 
-    def capture(self, args, pool, stream, keep_graph=False):
+    def capture(self, args, pool, stream):
         """Record fn(*args) and return its outputs; the launch counts its
         wrappers added are the tally of a run (the caller takes them
         back: capture runs nothing)."""
         before = dict(_build.launch_counts)
-        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             self.out = self.fn(*args)
         self.tally = {k: n - before[k] for k, n in _build.launch_counts.items() if n != before[k]}
         self.graph = graph
         return self.out
 
-    def count(self, runs: int = 1) -> None:
-        """Add the tally of `runs` runs to the launch counts."""
+    def count(self) -> None:
+        """Add the tally of a run to the launch counts."""
         for k, n in self.tally.items():
-            _build.launch_counts.add(k, n * runs)
+            _build.launch_counts.add(k, n)
 
     def __call__(self, *args):
-        if self.graph is None:
-            return self.fn(*args)
-        self.graph.replay()
-        self.count()
-        return self.out
+        if self.graph is not None:
+            raise RuntimeError("a captured stage runs only as a node of its parent graph")
+        return self.fn(*args)
 
 
 class _Program:
     """The staged tick of one input signature: static input buffers, the
     head and tail stages, and the solve's stages, which a subclass gives
-    (``_stages``: every stage once, in capture order; ``_run``: one tick
-    from head to tail, returning the tail's outputs; ``width_log``)."""
+    (``_stages``: every stage once, in capture order; ``_solve``: the
+    solve's loops run from the host on the conditions' plain versions;
+    ``_parent``: the parent graph of the captured stages; ``counter``, a
+    _LoopCounter of its loops; ``slots``, (slot of the counter's stats,
+    stage) for each stage run in a loop, whose runs the device counts
+    there; ``width_log``). A program nested in a caller's parent graph
+    (``standalone`` false: GraphTick.nested) builds its own parent graph
+    only if one of its ticks is launched alone."""
 
-    keep_graphs = False  # the stages are children of a parent graph
-    counter = None  # a _LoopCounter where the device runs the loops
-
-    def __init__(self, tick: "GraphTick", scenario: Scenario, carry: ControllerCarry):
+    def __init__(self, tick: "GraphTick", scenario: Scenario, carry: ControllerCarry,
+                 standalone: bool = True):
         cfg, lm_cfg = tick.cfg, tick.lm_cfg
         self.tick = tick
         self.scenario = tree_map(torch.clone, _read_leaves(scenario))
@@ -229,9 +230,14 @@ class _Program:
                                              tick.trace_len))
         self.tail = _Stage(lambda h: tick_tail(cfg, h, self.carry))
         self._build()
+        self.parent = None
         self.capture_seconds = None
         if tick.captured:
+            t0 = time.perf_counter()
             self._capture()
+            if standalone:
+                self.parent = self._parent()
+            self.capture_seconds = time.perf_counter() - t0
 
     def _every_stage(self, run):
         """run(stage, *args) on every stage once, in capture order, each
@@ -246,7 +252,6 @@ class _Program:
         them (a stage's outputs may sit where an earlier graph kept its
         temporaries, which it never reads after that graph runs again);
         the launch counts left as they were."""
-        t0 = time.perf_counter()
         counts = dict(_build.launch_counts)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -256,14 +261,26 @@ class _Program:
         pool = torch.cuda.graph_pool_handle()
         with collector_held():
             self._every_stage(
-                lambda stage, *args: stage.capture(args, pool, stream, self.keep_graphs))
+                lambda stage, *args: stage.capture(args, pool, stream))
         torch.cuda.synchronize()
         _build.launch_counts.update(counts)
-        self._captured()
-        self.capture_seconds = time.perf_counter() - t0
+        self.counter.runs = [(slot, stage.tally) for slot, stage in self.slots]
 
-    def _captured(self):
-        """What a program does once its stages are captured."""
+    def _run(self):
+        """One tick from head to tail: one launch of the parent graph, or,
+        uncaptured, the stages and the solve's loops from the host."""
+        if not self.tick.captured:
+            h = self.head()
+            self._solve(h)
+            return self.tail(h)
+        if self.parent is None:
+            self.parent = self._parent()
+        self.parent.launch()
+        self.tick.host_launches["graph_replays"] += 1
+        self.head.count()
+        self.tail.count()
+        _build.launch_counts.owe(self.counter)
+        return self.tail.out
 
     def __call__(self, scenario: Scenario, carry: ControllerCarry):
         counts = self.tick.host_launches
@@ -277,27 +294,32 @@ class _Program:
 
 
 class _LoopCounter:
-    """The device's record of a program's loops (``stats``, see
-    controller/tick_graph.py) and what it owes _build.launch_counts:
-    lm_continue's launches, and each loop's chunk tally times its body's
-    runs. Apart from the program, so that a program that dies with launches
-    owed is freed all the same (the counts keep only this)."""
+    """The device's record of a program's loops (``stats``: see
+    controller/tick_graph.py) and what it owes _build.launch_counts: the
+    condition kernel's launches (stats[1]) and, for each (slot, tally) of
+    ``runs``, a stage's tally times stats[slot], the stage's runs since the
+    last drain; ``body_slots`` are the slots of the LM chunks' runs. Apart
+    from the program, so that a program that dies with launches owed is
+    freed all the same (the counts keep only this)."""
 
-    def __init__(self, n_loops: int, device):
-        self.stats = tick_graph.new_stats(n_loops, device)
-        self.tallies = []
+    def __init__(self, stats: torch.Tensor, kernel: str = "lm_continue"):
+        self.stats = stats
+        self.kernel = kernel
+        self.runs = []
+        self.body_slots = []
         self.body_runs = 0
 
     def drain(self) -> dict:
         """The launches counted since the last drain (a read of the device,
         which _build.launch_counts makes when it is read)."""
         stats = self.stats.tolist()
-        owed = {"lm_continue": stats[1]}
-        for k, tally in enumerate(self.tallies):
+        owed = {self.kernel: stats[1]}
+        for slot, tally in self.runs:
             for name, n in tally.items():
-                owed[name] = owed.get(name, 0) + n * stats[2 + k]
-        self.body_runs += sum(stats[2:])
-        self.stats[1:].zero_()
+                owed[name] = owed.get(name, 0) + n * stats[slot]
+        self.body_runs += sum(stats[slot] for slot in self.body_slots)
+        drained = sorted({1} | {slot for slot, _ in self.runs} | set(self.body_slots))
+        self.stats.index_fill_(0, torch.tensor(drained, device=self.stats.device), 0)
         return owed
 
 
@@ -310,41 +332,36 @@ class _LoopProgram(_Program):
     one parent graph, launched once a tick; uncaptured, the loops run in
     Python on lm_continue's plain version."""
 
-    keep_graphs = True
-
     def _build(self):
         tick, lm_cfg = self.tick, self.tick.lm_cfg
         self.lengths = tick_graph.loop_lengths(lm_cfg.max_iterations, tick.check_every)
         self.chunks = [_Stage(lambda h, n=n: lm_chunk(lm_cfg, full_width(h), n, h.trace))
                        for n in self.lengths]
-        self.counter = _LoopCounter(len(self.lengths), tick.device)
+        self.counter = _LoopCounter(tick_graph.new_stats(len(self.lengths), tick.device))
+        self.slots = [(2 + k, chunk) for k, chunk in enumerate(self.chunks)]
+        self.counter.body_slots = [slot for slot, _ in self.slots]
         self.flag = torch.zeros(1, dtype=torch.int32, device=tick.device)
-        self.parent = None
 
     def _stages(self, run, h):
         for chunk in self.chunks:
             run(chunk, h)
 
-    def _captured(self):
-        self.counter.tallies = [chunk.tally for chunk in self.chunks]
-        self.parent = tick_graph.ParentGraph(
-            self.head.graph, [c.graph for c in self.chunks], self.tail.graph, self.lengths,
-            self.head.out.state.done, self.counter.stats, self.flag, self.tick.lm_cfg.max_iterations,
-            self.tick.check_every > 0)
+    def add_nodes(self, parent: tick_graph.ParentGraph, graph, dep):
+        """This program's tick into `graph` of `parent` after `dep`: its
+        stages, its loops and their lm_continue nodes (tick_graph.add_tick);
+        returns the last node. The caller owes the head's and the tail's
+        tallies for each run, the counter the loops'."""
+        return tick_graph.add_tick(
+            parent, graph, dep, self.head.graph, [c.graph for c in self.chunks],
+            self.tail.graph, self.lengths, self.head.out.state.done, self.counter.stats,
+            self.flag, self.tick.lm_cfg.max_iterations, self.tick.check_every > 0)
 
-    def _run(self):
-        if self.parent is None:
-            h = self.head()
-            self._loops(h)
-            return self.tail(h)
-        self.parent.launch()
-        self.tick.host_launches["graph_replays"] += 1
-        self.head.count()
-        self.tail.count()
-        _build.launch_counts.owe(self.counter)
-        return self.tail.out
+    def _parent(self):
+        parent = tick_graph.ParentGraph()
+        self.add_nodes(parent, parent.root, None)
+        return parent.instantiate()
 
-    def _loops(self, h):
+    def _solve(self, h):
         """The parent graph's loops, run from the host: each condition is
         lm_continue's plain version on the same tensors (the CPU path)."""
         max_iterations = self.tick.lm_cfg.max_iterations
@@ -383,6 +400,24 @@ def _read_leaves(scenario: Scenario) -> Scenario:
 
 
 
+class NestedTick(NamedTuple):
+    """A program's tick as parts of a caller's own loop (GraphTick.nested):
+    its static input buffers, which the caller writes in place; on the card
+    the tail's outputs, ``add_nodes(parent, graph, dep)`` that puts the tick
+    into a parent graph and returns its last node, the loop counter the
+    caller owes _build.launch_counts after each launch, and ``tally``, the
+    head's and the tail's launches, which the caller owes for each tick;
+    on the CPU ``run()``, one tick from the host, returning its outputs."""
+
+    scenario: Scenario
+    carry: ControllerCarry
+    out: Optional[tuple]
+    counter: _LoopCounter
+    tally: dict
+    add_nodes: object
+    run: object
+
+
 class GraphTick:
     """tick(scenario, carry) -> (cmd, aux, carry'): make_step_batch's tick
     for any config, staged as above; on CUDA one launch of a parent graph
@@ -396,10 +431,9 @@ class GraphTick:
     between two of lm_continue's checks (the results do not depend on it).
     ``capture_seconds`` holds each program's warm-up plus capture time, in
     order of capture; ``host_launches`` the host's operations since
-    ``reset_host_launches`` (graph launches, input copies, output clones,
-    done checks: each check, the compacted tick's, one reduction launch and
-    one copy to the host); ``body_runs`` the runs of the loops' bodies in
-    that time and ``width_log`` the width of every LM iteration of the last
+    ``reset_host_launches`` (graph launches, input copies, output clones:
+    no tick reads the device); ``body_runs`` the runs of the loops' bodies
+    in that time and ``width_log`` the width of every LM iteration of the last
     tick, both read from the device when asked."""
 
     program = _LoopProgram
@@ -423,7 +457,7 @@ class GraphTick:
     def reset_host_launches(self):
         _build.launch_counts.settle()
         self.host_launches.update(
-            graph_replays=0, input_copies=0, output_clones=0, done_checks=0)
+            graph_replays=0, input_copies=0, output_clones=0)
         for counter in self._counters():
             counter.body_runs = 0
 
@@ -436,17 +470,34 @@ class GraphTick:
     def width_log(self):
         return [] if self._last is None else self._last.width_log()
 
+    def _on_device(self):
+        return torch.cuda.device(self.device) if self.captured else contextlib.nullcontext()
+
     def __call__(self, scenario: Scenario, carry: ControllerCarry):
-        on_device = torch.cuda.device(self.device) if self.captured else contextlib.nullcontext()
-        with torch.no_grad(), on_device:
+        with torch.no_grad(), self._on_device():
             prog = self._last = self._program(scenario, carry)
             return prog(scenario, carry)
 
-    def _program(self, scenario, carry) -> _Program:
+    def nested(self, scenario: Scenario, carry: ControllerCarry) -> "NestedTick":
+        """The program of this input signature as the parts of a tick that
+        a caller nests in a parent graph of its own (runtime/simulator.py),
+        recorded as the last program (``width_log`` reads it). On the card
+        its stages are captured, and its own parent graph is built only if
+        the tick is later called with that signature."""
+        with torch.no_grad(), self._on_device():
+            prog = self._last = self._program(scenario, carry, standalone=False)
+        tally = dict(prog.head.tally)
+        for name, n in prog.tail.tally.items():
+            tally[name] = tally.get(name, 0) + n
+        return NestedTick(scenario=prog.scenario, carry=prog.carry, out=prog.tail.out,
+                          counter=prog.counter, tally=tally, add_nodes=prog.add_nodes,
+                          run=prog._run)
+
+    def _program(self, scenario, carry, standalone: bool = True) -> _Program:
         key = signature(scenario, carry)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = self.program(self, scenario, carry)
+            prog = self._programs[key] = self.program(self, scenario, carry, standalone)
             if prog.capture_seconds is not None:
                 self.capture_seconds.append(prog.capture_seconds)
         return prog

@@ -1,13 +1,16 @@
-"""The compacted warm-start tick replayed as CUDA graphs.
+"""The compacted warm-start tick as one CUDA graph launch.
 
 Counterpart of the JAX package's jitted ``make_step_batch_compacted``
-(``controller/controller.py``): make_step_batch_compacted's tick staged on
-the head and tail of controller/graph.py, with the compacted solver
+(``controller/controller.py``), whose solver (``solver/batched.py``) runs a
+``lax.while_loop`` per rung of its width ladder, compacts on the device and
+runs a final loop. Here make_step_batch_compacted's tick is staged on the
+head and tail of controller/graph.py, with the compacted solver
 (solver/batched.py) in between as graphs per rung of its width ladder
 [B] + width_ladder(B, capacity):
 
-  chunk       per rung and distinct chunk length n: n default LM
-              iterations on the rung's static state, bounds and
+  chunk       per rung and chunk length n (check_every; the remainder of
+              max_iterations if check_every does not divide it): n default
+              LM iterations on the rung's static state, bounds and
               ``ValueGrad.select``-ed data (``LatentValueGrad``'s with
               latent critics), written back in place (the first rung is
               the head's full-width state);
@@ -19,32 +22,45 @@ the head and tail of controller/graph.py, with the compacted solver
   scatter     per rung below the first: its state written back into the
               head's state, before the tail.
 
-The host schedule is the eager solver's: before each chunk it reads the
-current rung's active count once (the one synchronisation the eager solver
-takes there), stops at zero, and otherwise picks the rung the eager loop
-picks (``batched.next_level``). A check that falls past several rungs
-replays the transitions between them one after the other: the active lanes
-come first in the same order either way, and the done lanes that pad a rung
-are the same ones, frozen bit for bit, so the lanes and their bits are the
-eager solver's (tests/test_torch_graph_compacted.py). Every rung is captured
-at the first call with a signature, even those the first tick does not
-reach. ``width_log`` holds the width of each LM iteration of the last tick.
+Captured, they are the children of one parent graph
+(controller/tick_graph.py), launched once a tick:
+
+  head
+  for each rung k: compact_continue, WHILE { chunk_k, compact_continue },
+                   IF { remainder chunk_k }, IF { transition k -> k+1 }
+  compact_continue (finish), for each rung k >= 1: IF { scatter_k }
+  tail
+
+``compact_continue`` runs the eager solver's schedule
+(``batched.lm_solve_batch_compacted``) on the device: before each chunk it
+counts the active lanes of the rung reached, stops at zero or at the cap,
+descends while the count fits the next rung, and otherwise runs a chunk of
+check_every iterations, or the remainder of max_iterations at the last
+check, at that rung. A check that falls past several rungs runs the
+transitions between them one after the other: the active lanes come first
+in the same order either way, and the done lanes that pad a rung are the
+same ones, frozen bit for bit, so the lanes and their bits are the eager
+solver's (tests/test_torch_compacted_loop.py). Between the input copies and
+the output clones the host reads nothing of the device. On the CPU the same
+structure runs in Python, each condition computed by compact_continue's
+plain version. Every rung is captured at the first call with a signature,
+even those the first tick does not reach. ``width_log`` holds the width of
+each LM iteration of the last tick, from the device's record (read when
+asked).
 """
 
+import torch
+
+from nav2_social_mpc_controller_tpu_torch.controller import tick_graph
 from nav2_social_mpc_controller_tpu_torch.controller.graph import (
     GraphTick,
+    _LoopCounter,
     _Program,
     _Stage,
     full_width,
     lm_chunk,
 )
 from nav2_social_mpc_controller_tpu_torch.solver import batched, lm
-
-
-def chunk_schedule(max_iterations: int, check_every: int):
-    """The iteration counts of the chunks, in order: the eager loop's
-    stretches between two checks."""
-    return [min(check_every, max_iterations - it) for it in range(0, max_iterations, check_every)]
 
 
 def scatter_back(head, level: batched.Level) -> None:
@@ -66,17 +82,33 @@ class _CompactedProgram(_Program):
 
     def _build(self):
         tick, lm_cfg = self.tick, self.tick.lm_cfg
-        b = self.batch
+        b, every, cap = self.batch, tick.check_every, lm_cfg.max_iterations
         capacity = batched.compacted_capacity(b, tick.capacity_frac)
-        batched.check_compaction(b, capacity, lm_cfg, tick.check_every)
-        self.schedule = chunk_schedule(lm_cfg.max_iterations, tick.check_every)
-        self.log = []
+        batched.check_compaction(b, capacity, lm_cfg, every)
         self.widths = [b] + batched.width_ladder(b, capacity)
+        n_rungs = len(self.widths)
+        if n_rungs > tick_graph.MAX_HANDLES:
+            raise ValueError(f"a ladder of {n_rungs} rungs: the device schedule takes at most "
+                             f"{tick_graph.MAX_HANDLES}")
+        self.full = every if cap >= every else None  # a chunk between two checks
+        self.rest = cap % every or None  # the chunk at the last check
         self.chunks = [{n: _Stage(lambda level, n=n: lm_chunk(lm_cfg, level, n))
-                        for n in sorted(set(self.schedule))} for _ in self.widths]
+                        for n in (self.full, self.rest) if n} for _ in self.widths]
         self.transitions = [_Stage(lambda h, level, w=w: transition(h, level, w))
                             for w in self.widths[1:]]
         self.scatters = [None] + [_Stage(scatter_back) for _ in self.widths[1:]]
+        L = n_rungs
+        self.counter = _LoopCounter(tick_graph.compact_stats(L, tick.device), "compact_continue")
+        self.counter.body_slots = [4 + m * L + k for m in (1, 2) for k in range(L)]
+        self.slots = []
+        for k in range(L):
+            self.slots += [(4 + m * L + k, self.chunks[k][n])
+                           for m, n in ((1, self.full), (2, self.rest)) if n]
+            if k + 1 < L:
+                self.slots.append((4 + 3 * L + k, self.transitions[k]))
+            if k:
+                self.slots.append((4 + 4 * L + k, self.scatters[k]))
+        self.flags = torch.zeros(max(3, L), dtype=torch.int32, device=tick.device)
 
     def _stages(self, run, h):
         levels = [full_width(h)]
@@ -88,44 +120,85 @@ class _CompactedProgram(_Program):
         for k in range(1, len(self.widths)):
             run(self.scatters[k], h, levels[k])
 
-    def _run(self):
-        h = self.head()
-        replays = self._solve(h)
-        out = self.tail(h)
-        if self.tick.captured:
-            self.tick.host_launches["graph_replays"] += replays + 2
-        return out
+    def _check(self, k: int, level):
+        """compact_continue's arguments at rung k (level: the rung's Level,
+        None on the CPU before the tick reached it)."""
+        widths = self.widths
+        return dict(done=None if level is None else level.state.done,
+                    stats=self.counter.stats, out=self.flags, rung=k, n_rungs=len(widths),
+                    next_width=widths[k + 1] if k + 1 < len(widths) else 0,
+                    check_every=self.tick.check_every,
+                    max_iterations=self.tick.lm_cfg.max_iterations)
+
+    def _solve(self, h) -> None:
+        """The parent graph's schedule, run from the host: each condition is
+        compact_continue's plain version on the same tensors (the CPU
+        path)."""
+        levels = [full_width(h)] + [None] * (len(self.widths) - 1)
+        flags = self.flags
+        for k in range(len(self.widths)):
+            check = self._check(k, levels[k])
+            tick_graph.compact_continue(reset=k == 0, **check)
+            while flags[0]:
+                self.chunks[k][self.full](levels[k])
+                tick_graph.compact_continue(reset=False, **check)
+            if flags[1]:
+                self.chunks[k][self.rest](levels[k])
+            if flags[2]:
+                levels[k + 1] = self.transitions[k](h, levels[k])
+        tick_graph.compact_continue(reset=False, finish=True, **self._check(0, levels[0]))
+        for k in range(1, len(self.widths)):
+            if flags[k]:
+                self.scatters[k](h, levels[k])
+
+    def _parent(self):
+        L = len(self.widths)
+        levels = [full_width(self.head.out)] + [t.out for t in self.transitions]
+        parent = tick_graph.ParentGraph()
+        g = parent.root
+        prev = parent.child(g, None, self.head.graph, "the tick's head")
+        for k, level in enumerate(levels):
+            w = self.widths[k]
+            handles = [parent.handle(g) if has else None
+                       for has in (self.full, self.rest, k + 1 < L)]
+            check = self._check(k, level)
+            prev = parent.compact_continue(g, prev, handles, reset=k == 0, **check)
+            if self.full:
+                prev, body = parent.conditional(g, prev, handles[0], loop=True)
+                node = parent.child(body, None, self.chunks[k][self.full].graph,
+                                    f"the chunk of {self.full} LM iterations at width {w}")
+                parent.compact_continue(body, node, handles, reset=False, **check)
+            if self.rest:
+                prev, body = parent.conditional(g, prev, handles[1], loop=False)
+                parent.child(body, None, self.chunks[k][self.rest].graph,
+                             f"the chunk of {self.rest} LM iterations at width {w}")
+            if k + 1 < L:
+                prev, body = parent.conditional(g, prev, handles[2], loop=False)
+                parent.child(body, None, self.transitions[k].graph,
+                             f"the transition from width {w}")
+        handles = [None] + [parent.handle(g) for _ in range(1, L)]
+        prev = parent.compact_continue(g, prev, handles, reset=False, finish=True,
+                                       **self._check(0, levels[0]))
+        for k in range(1, L):
+            prev, body = parent.conditional(g, prev, handles[k], loop=False)
+            parent.child(body, None, self.scatters[k].graph,
+                         f"the scatter from width {self.widths[k]}")
+        parent.child(g, prev, self.tail.graph, "the tick's tail")
+        return parent.instantiate()
 
     def width_log(self):
-        return self.log
-
-    def _solve(self, h) -> int:
-        counts = self.tick.host_launches
-        level, k, replays, log = full_width(h), 0, 0, []
-        for n in self.schedule:
-            counts["done_checks"] += 1
-            n_active = batched.active_count(level)
-            if n_active == 0:
-                break
-            for _ in range(batched.next_level(self.widths, k, n_active) - k):
-                level = self.transitions[k](h, level)
-                k += 1
-                replays += 1
-            self.chunks[k][n](level)
-            replays += 1
-            log += [self.widths[k]] * n
-        if k:
-            self.scatters[k](h, level)
-            replays += 1
-        self.log = log
-        return replays
+        """The width of every LM iteration of the last tick (the device's
+        record: a read of the device)."""
+        at = self.counter.stats[4:4 + len(self.widths)].tolist()
+        return [w for w, n in zip(self.widths, at) for _ in range(n)]
 
 
 class CompactedGraphTick(GraphTick):
     """tick(scenario, carry) -> (cmd, aux, carry'): make_step_batch_compacted's
-    tick, staged as above; captured as CUDA graphs when `device` is CUDA,
-    plain functions on the CPU. capacity_frac sets the narrowest rung
-    (batched.compacted_capacity); the rest is GraphTick's."""
+    tick, staged as above; on CUDA one launch of a parent graph whose
+    schedule runs on the device, plain functions on the CPU. capacity_frac
+    sets the narrowest rung (batched.compacted_capacity); the rest is
+    GraphTick's."""
 
     program = _CompactedProgram
 

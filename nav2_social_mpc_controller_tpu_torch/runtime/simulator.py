@@ -25,7 +25,13 @@ from nav2_social_mpc_controller_tpu_torch.controller.controller import (
     make_carry,
     make_step_batch,
 )
-from nav2_social_mpc_controller_tpu_torch.controller.graph import collector_held
+from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.controller import tick_graph
+from nav2_social_mpc_controller_tpu_torch.controller.graph import (
+    _LoopCounter,
+    _Stage,
+    collector_held,
+)
 from nav2_social_mpc_controller_tpu_torch.core.config import SocialMPCConfig
 from nav2_social_mpc_controller_tpu_torch.core.types import (
     AgentsState,
@@ -119,22 +125,37 @@ def _goal_dist(start: Scenario, robot_traj):
 
 
 class _SimProgram:
-    """The simulated tick's world update for one input signature and run
-    length, on static buffers: the scenario (every leaf, the ESDF distances
-    that advance_people reads among them), the command of the tick's step,
-    the histories (B, T+1, ...) and a device tick counter. ``stage``
-    advances the world one tick and writes the tick's rows of the histories
-    through the counter (index_copy_ with a device index, then the counter
-    steps on, modulo T so that no replay writes outside them); the host
-    writes the step's status into its row directly.
-    Captured, it is one CUDA graph recorded after one eager warm-up run of
-    the stage; uncaptured (the CPU) the same function on the same buffers."""
+    """A staged campaign of one input signature and run length: the
+    controller step's tick for that signature as the parts of a nested
+    tick (controller/graph.py: GraphTick.nested, which builds no parent
+    graph of the step's own), whose static scenario buffers the world
+    updates in place (the ESDF distances, which the step never reads, in a
+    buffer of this program), the step's command, the histories (B, T+1, ...) and a device tick
+    counter. A simulated tick is the step's tick (head, LM loops, tail),
+    then ``handoff`` (the command into ``cmd``, the status into its row at
+    the tick counter, the new carry into the step's carry buffers), then
+    ``stage``, the world update: advance_world, the tick's rows of the
+    histories written through the counter (index_copy_ with a device
+    index), and the counter steps on, modulo T so that no extra run writes
+    outside them.
+
+    Captured (the card), handoff and stage are CUDA graphs recorded after
+    one eager warm-up run, and the campaign is one parent graph
+    (controller/tick_graph.py): lm_continue counting T ticks (no done
+    check), and a WHILE node whose body holds the step's tick node by node,
+    its LM loops nested there, then handoff, stage and lm_continue. It is
+    launched once a campaign: the host's launches do not depend on T.
+    Uncaptured (the CPU) the same loop runs in Python on lm_continue's
+    plain version, on the same buffers."""
 
     def __init__(self, sim: "Simulator", scen: Scenario):
         self.sim = sim
-        self.scen = tree_map(torch.clone, scen)
-        b, n_ticks = scen.robot.pose.shape[0], sim.n_ticks
         like = scen.robot.pose
+        b, n_ticks = like.shape[0], sim.n_ticks
+        self.carry0 = make_carry(sim.cfg, b, device=like.device, dtype=like.dtype)
+        self.step = sim.step.tick.nested(scen, self.carry0)
+        buf = self.step.scenario
+        self.scen = buf._replace(esdf=buf.esdf._replace(distances=scen.esdf.distances.clone()))
         self.cmd = torch.zeros((3, b), dtype=like.dtype, device=like.device)
         self.tick = torch.zeros((1,), dtype=torch.long, device=like.device)
         self.robot_traj = like.new_zeros((b, n_ticks + 1, 3))
@@ -142,9 +163,23 @@ class _SimProgram:
         self.cmds = like.new_zeros((b, n_ticks, 2))
         self.status_traj = torch.zeros((b, n_ticks), dtype=torch.int32, device=like.device)
         self.pds = like.new_zeros((b, n_ticks))
-        self.graph = None
+        self.counter = _LoopCounter(tick_graph.new_stats(1, like.device))
+        self.flag = torch.zeros(1, dtype=torch.int32, device=like.device)
+        self.unread = torch.zeros(1, dtype=torch.bool, device=like.device)  # no done check
+        self.stages = [_Stage(self.handoff), _Stage(self.stage)]
+        self.parent = None
         if sim.captured:
             self._capture()
+
+    def handoff(self, out):
+        """The step's outputs (cmd, aux, carry') where the world update and
+        the next tick read them."""
+        cmd, aux, carry = out
+        for dst, src in zip(self.cmd, (cmd.linear_x, cmd.linear_y, cmd.angular_z)):
+            dst.copy_(src)
+        self.status_traj.index_copy_(1, self.tick, aux.status[:, None].to(torch.int32))
+        for dst, src in zip(tree_leaves(self.step.carry), tree_leaves(carry)):
+            dst.copy_(src)
 
     def stage(self):
         sc, t = self.scen, self.tick
@@ -159,40 +194,74 @@ class _SimProgram:
         sc.people.state.copy_(people_state)
         t.add_(1).remainder_(self.sim.n_ticks)
 
+    def _run_stages(self, run):
+        run(self.stages[0], self.step.out)
+        run(self.stages[1])
+
     def _capture(self):
-        """One eager warm-up run of the stage on the capture stream (its
-        writes are overwritten by every run's set-up), then the graph, the
-        garbage collector held off (controller/graph.py)."""
+        """One eager warm-up run of handoff and stage on the capture stream
+        (their writes are overwritten by every run's set-up), then their
+        graphs in a pool of their own, the garbage collector held off
+        (controller/graph.py), then the parent graph."""
+        counts = dict(_build.launch_counts)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            self.stage()
+            self._run_stages(lambda stage, *args: stage(*args))
         torch.cuda.current_stream().wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        with collector_held(), torch.cuda.graph(self.graph, stream=stream):
-            self.stage()
+        pool = torch.cuda.graph_pool_handle()
+        with collector_held():
+            self._run_stages(lambda stage, *args: stage.capture(args, pool, stream))
         torch.cuda.synchronize()
+        _build.launch_counts.update(counts)
+        self.counter.runs = [(2, tally) for tally in
+                             (self.step.tally, *(stage.tally for stage in self.stages))]
+        parent = tick_graph.ParentGraph()
+        g = parent.root
+        handle = parent.handle(g)
+        check = parent.lm_continue(g, None, handle, reset=True, add=0, **self._ticks())
+        _, body = parent.conditional(g, check, handle, loop=True)
+        node = self.step.add_nodes(parent, body, None)
+        node = parent.child(body, node, self.stages[0].graph, "the hand-off")
+        node = parent.child(body, node, self.stages[1].graph, "the world update")
+        parent.lm_continue(body, node, handle, reset=False, add=1, slot=2, **self._ticks())
+        self.parent = parent.instantiate()
+
+    def _ticks(self):
+        """lm_continue's arguments as the counter of the campaign's ticks."""
+        return dict(done=self.unread, stats=self.counter.stats, out=self.flag, need=1,
+                    max_iterations=self.sim.n_ticks, check_done=False)
+
+    def _loop(self):
+        """The parent graph's loop over ticks, run from the host on
+        lm_continue's plain version (the CPU path)."""
+        ticks = self._ticks()
+        tick_graph.lm_continue(reset=True, add=0, **ticks)
+        while bool(self.flag[0]):
+            self.stages[0](self.step.run())
+            self.stages[1]()
+            tick_graph.lm_continue(reset=False, add=1, slot=2, **ticks)
 
     def __call__(self, scen: Scenario) -> SimResult:
-        sim, counts = self.sim, self.sim.host_launches
-        for dst, src in zip(tree_leaves(self.scen), tree_leaves(scen)):
+        counts = self.sim.host_launches
+        pairs = list(zip(tree_leaves((self.scen, self.step.carry)),
+                         tree_leaves((scen, self.carry0))))
+        pairs += [(self.robot_traj[:, 0], scen.robot.pose),
+                  (self.people_traj[:, 0], scen.people.state)]
+        for dst, src in pairs:
             dst.copy_(src)
-        self.robot_traj[:, 0].copy_(scen.robot.pose)
-        self.people_traj[:, 0].copy_(scen.people.state)
         self.tick.zero_()
-        carry = make_carry(sim.cfg, scen.robot.pose.shape[0], device=sim.device, dtype=sim.dtype)
-        for t in range(sim.n_ticks):
-            cmd, aux, carry = sim.step(self.scen, carry)
-            for dst, src in zip(self.cmd, (cmd.linear_x, cmd.linear_y, cmd.angular_z)):
-                dst.copy_(src)
-            self.status_traj[:, t].copy_(aux.status)
-            counts["tick_copies"] += 4
-            if self.graph is None:
-                self.stage()
-            else:
-                self.graph.replay()
-                counts["graph_replays"] += 1
+        counts["input_copies"] += len(pairs) + 1
+        self.sim.step.tick.nested(scen, self.carry0)  # the step's last program: this one
+        if self.parent is None:
+            self._loop()
+        else:
+            self.parent.launch()
+            counts["graph_replays"] += 1
+            _build.launch_counts.owe(self.counter)
+            _build.launch_counts.owe(self.step.counter)
         robot_traj = self.robot_traj.clone()
+        counts["output_clones"] += 6
         return SimResult(
             robot_traj=robot_traj,
             people_traj=self.people_traj.clone(),
@@ -211,16 +280,20 @@ class Simulator:
     call; the ticks run the unchecked batched step (``step``, make_step_batch
     with its default capture).
 
-    ``capture`` (the default) stages the world update of a tick
-    (``advance_world`` and the writes of the histories) on static buffers
-    per input signature, ``_SimProgram``: on CUDA one CUDA graph replayed
-    each tick, the port's counterpart of the JAX package's jitted scan over
-    ticks; on the CPU the same stage run uncaptured. ``capture=False`` runs
-    the reference loop, ``_reference_run``, that the staged one is held to
-    bit for bit. A failed capture or replay raises; nothing retries eagerly.
-    ``host_launches`` counts what the staged runs launch from the host each
-    tick beside the step's own (``step.tick.host_launches``): graph replays
-    and the copies of the step's command and status (``tick_copies``)."""
+    ``capture`` (the default) stages the whole campaign per input
+    signature, ``_SimProgram``: on CUDA one launch of a parent graph that
+    loops over the ticks on the device, each tick the step's own nodes (its
+    LM loops nested), the hand-off of its outputs and the world update, the
+    port's counterpart of the JAX package's jitted ``lax.scan`` over ticks;
+    on the CPU the same loop run from Python on the same buffers.
+    ``capture=False`` runs the reference loop, ``_reference_run``, that the
+    staged one is held to bit for bit. A failed capture, build or launch
+    raises; nothing retries eagerly. ``host_launches`` counts what a staged
+    campaign launches from the host: graph launches (one a campaign on the
+    card), input copies (the scenario, the first carry, the histories' first
+    rows, the tick counter's reset) and the six result tensors made
+    (``output_clones``); none of it depends on the number of ticks, and the
+    step's own ``step.tick.host_launches`` do not grow."""
 
     def __init__(self, cfg: SocialMPCConfig, n_ticks: int, control_period: float = 0.05,
                  device="cuda", dtype=torch.float32, capture: bool = True):
@@ -237,7 +310,7 @@ class Simulator:
         self.reset_host_launches()
 
     def reset_host_launches(self):
-        self.host_launches.update(graph_replays=0, tick_copies=0)
+        self.host_launches.update(graph_replays=0, input_copies=0, output_clones=0)
 
     def __call__(self, scenario: Scenario) -> SimResult:
         if np.ndim(scenario.robot.pose) == 1:
@@ -255,7 +328,9 @@ class Simulator:
         with torch.no_grad(), on_device:
             if not self.staged:
                 return self._reference_run(scen)
-            key = tuple((tuple(x.shape), x.dtype) for x in tree_leaves(scen))
+            # strides too, as the step keys its programs: each campaign
+            # program's step program is then the one GraphTick.nested finds
+            key = tuple((tuple(x.shape), x.stride(), x.dtype) for x in tree_leaves(scen))
             prog = self._programs.get(key)
             if prog is None:
                 prog = self._programs[key] = _SimProgram(self, scen)

@@ -21,9 +21,11 @@ synchronisation, so it is read where ``check_every`` already takes one for
 the early exit: a level may start up to ``check_every - 1`` iterations later
 than its trigger, which changes the work done and no result.
 
-The level logic (``Level``, ``next_level``, ``descend``, ``scatter``) is
-shared with the staged compacted tick (controller/graph_compacted.py), which
-replays the same iterations and transitions as CUDA graphs.
+``Level`` and ``descend`` are shared with the staged compacted tick
+(controller/graph_compacted.py), which runs the same iterations and
+transitions as one CUDA graph launch, its schedule (this loop's checks,
+``active_count`` and ``next_level``) decided on the device by
+``compact_continue``.
 
 No reference counterpart — Ceres solves ONE problem; this is the framework's
 own batching economics.

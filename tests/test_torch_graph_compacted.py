@@ -1,10 +1,10 @@
 """The staged compacted tick of ``controller/graph_compacted.py``
-(make_step_batch_compacted's tick as CUDA graphs on the card) held against
-the eager compacted tick.
+(make_step_batch_compacted's tick as one parent graph launch on the card)
+held against the eager compacted tick.
 
-On the CPU the same stages run uncaptured: the head, the chunks at each rung
-of the width ladder, the transitions between rungs, the scatter back and the
-tail. They must give the eager compacted tick's results bit for bit in
+On the CPU the same stages run uncaptured, on the device schedule's plain
+conditions: the head, the chunks at each rung of the width ladder, the
+transitions between rungs, the scatter back and the tail. They must give the eager compacted tick's results bit for bit in
 float64 and float32 (both gather the same lanes into the same widths), with
 the widths the eager solver ran, for a check that drops the active count
 past two rungs at once, for any check_every and for each input signature.
@@ -159,7 +159,7 @@ def test_a_check_past_two_rungs():
 
 @pytest.mark.parametrize("check_every", [1, 8])
 def test_check_every_changes_no_bit(check_every):
-    """The host's check policy moves where the ladder descends (the widths
+    """The check policy moves where the ladder descends (the widths
     are the eager solver's at the same check_every), never a result."""
     tick = CompactedGraphTick(_warm_cfg(), 0.25, "cpu", check_every=check_every)
     got = _ticks(StepFunction(tick, tick), 12, torch.float64)
@@ -245,11 +245,12 @@ def card():
 
 @pytest.mark.gpu
 def test_captured_compacted_tick_on_the_card(card):
-    """On the card make_step_batch_compacted replays CUDA graphs; over three
-    warm ticks its results equal the eager compacted tick's and the captured
-    plain tick's bit for bit (every kernel works scenario by scenario), its
-    widths the eager tick's, and its kernel launch counts the eager
-    compacted tick's."""
+    """On the card make_step_batch_compacted's tick is one parent graph
+    launch; over three warm ticks its results equal the eager compacted
+    tick's and the captured plain tick's bit for bit (every kernel works
+    scenario by scenario), its widths the eager tick's, and its kernel
+    launch counts the eager compacted tick's, but for the schedule's own
+    compact_continue."""
     batch, dtype = 256, torch.float32
     runs, counts = {}, {}
     for name, make in (
@@ -265,6 +266,8 @@ def test_captured_compacted_tick_on_the_card(card):
     for got, want, plain in zip(runs["captured"], runs["eager"], runs["plain"]):
         _assert_same(got, want)
         _assert_same(got[:3] + (None,), plain[:3] + (None,))
+    assert counts["captured"].pop("compact_continue") > 0  # the schedule's checks
+    assert counts["eager"].pop("compact_continue") == 0
     assert counts["captured"] == counts["eager"] and counts["captured"]["propose"] > 0
     assert min(runs["captured"][-1][3]) < batch
 
@@ -287,6 +290,7 @@ def test_captured_compacted_latent_tick_on_the_card(card):
         counts[capture] = dict(_build.launch_counts)
     for got, want in zip(runs[True], runs[False]):
         _assert_same(got, want)
+    assert counts[True].pop("compact_continue") > 0 and counts[False].pop("compact_continue") == 0
     assert counts[True] == counts[False]
     assert counts[True]["rollout_sample"] == counts[True]["fused_iter"] > 0
     assert counts[True]["bicubic"] == 0

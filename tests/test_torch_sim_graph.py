@@ -1,13 +1,14 @@
-"""The simulator's staged tick (runtime/simulator.py: the world update of a
-tick on static buffers, one CUDA graph per input signature on the card) held
-against the reference loop, ``simulate(..., capture=False)``.
+"""The simulator's staged campaign (runtime/simulator.py: the step's tick,
+the hand-off of its outputs and the world update on static buffers, one
+parent graph launched once a campaign on the card) held against the
+reference loop, ``simulate(..., capture=False)``.
 
-On the CPU the same stage runs uncaptured on the same buffers. It must give
+On the CPU the same loop runs from Python on the same buffers. It must give
 the reference loop's SimResult bit for bit (social and obstacle, B = 4, 3
 ticks, in float64 and in float32 with ATen on one intra-op thread), stay
 within 1e-6 of the JAX package's make_simulate in float64 on a batch, and
 return results that alias nothing. The test marked ``gpu`` holds the
-captured simulation against the reference loop on the card:
+captured campaign against the reference loop on the card:
 
     python -m pytest tests/test_torch_sim_graph.py -q --noconftest -p no:cacheprovider -m gpu
 """
@@ -21,7 +22,9 @@ import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.core import config as C
+from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry
 from nav2_social_mpc_controller_tpu_torch.core.config import config_from_dict
+from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy, tree_leaves
 from nav2_social_mpc_controller_tpu_torch.runtime.simulator import (
     SimResult,
     Simulator,
@@ -64,9 +67,12 @@ def test_staged_simulation_equals_the_reference_loop_bit_for_bit(name, dtype):
     got = sim(sc)
     _assert_same_bits(got, simulate(cfg, sc, 3, device="cpu", dtype=dtype, capture=False))
     assert got.robot_traj.shape == (4, 4, 3) and got.status.dtype == torch.int32
-    # per tick: the step's command and status copied in, nothing replayed
-    assert sim.host_launches["tick_copies"] == 4 * 3
-    assert sim.host_launches["graph_replays"] == 0
+    # per run, whatever the ticks: the scenario, the first carry, the
+    # histories' first rows and the tick counter in; nothing launched; the
+    # six result tensors out
+    n_in = len(tree_leaves(scenario_from_numpy(sc, device="cpu", dtype=dtype)))
+    n_in += len(tree_leaves(make_carry(cfg, 4, device="cpu", dtype=dtype))) + 3
+    assert sim.host_launches == {"graph_replays": 0, "input_copies": n_in, "output_clones": 6}
 
 
 def test_staged_simulation_matches_jax_f64():
@@ -151,9 +157,10 @@ def card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_captured_simulation_equals_the_reference_loop_on_the_card(card, name):
-    """On the card the world update replays one CUDA graph a tick; the
-    SimResult equals the reference loop's bit for bit, and both ran the
-    same kernels of the step."""
+    """On the card the campaign is one graph launch; the SimResult equals
+    the reference loop's bit for bit, and both ran the same kernels of the
+    step, the campaign's loop over ticks adding its lm_continue checks (its
+    first and one a tick)."""
     cfg, sc = _batch(name, 64, np.float32)
     counts, res = {}, {}
     for capture in (False, True):
@@ -163,7 +170,9 @@ def test_captured_simulation_equals_the_reference_loop_on_the_card(card, name):
         res[capture] = sim(sc)
         torch.cuda.synchronize()
         counts[capture] = dict(_build.launch_counts)
-        if capture:
-            assert sim.host_launches["graph_replays"] == 4
+        if capture:  # one launch for the whole campaign
+            assert sim.host_launches["graph_replays"] == 1
     _assert_same_bits(res[True], res[False])
+    outer = counts[True].pop("lm_continue") - counts[False].pop("lm_continue")
     assert counts[True] == counts[False] and counts[True]["trajectorize"] == 4
+    assert outer == 4 + 1

@@ -12,14 +12,28 @@ tick's host operations (``step.tick.host_launches`` per tick). Run it once
 per checkout and order (parent, change, change, parent) in one call to the
 card: two versions are compared only within one machine.
 
-Cells: obstacle and social at B = 1024 and 4096 (three ticks with the carry
-fed back, the robot riding its plan, 64 seeds tiled to B), the debug-trace
-tick (``debug_optimizer``) at social B = 4096 and stress36 B = 1024, the
-social config with both latent critics (pure angle 0.5, curvature 0.3) at
-B = 1024, and one robot (``make_step``, B = 1, the social config and its
-latent variant) riding its plan for 30 ticks. Scenarios come from
-``utils/scenarios.py: make_scenario_batch`` with a fixed seed, so every
-checkout solves the same problems.
+Cells, by group:
+
+  ticks      obstacle and social at B = 1024 and 4096 (three ticks with the
+             carry fed back, the robot riding its plan, 64 seeds tiled to
+             B), the debug-trace tick (``debug_optimizer``) at social
+             B = 4096 and stress36 B = 1024, the social config with both
+             latent critics (pure angle 0.5, curvature 0.3) at B = 1024;
+  one_robot  one robot (``make_step``, B = 1, the social config and its
+             latent variant) riding its plan for 30 ticks;
+  compacted  the warm-start tick (warm_start_mode="previous_solution")
+             through make_step_batch_compacted (capacity 0.25) and through
+             make_step_batch beside it: social B = 4096 over the three
+             poses and over 10 ticks from the first pose perturbed by
+             1e-6 * t (bench.py's warm ticks), stress36 B = 1024 over the
+             three poses;
+  sim        a 40-tick closed-loop campaign of 4,096 social scenarios
+             (``make_simulate``): ms per simulated tick and the host's
+             operations per simulated tick, the simulator's and its
+             step's.
+
+Scenarios come from ``utils/scenarios.py: make_scenario_batch`` with a
+fixed seed, so every checkout solves the same problems.
 """
 
 import argparse
@@ -52,8 +66,9 @@ def main():
 
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
-        make_carry, make_step, make_step_batch,
+        make_carry, make_step, make_step_batch, make_step_batch_compacted,
     )
+    from nav2_social_mpc_controller_tpu_torch.runtime.simulator import make_simulate
     from nav2_social_mpc_controller_tpu_torch.core import config as C
     from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
     from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
@@ -135,6 +150,25 @@ def main():
         host = {k: v / len(ms) for k, v in step.tick.host_launches.items()}
         return {**stats(ms), "host_operations_per_tick": host}
 
+    def campaign(cfg, b, n_ticks, rounds=3):
+        sc, _ = batch(cfg, b, cfg.n_agents)
+        sim = make_simulate(cfg, n_ticks, device=dev)
+        sim(sc)  # warm: captures
+        ms = []
+        sim.reset_host_launches()
+        sim.step.tick.reset_host_launches()
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sim(sc)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3 / n_ticks)
+        per_tick = rounds * n_ticks
+        return {**stats(ms), "simulated_ticks": n_ticks,
+                "host_operations_per_simulated_tick": {
+                    "simulator": {k: v / per_tick for k, v in sim.host_launches.items()},
+                    "step": {k: v / per_tick for k, v in sim.step.tick.host_launches.items()}}}
+
     social, obstacle = C.benchmark_social_config(), C.benchmark_obstacle_only_config()
     stress36 = C.benchmark_stress_h36_config()
     latent = replace_opt(social, weights={"pure_angle_weight": 0.5, "curvature_weight": 0.3})
@@ -152,6 +186,19 @@ def main():
             del sc
         cells["social one robot B=1"] = one_robot(social, social.n_agents)
         cells["social latent one robot B=1"] = one_robot(latent, social.n_agents)
+        for name, cfg, b in [("social", social, 4096), ("stress36", stress36, 1024)]:
+            warm = replace_opt(cfg, warm_start_mode="previous_solution")
+            sc, poses = batch(warm, b, cfg.n_agents)
+            runs = [("", poses)]
+            if name == "social":
+                runs.append((" warm10", [poses[0] + 1e-6 * t for t in range(10)]))
+            for suffix, seq in runs:
+                for kind, make in (("compacted", make_step_batch_compacted),
+                                   ("warm plain", make_step_batch)):
+                    step = make(warm, device=dev)
+                    cells[f"{name} {kind}{suffix} B={b}"] = timed_ticks(step, warm, sc, seq, b)
+            del sc
+        cells["social sim B=4096"] = campaign(social, 4096, 40)
     print(json.dumps({"label": args.label, "root": args.root, "build_s": build_s,
                       "device": torch.cuda.get_device_name(0), "cells": cells}), flush=True)
 
