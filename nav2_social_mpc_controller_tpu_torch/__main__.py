@@ -9,7 +9,7 @@ Subcommands:
   sim     closed-loop simulation (the Gazebo-validation analogue,
           runtime/simulator.py) — prints behavioral metrics
   bench   batched-throughput measurement: B scenarios, a warm tick, then
-          --iters ticks
+          --iters ticks (on the card one graph launch for all of them)
   dryrun  N ranks, one scenario each, through the distributed step, held
           against the batched step over the same N scenarios in one process
   config  load + resolve a config and dump it as JSON
@@ -157,35 +157,27 @@ def cmd_sim(args):
 def cmd_bench(args):
     import torch
 
-    from nav2_social_mpc_controller_tpu_torch.controller.controller import (
-        make_carry,
-        make_step_batch,
-    )
     from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
+    from nav2_social_mpc_controller_tpu_torch.runtime.bench import BenchLoop
     from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
 
     dev = _device(args)
     cfg = _named_config(args.config, args.yaml)
     scb = scenario_from_numpy(
         make_scenario_batch(cfg, args.batch, base_seed=0, n_valid_people=args.people), device=dev)
-    step = make_step_batch(cfg, device=dev)
+    # n ticks with the carry fed back, the pose moved by 1e-6 * i: one graph
+    # launch on the card, the host loop on the CPU (runtime/bench.py)
+    loop = BenchLoop(cfg, device=dev)
+    bench = loop if dev.type == "cuda" else loop.host_loop
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-
-    def run(n):
-        """n ticks with the carry fed back, the pose moved by 1e-6 * i."""
-        carry = make_carry(cfg, args.batch, device=dev)
-        for i in range(n):
-            sc = scb._replace(robot=scb.robot._replace(pose=scb.robot.pose + 1e-6 * i))
-            cmd, _, carry = step(sc, carry)
-        return cmd.linear_x[0]
 
     sync()
     t0 = time.perf_counter()
-    float(run(1))  # the warm tick: builds the kernels on a cold cache
+    float(bench(scb, 1).linear_x[0])  # the warm tick: builds the kernels on a cold cache
     warm = time.perf_counter() - t0
     sync()
     t0 = time.perf_counter()
-    run(args.iters)
+    bench(scb, args.iters)
     sync()
     total = time.perf_counter() - t0
     per_tick = total / args.iters

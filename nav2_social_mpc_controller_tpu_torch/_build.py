@@ -10,6 +10,9 @@ simulated campaign as one launch, the counterparts of the JAX package's
 headers), so each compiles in seconds (the headers ``chol.cuh``,
 ``damped_step.cuh``, ``bicubic.cuh`` and ``rollout.cuh`` hold the code that
 two kernels share).
+The shapes each kernel is instantiated for come from ``kernel_shapes.py``,
+written into every build as ``kernel_shapes.h`` (``write_shapes_header``),
+whose X-macro lists the sources' dispatch tables expand.
 ``load()`` compiles every ``*.cu`` for Hopper
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
@@ -39,6 +42,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+from nav2_social_mpc_controller_tpu_torch import kernel_shapes
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -221,11 +226,23 @@ def sources():
     )
 
 
+def write_shapes_header(directory: str) -> str:
+    """kernel_shapes.h (kernel_shapes.header()) into `directory`, replaced
+    whole so that a concurrent reader never sees half of it; returns the
+    directory, the include path the sources need."""
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".h")
+    with os.fdopen(fd, "w") as f:
+        f.write(kernel_shapes.header())
+    os.replace(tmp, os.path.join(directory, kernel_shapes.HEADER_NAME))
+    return directory
+
+
 def _stale(lib_path: str) -> bool:
     if not os.path.exists(lib_path):
         return True
     built = os.path.getmtime(lib_path)
-    deps = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)]
+    deps = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)] + [kernel_shapes.__file__]
     return any(os.path.getmtime(p) > built for p in deps)
 
 
@@ -248,10 +265,11 @@ def _compile_and_link(nvcc: str, obj_dir: str, lib_path: str, verbose: bool) -> 
     into a file of `obj_dir` and rename it onto `lib_path`."""
     global last_build_log
     extra = ("-Xptxas", "-v") if verbose else ()
+    include = write_shapes_header(obj_dir)
     procs = []
     for src in sources():
         obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", include, "-c", src, "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = []

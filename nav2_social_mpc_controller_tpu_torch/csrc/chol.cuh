@@ -1,5 +1,6 @@
-// The unrolled Cholesky solve of K3 and K7 at D = 6 (damped_step.cuh, whose
-// D = 12 solve repeats this order of operations one row per lane) and the
+// The unrolled Cholesky solve of K3 and K7 in the thread layout, D <= 6
+// (damped_step.cuh, whose rows layout for larger D repeats this order of
+// operations one row per lane) and the
 // rounding helpers of K3, K4 and K7: A = L L^T, forward substitution
 // L y = rhs, back substitution L^T x = y, with reciprocal diagonals.
 //

@@ -13,16 +13,22 @@
 // step is mapped back as s_i x_i, and the projection and the model change
 // use the UNSCALED JtJ and g. With JAC = false the bodies are K3's.
 //
-// Two layouts, measured for K3 (PERF.md) and kept for K7:
+// Two layouts, measured for K3 at D = 6 and 12 (PERF.md) and kept for K7:
 //
-//   D = 6:  one thread per scenario in 32-thread blocks (B = 4096 gives all
-//           132 SMs work), the system in registers; JtJ read as float4 (a
-//           scenario's 144 bytes are 16-byte aligned) and the vectors as
-//           float2, with scalar loads where a pointer is not aligned.
-//   D = 12: a segment of 16 lanes per scenario, lane i holding row i of the
-//           system (read straight from device memory), so that the D^2-long
-//           serial chain of one thread becomes row-parallel work; the lanes
-//           exchange entries by __shfl_sync within their segment.
+//   D <= 6 (thread): one thread per scenario in 32-thread blocks (B = 4096
+//           gives all 132 SMs work), the system in registers; JtJ read as
+//           float4 (a scenario's 4 D^2 bytes are 16-byte aligned at every
+//           even D: 16 at D = 2, 64 at D = 4, 144 at D = 6) and the vectors as
+//           float2, with scalar loads where a pointer is not aligned or D is
+//           odd (K7's standalone solve).
+//   D > 6 (rows): a segment of W lanes per scenario, lane i holding row i of
+//           the system (read straight from device memory), so that the
+//           D^2-long serial chain of one thread becomes row-parallel work;
+//           the lanes exchange entries by __shfl_sync within their segment.
+//           W is the smallest power of two that gives every row a lane: 8 up
+//           to D = 8 (no lane idle at D = 8, 16 scenarios a 128-thread
+//           block), 16 up to D = 16. The solve never reorders a sum, so the
+//           bits do not depend on W.
 //
 // Numerics: every product, sum and difference is written with chol.cuh's
 // round-to-nearest helpers, which nvcc never contracts into FMA, and
@@ -46,10 +52,19 @@
 namespace social_mpc {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int THREAD_BLOCK = 32;  // D = 6: scenarios (threads) per block
-constexpr int ROWS_BLOCK = 128;   // D = 12: threads per block
-constexpr int ROWS_W = 16;        // D = 12: lanes per scenario, one per row
-constexpr int ROWS_SCEN = ROWS_BLOCK / ROWS_W;  // D = 12: scenarios per block
+constexpr int THREAD_MAX_D = 6;   // the thread layout up to this D, the rows above
+constexpr int THREAD_BLOCK = 32;  // thread layout: scenarios (threads) per block
+constexpr int ROWS_BLOCK = 128;   // rows layout: threads per block
+
+// rows layout: lanes per scenario, one per row (a power of two for the
+// shuffles' width), and scenarios per block
+template <int D>
+__host__ __device__ constexpr int rows_width() {
+    static_assert(D <= 16, "the rows layout holds a row per lane of a 16-lane segment");
+    return D <= 8 ? 8 : 16;
+}
+template <int D>
+__host__ __device__ constexpr int rows_scenarios() { return ROWS_BLOCK / rows_width<D>(); }
 
 // clamp that propagates NaN (as torch.clamp / jnp.clip do)
 __device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
@@ -61,11 +76,12 @@ __device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
     return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// The D * D floats at m (one scenario's matrix), as float4 when vec4.
+// The D * D floats at m (one scenario's matrix), as float4 when vec4 (and D
+// is even: the scenarios of an odd D sit at no common 16-byte alignment).
 template <int D>
 __device__ __forceinline__ void load_matrix(const float* __restrict__ m, bool vec4,
                                             float (&out)[D][D]) {
-    static_assert((D * D) % 4 == 0, "float4 rows");
+    if constexpr ((D * D) % 4 != 0) vec4 = false;
     if (vec4) {
         const float4* m4 = reinterpret_cast<const float4*>(m);
 #pragma unroll
@@ -84,11 +100,12 @@ __device__ __forceinline__ void load_matrix(const float* __restrict__ m, bool ve
     }
 }
 
-// The D floats at v (one scenario's vector), as float2 when vec2.
+// The D floats at v (one scenario's vector), as float2 when vec2 (and D is
+// even).
 template <int D>
 __device__ __forceinline__ void load_vector(const float* __restrict__ v, bool vec2,
                                             float (&out)[D]) {
-    static_assert(D % 2 == 0, "float2 pairs");
+    if constexpr (D % 2 != 0) vec2 = false;
     if (vec2) {
 #pragma unroll
         for (int q = 0; q < D / 2; ++q) {
@@ -105,6 +122,7 @@ __device__ __forceinline__ void load_vector(const float* __restrict__ v, bool ve
 template <int D>
 __device__ __forceinline__ void store_vector(float* __restrict__ v, bool vec2,
                                              const float (&in)[D]) {
+    if constexpr (D % 2 != 0) vec2 = false;
     if (vec2) {
 #pragma unroll
         for (int q = 0; q < D / 2; ++q)
@@ -143,7 +161,7 @@ struct DampedStepArgs {
     float min_diagonal, max_diagonal;
 };
 
-// D = 6 layout: the whole step of scenario b on one thread.
+// Thread layout: the whole step of scenario b on one thread.
 template <int D, bool JAC>
 __device__ __forceinline__ void damped_step_thread(const DampedStepArgs& p, int b) {
     constexpr int DD = D * D;
@@ -187,7 +205,7 @@ __device__ __forceinline__ void damped_step_thread(const DampedStepArgs& p, int 
     p.model_change[b] = model_change<D>(jtj, g, delta);
 }
 
-// D = 12 layout: where lane i of a ROWS_W-lane segment sits. Segment `seg`
+// Rows layout: where lane i of a rows_width<D>()-lane segment sits. Segment `seg`
 // of the block solves scenario b; lane i holds row r. Lanes past D, and
 // segments past the batch, mirror the last row / scenario so that every lane
 // takes part in the shuffles; they write nothing.
@@ -201,11 +219,11 @@ struct RowsLane {
 
 template <int D>
 __device__ __forceinline__ RowsLane rows_lane(int B) {
-    static_assert(D <= ROWS_W, "a lane per row");
-    const int b0 = blockIdx.x * ROWS_SCEN;
-    const int n = min(ROWS_SCEN, B - b0);
-    const int seg = threadIdx.x / ROWS_W;
-    const int i = threadIdx.x % ROWS_W;
+    constexpr int W = rows_width<D>(), SCEN = rows_scenarios<D>();
+    const int b0 = blockIdx.x * SCEN;
+    const int n = min(SCEN, B - b0);
+    const int seg = threadIdx.x / W;
+    const int i = threadIdx.x % W;
     RowsLane l;
     l.b = (size_t)b0 + min(seg, n - 1);
     l.r = min(i, D - 1);
@@ -220,7 +238,7 @@ __device__ __forceinline__ RowsLane rows_lane(int B) {
 // j, so it may shuffle), and its row's right-hand side; returns x[r].
 template <int D, typename Entry>
 __device__ __forceinline__ float rows_chol_solve(const Entry& a, float rhs, int r) {
-    constexpr int W = ROWS_W;
+    constexpr int W = rows_width<D>();
     // Cholesky A = L L^T: at column j, lane r > j computes
     // L[r][j] = (a(r,j) - sum_k<j L[r][k] L[j][k]) * inv_diag[j] and lane j
     // the pivot from the same sum; L[j][k] comes from lane j by shuffle.
@@ -273,10 +291,10 @@ __device__ __forceinline__ float rows_chol_solve(const Entry& a, float rhs, int 
     return x;
 }
 
-// D = 12 layout: the whole step, row r of scenario b on this lane.
+// Rows layout: the whole step, row r of scenario b on this lane.
 template <int D, bool JAC>
 __device__ __forceinline__ void damped_step_rows(const DampedStepArgs& p) {
-    constexpr int W = ROWS_W;
+    constexpr int W = rows_width<D>();
     const RowsLane l = rows_lane<D>(p.B);
     const int r = l.r;
     const float gi = __ldg(p.g + l.v), ui = __ldg(p.u + l.v), lo = __ldg(p.lower + l.v),

@@ -47,6 +47,8 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_shapes.h"
+
 namespace {
 
 struct FusedArgs {
@@ -372,6 +374,10 @@ __device__ __forceinline__ StageOut proxemics_stage(float weight, float px, floa
     return StageOut{r, c * best_dx, c * best_dy, 0.0f, 0.0f};
 }
 
+// Instantiated for every NB of kernel_shapes.h's SOCIAL_MPC_BLOCKS (1..6). At
+// NB = 1 there is no velocity-feasibility row (n_vf = 0, vfm never read); a
+// partial last block (h = 7, bl = 4: NB = 2, n_vf = 0) reads only the
+// n_vf rows its mask has.
 template <int NB>
 __global__ void fused_kernel(const FusedArgs a) {
     constexpr int D = 2 * NB;
@@ -547,10 +553,12 @@ extern "C" int social_mpc_fused_iter_f32(
     if (B <= 0) return (int)cudaGetLastError();
     const int threads = 128;  // 4 warps = 4 scenarios per block
     const int blocks = (B * 32 + threads - 1) / threads;
+#define FUSED_CASE(NB_) \
+    case NB_: fused_kernel<NB_><<<blocks, threads, 0, stream>>>(a); break;
     switch (NB) {
-        case 3: fused_kernel<3><<<blocks, threads, 0, stream>>>(a); break;
-        case 6: fused_kernel<6><<<blocks, threads, 0, stream>>>(a); break;
+        SOCIAL_MPC_BLOCKS(FUSED_CASE)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef FUSED_CASE
     return (int)cudaGetLastError();
 }

@@ -11,10 +11,12 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_shapes.h"
 #include "rollout.cuh"
 
 namespace {
 
+// Instantiated for every NB of kernel_shapes.h's SOCIAL_MPC_BLOCKS (1..6).
 template <int NB>
 __global__ void __launch_bounds__(rollout::WARPS * 32) rollout_prep_kernel(
     const float* __restrict__ u, const float* __restrict__ pose0,
@@ -48,16 +50,15 @@ extern "C" int social_mpc_rollout_prep_f32(
     if (B <= 0 || S <= 0) return (int)cudaGetLastError();
     const int blocks = (B + rollout::WARPS - 1) / rollout::WARPS;
     const int threads = rollout::WARPS * 32;
+#define ROLLOUT_PREP_CASE(NB_)                                                               \
+    case NB_:                                                                                \
+        rollout_prep_kernel<NB_><<<blocks, threads, 0, stream>>>(                            \
+            u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, dt, front);     \
+        break;
     switch (NB) {
-        case 3:
-            rollout_prep_kernel<3><<<blocks, threads, 0, stream>>>(
-                u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, dt, front);
-            break;
-        case 6:
-            rollout_prep_kernel<6><<<blocks, threads, 0, stream>>>(
-                u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, dt, front);
-            break;
+        SOCIAL_MPC_BLOCKS(ROLLOUT_PREP_CASE)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef ROLLOUT_PREP_CASE
     return (int)cudaGetLastError();
 }

@@ -22,12 +22,15 @@
 #include <cuda_runtime.h>
 
 #include "bicubic.cuh"
+#include "kernel_shapes.h"
 #include "rollout.cuh"
 
 namespace {
 
-// LONG: S > 64, the instantiation that parks the steps past the first two
-// chunks; the other keeps no code for them (and fewer registers).
+// Instantiated for every NB of kernel_shapes.h's SOCIAL_MPC_BLOCKS (1..6),
+// each in two forms. LONG: S > 64, the instantiation that parks the steps
+// past the first two chunks; the other keeps no code for them (and fewer
+// registers).
 template <int NB, bool LONG>
 __global__ void __launch_bounds__(rollout::WARPS * 32) rollout_sample_kernel(
     const float* __restrict__ u, const float* __restrict__ pose0,
@@ -95,13 +98,14 @@ extern "C" int social_mpc_rollout_sample_f32(
 #define ROLLOUT_SAMPLE(NB_, LONG_)                                                         \
     rollout_sample_kernel<NB_, LONG_><<<blocks, threads, 0, stream>>>(                      \
         u, pose0, block_idx, win_origin, resolution, win, planes, sens, B, S, H, W, dt, front)
+#define ROLLOUT_SAMPLE_CASES(NB_)                  \
+    case 2 * NB_: ROLLOUT_SAMPLE(NB_, false); break; \
+    case 2 * NB_ + 1: ROLLOUT_SAMPLE(NB_, true); break;
     switch (NB * 2 + (long_rollout ? 1 : 0)) {
-        case 6: ROLLOUT_SAMPLE(3, false); break;
-        case 7: ROLLOUT_SAMPLE(3, true); break;
-        case 12: ROLLOUT_SAMPLE(6, false); break;
-        case 13: ROLLOUT_SAMPLE(6, true); break;
+        SOCIAL_MPC_BLOCKS(ROLLOUT_SAMPLE_CASES)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef ROLLOUT_SAMPLE_CASES
 #undef ROLLOUT_SAMPLE
     return (int)cudaGetLastError();
 }

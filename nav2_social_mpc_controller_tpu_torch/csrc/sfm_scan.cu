@@ -46,7 +46,10 @@
 // at social B = 4096). Every quantity is computed by the operations, in the
 // order, of the serial scan. The launch geometry (SPL, and the scenarios per
 // warp and per block that follow from it) is chosen by the wrapper
-// (models/sfm.py: scan_geometry) and held here against N.
+// (models/sfm.py: scan_geometry) and held here against N. N runs from 1 to
+// 32 (kernel_shapes.h): past 16 agents an agent has one force lane, which
+// takes its N sources in a loop, and a block holds one scenario; at N = 33
+// a scenario's force lanes no longer fit one warp.
 //
 // The lookup is one read of the index grid, with the query cell clamped into
 // the agent's window exactly as the JAX package's table lookup clamps it
@@ -63,6 +66,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "kernel_shapes.h"
 
 namespace {
 
@@ -337,44 +342,70 @@ __device__ __forceinline__ void force_warp(const SfmArgs& a, int b0, int lane, i
 
     // This lane's sources: source m of agent j is agent m (m < j), agent
     // m + 1 (j <= m < N - 1) or the robot (m = N - 1); a force counts when
-    // its source is the robot or a valid agent.
-    int src[SPL];
-    bool is_robot[SPL], use[SPL];
+    // its source is the robot or a valid agent. With one lane an agent
+    // (LPA = 1, N > 16) the lane takes its N sources one after the other in
+    // a loop that is not unrolled: unrolled, N pair forces of ~380
+    // instructions each would make the kernel N times longer, for no
+    // parallelism, and its arrays of N sources would not fit in registers.
+    constexpr int NQ = LPA == 1 ? 1 : SPL;  // the unrolled sources' arrays
+    int src[NQ];
+    bool is_robot[NQ], use[NQ];
+    if constexpr (LPA > 1) {
 #pragma unroll
-    for (int q = 0; q < SPL; ++q) {
-        const int m = t * SPL + q;
-        const bool is_agent = m < N - 1;
-        src[q] = is_agent ? base + (m < j ? m : m + 1) * LPA : lane;
-        is_robot[q] = m == N - 1;
-        const bool k_valid = __shfl_sync(FULL_MASK, (int)valid0, src[q]) != 0;
-        use[q] = is_robot[q] || (is_agent && k_valid);
+        for (int q = 0; q < SPL; ++q) {
+            const int m = t * SPL + q;
+            const bool is_agent = m < N - 1;
+            src[q] = is_agent ? base + (m < j ? m : m + 1) * LPA : lane;
+            is_robot[q] = m == N - 1;
+            const bool k_valid = __shfl_sync(FULL_MASK, (int)valid0, src[q]) != 0;
+            use[q] = is_robot[q] || (is_agent && k_valid);
+        }
     }
+    const unsigned valid_lanes = __ballot_sync(FULL_MASK, valid0);
     float4* my_state = state + slot * N + j;
     const float4* my_force = force + slot * N + j;
     const bool writer = live && t == 0;
 
     for (int i = 0; i < steps; ++i) {
         const float4 rb = my_robot[i];
-        float fx[SPL], fy[SPL];
-#pragma unroll
-        for (int q = 0; q < SPL; ++q) {
-            const float kx = __shfl_sync(FULL_MASK, px, src[q]);
-            const float ky = __shfl_sync(FULL_MASK, py, src[q]);
-            const float kvx = __shfl_sync(FULL_MASK, vx, src[q]);
-            const float kvy = __shfl_sync(FULL_MASK, vy, src[q]);
-            float f_x, f_y;
-            pair_social(a, px, py, vx, vy, is_robot[q] ? rb.x : kx, is_robot[q] ? rb.y : ky,
-                        is_robot[q] ? rb.z : kvx, is_robot[q] ? rb.w : kvy, f_x, f_y);
-            fx[q] = use[q] ? f_x : 0.0f;
-            fy[q] = use[q] ? f_y : 0.0f;
-        }
         // the social force on the agent: its N sources in the list's order
         float sx = 0.0f, sy = 0.0f;
+        if constexpr (LPA == 1) {
+#pragma unroll 1
+            for (int m = 0; m < N; ++m) {
+                const bool is_agent = m < N - 1;
+                const int k = is_agent ? base + (m < j ? m : m + 1) : lane;
+                const bool counts = !is_agent || ((valid_lanes >> k) & 1u) != 0;
+                const float kx = __shfl_sync(FULL_MASK, px, k);
+                const float ky = __shfl_sync(FULL_MASK, py, k);
+                const float kvx = __shfl_sync(FULL_MASK, vx, k);
+                const float kvy = __shfl_sync(FULL_MASK, vy, k);
+                float f_x, f_y;
+                pair_social(a, px, py, vx, vy, is_agent ? kx : rb.x, is_agent ? ky : rb.y,
+                            is_agent ? kvx : rb.z, is_agent ? kvy : rb.w, f_x, f_y);
+                sx += counts ? f_x : 0.0f;
+                sy += counts ? f_y : 0.0f;
+            }
+        } else {
+            float fx[SPL], fy[SPL];
 #pragma unroll
-        for (int m = 0; m < N; ++m) {
-            const int from = base + j * LPA + m / SPL;
-            sx += __shfl_sync(FULL_MASK, fx[m % SPL], from);
-            sy += __shfl_sync(FULL_MASK, fy[m % SPL], from);
+            for (int q = 0; q < SPL; ++q) {
+                const float kx = __shfl_sync(FULL_MASK, px, src[q]);
+                const float ky = __shfl_sync(FULL_MASK, py, src[q]);
+                const float kvx = __shfl_sync(FULL_MASK, vx, src[q]);
+                const float kvy = __shfl_sync(FULL_MASK, vy, src[q]);
+                float f_x, f_y;
+                pair_social(a, px, py, vx, vy, is_robot[q] ? rb.x : kx, is_robot[q] ? rb.y : ky,
+                            is_robot[q] ? rb.z : kvx, is_robot[q] ? rb.w : kvy, f_x, f_y);
+                fx[q] = use[q] ? f_x : 0.0f;
+                fy[q] = use[q] ? f_y : 0.0f;
+            }
+#pragma unroll
+            for (int m = 0; m < N; ++m) {
+                const int from = base + j * LPA + m / SPL;
+                sx += __shfl_sync(FULL_MASK, fx[m % SPL], from);
+                sy += __shfl_sync(FULL_MASK, fy[m % SPL], from);
+            }
         }
         bar_sync(bar_force);  // the agent warps' forces of this step are in
         const float4 f = *my_force;
@@ -526,6 +557,11 @@ __global__ void sfm_scan_kernel(const SfmArgs a) {
     }
 }
 
+// Dynamic shared memory above the 48 KB every launch may take needs the
+// kernel's opt-in; the card's limit a block (227 KB on an H100) is the
+// ceiling. At N = 1 (32 scenarios a block) a rollout past 94 steps needs it.
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+
 template <int N, int SPL>
 int launch(const SfmArgs& a, int blocks, cudaStream_t stream) {
     constexpr int SPW = Geometry<N, SPL>::SPW;
@@ -535,7 +571,24 @@ int launch(const SfmArgs& a, int blocks, cudaStream_t stream) {
     if ((long long)blocks * SPG < a.B) return (int)cudaErrorInvalidValue;
     const int steps = a.S1 > 1 ? a.S1 - 1 : 0;
     const size_t shmem = (size_t)(2 * SPG * N + F * SPW * steps) * sizeof(float4);
-    if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    if (shmem > kDefaultSharedBytes) {
+        static int opted = 0;  // this instantiation's opt-in, made once (before any capture)
+        if (opted == 0) {
+            int dev = 0, limit = 0;
+            cudaError_t e = cudaGetDevice(&dev);
+            if (e == cudaSuccess)
+                e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+            if (e == cudaSuccess)
+                e = cudaFuncSetAttribute(sfm_scan_kernel<N, SPL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+            if (e != cudaSuccess) {
+                cudaGetLastError();
+                return (int)e;
+            }
+            opted = limit;
+        }
+        if (shmem > (size_t)opted) return (int)cudaErrorInvalidValue;
+    }
     sfm_scan_kernel<N, SPL><<<blocks, (F + 2) * 32, shmem, stream>>>(a);
     return (int)cudaGetLastError();
 }
@@ -544,7 +597,7 @@ int launch(const SfmArgs& a, int blocks, cudaStream_t stream) {
 
 // `spl` (sources per lane) and `blocks` are the wrapper's launch geometry
 // (models/sfm.py: scan_geometry); the kernel is instantiated for the
-// (N, spl) pairs it gives at N = 1..8.
+// (N, spl) pairs of kernel_shapes.h's SOCIAL_MPC_SFM_SHAPES, N = 1..32.
 extern "C" int social_mpc_sfm_scan_f32(
     const float* people, const float* rows, const int* n_rows, const int* indexes,
     const float* origin, const float* resolution, const unsigned char* esdf_valid,
@@ -557,15 +610,11 @@ extern "C" int social_mpc_sfm_scan_f32(
               B, N, S1, H, W, window, maxtime, dt, lam, gamma, n_sfm, n_prime, f_social,
               f_desired, relax, f_obstacle, sigma_obstacle, people_desired, people_radius,
               goal_radius};
+#define SFM_CASE(N_, SPL_) \
+    case N_ * 64 + SPL_: return launch<N_, SPL_>(a, blocks, stream);
     switch (N * 64 + spl) {
-        case 1 * 64 + 1: return launch<1, 1>(a, blocks, stream);
-        case 2 * 64 + 1: return launch<2, 1>(a, blocks, stream);
-        case 3 * 64 + 1: return launch<3, 1>(a, blocks, stream);
-        case 4 * 64 + 1: return launch<4, 1>(a, blocks, stream);
-        case 5 * 64 + 1: return launch<5, 1>(a, blocks, stream);
-        case 6 * 64 + 2: return launch<6, 2>(a, blocks, stream);
-        case 7 * 64 + 2: return launch<7, 2>(a, blocks, stream);
-        case 8 * 64 + 2: return launch<8, 2>(a, blocks, stream);
+        SOCIAL_MPC_SFM_SHAPES(SFM_CASE)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef SFM_CASE
 }

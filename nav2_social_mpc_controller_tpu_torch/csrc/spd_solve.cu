@@ -28,11 +28,14 @@
 // results, nothing else.
 //
 // Design: damped_step.cuh's bodies, shared with K3 (tr_iter.cu), on the
-// layouts measured for K3: at D = 6 one thread per scenario in 32-thread
+// layouts measured for K3: up to D = 6 one thread per scenario in 32-thread
 // blocks (B = 4096 gives all 132 SMs work), the matrix read as float4 and the
-// vectors as float2 where aligned; at D = 12 a 16-lane segment per scenario,
-// lane i holding row i. Templated on the Jacobi scaling (JAC), which forms
-// each scaled entry where the factorisation reads it, so JtJ is held once.
+// vectors as float2 where aligned; above, a segment of 8 (D <= 8) or 16 lanes
+// per scenario, lane i holding row i. The damped step is instantiated for
+// every even D of kernel_shapes.h's SOCIAL_MPC_SOLVE_DIMS (2..12), the
+// standalone solve for every D of SOCIAL_MPC_SPD_SOLVE_DIMS (1..16).
+// Templated on the Jacobi scaling (JAC), which forms each scaled entry where
+// the factorisation reads it, so JtJ is held once.
 // The standalone solve runs on the same layouts (the parent's one thread per
 // system in 128-thread blocks filled 32 SMs at B = 4096 and read its systems
 // D * D floats apart).
@@ -45,13 +48,15 @@
 #include <cuda_runtime.h>
 
 #include "damped_step.cuh"
+#include "kernel_shapes.h"
 
 namespace {
 
 using social_mpc::DampedStepArgs;
 using social_mpc::ROWS_BLOCK;
-using social_mpc::ROWS_SCEN;
+using social_mpc::rows_scenarios;
 using social_mpc::THREAD_BLOCK;
+using social_mpc::THREAD_MAX_D;
 
 template <int D, bool JAC>
 __global__ void __launch_bounds__(THREAD_BLOCK) damped_step_thread_kernel(const DampedStepArgs p) {
@@ -95,12 +100,23 @@ spd_solve_rows_kernel(const float* __restrict__ a_in, const float* __restrict__ 
 
 template <int D, bool JAC>
 void launch_damped_step(const DampedStepArgs& p, cudaStream_t stream) {
-    if constexpr (D == 6)
+    if constexpr (D <= THREAD_MAX_D)
         damped_step_thread_kernel<D, JAC>
             <<<(p.B + THREAD_BLOCK - 1) / THREAD_BLOCK, THREAD_BLOCK, 0, stream>>>(p);
     else
         damped_step_rows_kernel<D, JAC>
-            <<<(p.B + ROWS_SCEN - 1) / ROWS_SCEN, ROWS_BLOCK, 0, stream>>>(p);
+            <<<(p.B + rows_scenarios<D>() - 1) / rows_scenarios<D>(), ROWS_BLOCK, 0, stream>>>(p);
+}
+
+template <int D>
+void launch_spd_solve(const float* a, const float* b, float* x, int N, cudaStream_t stream) {
+    if constexpr (D <= THREAD_MAX_D)
+        spd_solve_thread_kernel<D>
+            <<<(N + THREAD_BLOCK - 1) / THREAD_BLOCK, THREAD_BLOCK, 0, stream>>>(a, b, x, N);
+    else
+        spd_solve_rows_kernel<D>
+            <<<(N + rows_scenarios<D>() - 1) / rows_scenarios<D>(), ROWS_BLOCK, 0, stream>>>(
+                a, b, x, N);
 }
 
 }  // namespace
@@ -111,34 +127,32 @@ extern "C" int social_mpc_damped_step_f32(const float* u, const float* g, const 
                                           float* u_new, float* delta, float* model_change,
                                           int B, int D, float min_diagonal, float max_diagonal,
                                           cudaStream_t stream) {
-    if (D != 6 && D != 12) return (int)cudaErrorInvalidValue;
-    if (B <= 0) return (int)cudaGetLastError();
     const DampedStepArgs p{u, g, jtj, radius, lower, upper, jac_scale, u_new, delta,
                            model_change, B, min_diagonal, max_diagonal};
     const bool jac = jac_scale != nullptr;
-    if (D == 6) {
-        if (jac) launch_damped_step<6, true>(p, stream);
-        else launch_damped_step<6, false>(p, stream);
-    } else {
-        if (jac) launch_damped_step<12, true>(p, stream);
-        else launch_damped_step<12, false>(p, stream);
+#define DAMPED_STEP_CASE(D_)                                 \
+    case D_:                                                 \
+        if (B <= 0) break;                                   \
+        if (jac) launch_damped_step<D_, true>(p, stream);    \
+        else launch_damped_step<D_, false>(p, stream);       \
+        break;
+    switch (D) {
+        SOCIAL_MPC_SOLVE_DIMS(DAMPED_STEP_CASE)
+        default: return (int)cudaErrorInvalidValue;
     }
+#undef DAMPED_STEP_CASE
     return (int)cudaGetLastError();
 }
 
 extern "C" int social_mpc_spd_solve_f32(const float* a, const float* b, float* x,
                                         int N, int D, cudaStream_t stream) {
     if (N <= 0) return (int)cudaGetLastError();
+#define SPD_SOLVE_CASE(D_) \
+    case D_: launch_spd_solve<D_>(a, b, x, N, stream); break;
     switch (D) {
-        case 6:
-            spd_solve_thread_kernel<6>
-                <<<(N + THREAD_BLOCK - 1) / THREAD_BLOCK, THREAD_BLOCK, 0, stream>>>(a, b, x, N);
-            break;
-        case 12:
-            spd_solve_rows_kernel<12>
-                <<<(N + ROWS_SCEN - 1) / ROWS_SCEN, ROWS_BLOCK, 0, stream>>>(a, b, x, N);
-            break;
+        SOCIAL_MPC_SPD_SOLVE_DIMS(SPD_SOLVE_CASE)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef SPD_SOLVE_CASE
     return (int)cudaGetLastError();
 }

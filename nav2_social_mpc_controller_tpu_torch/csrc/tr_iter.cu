@@ -22,9 +22,9 @@
 //
 //   propose: damped_step.cuh's bodies without Jacobi scaling (K7's damped
 //            step, spd_solve.cu, compiles the same bodies with and without
-//            it): at D = 6 one thread per scenario in 32-thread blocks, JtJ
-//            read as float4; at D = 12 a segment of 16 lanes per scenario,
-//            lane i holding row i of the system.
+//            it): up to D = 6 one thread per scenario in 32-thread blocks,
+//            JtJ read as float4; above, a segment of 8 (D = 8) or 16 lanes
+//            per scenario, lane i holding row i of the system.
 //   commit:  decide, then copy. A block covers COMMIT_G scenarios. One thread
 //            per scenario computes every scalar from u, u_new, delta and g
 //            staged through shared memory and leaves its accept flag there;
@@ -32,6 +32,9 @@
 //            of u, g and JtJ that its scenarios own, each element from the
 //            source its scenario's flag selects (float4 where the spans are
 //            16-byte aligned). The copy is where the bytes are.
+//
+// Both are instantiated for every even D of kernel_shapes.h's
+// SOCIAL_MPC_SOLVE_DIMS (2..12).
 //
 // Numerics: every product, sum and difference is written with the
 // round-to-nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc
@@ -44,6 +47,7 @@
 #include <stdint.h>
 
 #include "damped_step.cuh"
+#include "kernel_shapes.h"
 
 namespace {
 
@@ -55,7 +59,7 @@ using social_mpc::sub;
 constexpr int COMMIT_THREADS = 128;
 constexpr int COMMIT_G = 8;  // scenarios per commit block: B = 1024 gives 128 blocks
 
-// propose at D = 6: damped_step.cuh's thread layout, without scaling.
+// propose up to D = 6: damped_step.cuh's thread layout, without scaling.
 template <int D>
 __global__ void __launch_bounds__(social_mpc::THREAD_BLOCK)
 propose_thread_kernel(const social_mpc::DampedStepArgs p) {
@@ -64,11 +68,22 @@ propose_thread_kernel(const social_mpc::DampedStepArgs p) {
     social_mpc::damped_step_thread<D, false>(p, b);
 }
 
-// propose at D = 12: damped_step.cuh's row segments, without scaling.
+// propose above D = 6: damped_step.cuh's row segments, without scaling.
 template <int D>
 __global__ void __launch_bounds__(social_mpc::ROWS_BLOCK)
 propose_rows_kernel(const social_mpc::DampedStepArgs p) {
     social_mpc::damped_step_rows<D, false>(p);
+}
+
+template <int D>
+void launch_propose(const social_mpc::DampedStepArgs& p, cudaStream_t stream) {
+    using namespace social_mpc;
+    if constexpr (D <= THREAD_MAX_D)
+        propose_thread_kernel<D>
+            <<<(p.B + THREAD_BLOCK - 1) / THREAD_BLOCK, THREAD_BLOCK, 0, stream>>>(p);
+    else
+        propose_rows_kernel<D>
+            <<<(p.B + rows_scenarios<D>() - 1) / rows_scenarios<D>(), ROWS_BLOCK, 0, stream>>>(p);
 }
 
 struct CommitArgs {
@@ -228,16 +243,13 @@ extern "C" int social_mpc_propose_f32(const float* u, const float* g,
     if (B <= 0) return (int)cudaGetLastError();
     const DampedStepArgs p{u, g, jtj, radius, lower, upper, nullptr, u_new, delta, model_change,
                            B, min_diagonal, max_diagonal};
+#define PROPOSE_CASE(D_) \
+    case D_: launch_propose<D_>(p, stream); break;
     switch (D) {
-        case 6:
-            propose_thread_kernel<6><<<(B + THREAD_BLOCK - 1) / THREAD_BLOCK, THREAD_BLOCK, 0,
-                                       stream>>>(p);
-            break;
-        case 12:
-            propose_rows_kernel<12><<<(B + ROWS_SCEN - 1) / ROWS_SCEN, ROWS_BLOCK, 0, stream>>>(p);
-            break;
+        SOCIAL_MPC_SOLVE_DIMS(PROPOSE_CASE)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef PROPOSE_CASE
     return (int)cudaGetLastError();
 }
 
@@ -260,10 +272,12 @@ extern "C" int social_mpc_commit_f32(
                  max_radius, min_radius, one_third};
     if (B <= 0) return (int)cudaGetLastError();
     const int blocks = (B + COMMIT_G - 1) / COMMIT_G;
+#define COMMIT_CASE(D_) \
+    case D_: commit_kernel<D_><<<blocks, COMMIT_THREADS, 0, stream>>>(a); break;
     switch (D) {
-        case 6: commit_kernel<6><<<blocks, COMMIT_THREADS, 0, stream>>>(a); break;
-        case 12: commit_kernel<12><<<blocks, COMMIT_THREADS, 0, stream>>>(a); break;
+        SOCIAL_MPC_SOLVE_DIMS(COMMIT_CASE)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef COMMIT_CASE
     return (int)cudaGetLastError();
 }

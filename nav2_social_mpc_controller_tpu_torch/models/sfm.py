@@ -45,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
 from nav2_social_mpc_controller_tpu_torch.utils.angles import wrap_to_pi
 
 _EPS_DIR = 1e-6  # coincident-position guard (social_work_cost_function.hpp:124-127)
@@ -87,26 +87,37 @@ class ScanGeometry(NamedTuple):
     blocks: int
 
 
-KERNEL_MAX_AGENTS = 8  # csrc/sfm_scan.cu is instantiated for N = 1..8
+# csrc/sfm_scan.cu is instantiated for N = 1..32 (kernel_shapes.SFM_SHAPES):
+# at N = 33 a scenario's force lanes no longer fit one warp.
+KERNEL_MAX_AGENTS = kernel_shapes.MAX_AGENTS
 
 
 def scan_geometry(n_agents: int, batch: int) -> ScanGeometry:
     """The launch geometry of the scan for N agents and B scenarios: the
     fewest sources per lane with which a scenario's force lanes fit in one
-    warp of 32, as many scenarios a force warp as fit, and as many force
-    warps a block as the agent warp has lanes for their agents."""
+    warp of 32 (kernel_shapes.sources_per_lane), as many scenarios a force
+    warp as fit, and as many force warps a block as the agent warp has lanes
+    for their agents."""
     if not 1 <= n_agents <= KERNEL_MAX_AGENTS:
         raise ValueError(
-            f"project_people: the kernel is built for 1 to {KERNEL_MAX_AGENTS} agents, "
-            f"got {n_agents}"
+            f"project_people: the kernel is built for 1 to {KERNEL_MAX_AGENTS} agents (a "
+            f"scenario's force lanes must fit one warp of 32), got {n_agents}"
         )
-    spl = next(s for s in range(1, n_agents + 1) if n_agents * -(-n_agents // s) <= 32)
+    spl = kernel_shapes.sources_per_lane(n_agents)
     lpa = -(-n_agents // spl)
     lps = n_agents * lpa
     spw = 32 // lps
     force_warps = 32 // (n_agents * spw)
     spb = force_warps * spw
     return ScanGeometry(spl, lpa, lps, spw, force_warps, spb, -(-batch // spb))
+
+
+def scan_shared_bytes(geo: ScanGeometry, n_agents: int, s1: int) -> int:
+    """Dynamic shared memory of one block of the scan over s1 - 1 steps: a
+    float4 of state and one of forces per agent of the block, and the
+    robot's position and velocity at every step of each scenario."""
+    steps = max(s1 - 1, 0)
+    return 16 * (2 * geo.scenarios_per_block * n_agents + geo.scenarios_per_block * steps)
 
 
 def lookup_window(esdf_window: int, grid_h: int, grid_w: int) -> int:
@@ -472,6 +483,11 @@ def project_people(
             people_desired_vel, people_radius, goal_radius,
             torch.cuda.current_stream().cuda_stream,
         )
+    if err != 0 and scan_shared_bytes(geo, n, s1) > 48 * 1024:
+        raise RuntimeError(
+            f"CUDA kernel sfm_scan failed to launch: cudaError {err}; a block of {n} agents over "
+            f"{s1 - 1} steps needs {scan_shared_bytes(geo, n, s1)} bytes of shared memory, more "
+            f"than 48 KB, which the card must allow a block (an H100: 227 KB)")
     _build.check_launch(err, "sfm_scan")
     _build.launch_counts["sfm_scan"] += 1
     return out

@@ -38,13 +38,13 @@ from nav2_social_mpc_controller_tpu_torch.models.motion import (
     expand_blocks,
 )
 from nav2_social_mpc_controller_tpu_torch.ops.rollout_cuda import (
+    KERNEL_BLOCKS,
+    check_blocks,
     rollout_prep,
     rollout_prep_plain,
     rollout_sample,
 )
 from nav2_social_mpc_controller_tpu_torch.world.grid import crop_grid_window
-
-_KERNEL_BLOCKS = (3, 6)  # NB values csrc/fused_iter.cu is instantiated for
 
 
 def can_fuse(cfg) -> bool:
@@ -285,8 +285,7 @@ def fused_cost_g_jtj(
         return fused_cost_g_jtj_plain(statics, *args)
     b, nb, s = dth.shape
     d = 2 * nb
-    if nb not in _KERNEL_BLOCKS:
-        raise ValueError(f"fused_cost_g_jtj: kernel is built for NB in {_KERNEL_BLOCKS}, got {nb}")
+    check_blocks("fused_cost_g_jtj", nb)
     f32 = torch.float32
     spec = [("u", u, f32, (b, d)), ("scal", scal, f32, (b, 4)),
             ("dth", dth, f32, (b, nb, s)), ("eb", eb, f32, (b, nb, s)),

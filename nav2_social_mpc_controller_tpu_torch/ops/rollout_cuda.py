@@ -25,9 +25,19 @@ returning (val, d_row, d_col) in place of (row, col). ``rollout_prep`` alone
 import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.kernel_shapes import BLOCKS as KERNEL_BLOCKS
 from nav2_social_mpc_controller_tpu_torch.ops.bicubic_cuda import bicubic_linearize_plain
 
-_KERNEL_BLOCKS = (3, 6)  # NB values csrc/rollout_prep.cu is instantiated for
+
+def check_blocks(fn: str, nb: int) -> None:
+    """Raise unless K2, K6 and the rollout-sample kernel are instantiated
+    for NB blocks (kernel_shapes.BLOCKS)."""
+    if nb not in KERNEL_BLOCKS:
+        raise ValueError(
+            f"{fn}: the kernel is built for NB in {KERNEL_BLOCKS[0]}..{KERNEL_BLOCKS[-1]} "
+            f"(D = 2 NB up to 12: K2 keeps 1 + D + D(D+1)/2 partial sums a lane in "
+            f"registers, 91 at D = 12; a wider problem needs a JtJ tile reduced in shared "
+            f"memory), got {nb}")
 
 
 def rollout_prep_plain(u, pose0, block_idx, win_origin, resolution, dt, front_offset, n_blocks):
@@ -97,8 +107,7 @@ def rollout_prep(u, pose0, block_idx, win_origin, resolution, dt, front_offset, 
     if not u.is_cuda:
         return rollout_prep_plain(*args)
     nb = n_blocks
-    if nb not in _KERNEL_BLOCKS:
-        raise ValueError(f"rollout_prep: kernel is built for NB in {_KERNEL_BLOCKS}, got {nb}")
+    check_blocks("rollout_prep", nb)
     b, s = block_idx.shape
     f32 = torch.float32
     for name, t, dtype, shape in (
@@ -154,8 +163,7 @@ def rollout_sample(win, u, pose0, block_idx, win_origin, resolution, dt, front_o
     if not u.is_cuda:
         return rollout_sample_plain(win, *args)
     nb = n_blocks
-    if nb not in _KERNEL_BLOCKS:
-        raise ValueError(f"rollout_sample: kernel is built for NB in {_KERNEL_BLOCKS}, got {nb}")
+    check_blocks("rollout_sample", nb)
     b, s = block_idx.shape
     f32 = torch.float32
     if win.ndim != 3:

@@ -34,7 +34,7 @@ import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import (
-    KERNEL_DIMS as _KERNEL_DIMS,
+    check_dims,
     chol_solve_unrolled,
     spd_solve_plain,
 )
@@ -105,13 +105,12 @@ def damped_step(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
     """The damped step of the general LM iteration (see module docstring):
     u/g/lower/upper (B, D), jtj (B, D, D), radius (B,), jac_scale (B, D) or
     None -> u_new, delta (B, D), model_change (B,). One launch of K7 on CUDA
-    tensors (float32, D in {6, 12}; counted under ``spd_solve``); the plain
+    tensors (float32, even D from 2 to 12; counted under ``spd_solve``); the plain
     version on CPU tensors, at any D and dtype."""
     if not u.is_cuda:
         return damped_step_plain(cfg, u, g, jtj, radius, lower, upper, jac_scale)
     b, d = u.shape
-    if d not in _KERNEL_DIMS:
-        raise ValueError(f"damped_step: kernel is built for D in {_KERNEL_DIMS}, got {d}")
+    check_dims("damped_step", d)
     f32 = torch.float32
     spec = [("u", u, (b, d)), ("g", g, (b, d)), ("jtj", jtj, (b, d, d)),
             ("radius", radius, (b,)), ("lower", lower, (b, d)), ("upper", upper, (b, d))]
@@ -255,8 +254,7 @@ def propose(cfg, u, g, jtj, radius, lower, upper):
     if not u.is_cuda:
         return propose_plain(cfg, u, g, jtj, radius, lower, upper)
     b, d = u.shape
-    if d not in _KERNEL_DIMS:
-        raise ValueError(f"propose: kernel is built for D in {_KERNEL_DIMS}, got {d}")
+    check_dims("propose", d)
     f32 = torch.float32
     for name, t, shape in (
         ("u", u, (b, d)), ("g", g, (b, d)), ("jtj", jtj, (b, d, d)),
@@ -289,8 +287,7 @@ def commit(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
     if not u.is_cuda:
         return commit_plain(cfg, *args)
     b, d = u.shape
-    if d not in _KERNEL_DIMS:
-        raise ValueError(f"commit: kernel is built for D in {_KERNEL_DIMS}, got {d}")
+    check_dims("commit", d)
     f32, i32, bl = torch.float32, torch.int32, torch.bool
     spec = (
         ("u", f32, (b, d)), ("cost", f32, (b,)), ("g", f32, (b, d)), ("jtj", f32, (b, d, d)),

@@ -3,7 +3,8 @@ plain version and launch count for ``csrc/spd_solve.cu``.
 
 Counterpart of the JAX package's ``solver/pallas_solve.py``. The damped
 normal equations of one solve are a D x D SPD system with D = 2 * n_blocks
-(6 for the benchmark configs, 12 for the H = 36 stress config);
+(2 for the reference's default config, 6 for the benchmark configs, 12 for
+the H = 36 stress config);
 ``spd_solve(a (N, D, D), b (N, D)) -> x (N, D)`` solves N of them at once:
 K7's standalone entry, for a caller's own ``linear_solve``. The general LM
 iteration's default (``solver/lm.py``: debug trace, Jacobi scaling) takes
@@ -16,15 +17,28 @@ batched tensor operations with one (N,) tensor per matrix entry; kernel K3
 is not positive definite gives ``sqrt`` of a negative number, NaN, which the
 iteration rejects as a non-finite step. A library Cholesky is not a stand-in
 (``torch.linalg.cholesky`` raises there and ``cholesky_ex`` returns garbage
-silently). CUDA tensors launch the kernel (float32, D in {6, 12}); CPU
-tensors take the plain version, at any D and dtype.
+silently). CUDA tensors launch the kernel (float32; the standalone solve at
+D = 1..16, the damped step, K3 and K4 at every even D from 2 to 12:
+kernel_shapes.py); CPU tensors take the plain version, at any D and dtype.
 """
 
 import torch
 
 from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.kernel_shapes import SOLVE_DIMS as KERNEL_DIMS
+from nav2_social_mpc_controller_tpu_torch.kernel_shapes import SPD_SOLVE_DIMS
 
-KERNEL_DIMS = (6, 12)  # D values csrc/spd_solve.cu and csrc/tr_iter.cu are instantiated for
+
+def check_dims(fn: str, d: int, dims=KERNEL_DIMS) -> None:
+    """Raise unless the kernel of `fn` is instantiated for D (`dims`: the
+    even D from 2 to 12 of K3, K4 and K7's damped step, or SPD_SOLVE_DIMS
+    for the standalone solve)."""
+    if d not in dims:
+        why = ("the rows layout holds a row per lane of a 16-lane segment"
+               if dims == SPD_SOLVE_DIMS else
+               "D = 2 NB, and K2, which forms the system, keeps its D(D+1)/2 JtJ sums in "
+               "registers up to D = 12")
+        raise ValueError(f"{fn}: the kernel is built for D in {list(dims)} ({why}), got {d}")
 
 
 def chol_solve_unrolled(a, rhs, d: int):
@@ -74,8 +88,7 @@ def spd_solve(a, b):
     if not a.is_cuda:
         return spd_solve_plain(a, b)
     n, d = b.shape
-    if d not in KERNEL_DIMS:
-        raise ValueError(f"spd_solve: kernel is built for D in {KERNEL_DIMS}, got {d}")
+    check_dims("spd_solve", d, SPD_SOLVE_DIMS)
     _build.check_tensor("spd_solve", "a", a, torch.float32, (n, d, d), a.device)
     _build.check_tensor("spd_solve", "b", b, torch.float32, (n, d), a.device)
     x = torch.empty_like(b)

@@ -41,6 +41,32 @@ from nav2_social_mpc_controller_tpu_torch.core.config import config_from_dict
 from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as tfused
 
 
+# Configurations beyond the named ones of core/config.py, by name: the shapes
+# the card takes since the kernels run at every NB from 1 to 6 (D = 2 NB)
+# and every agent count from 1 to 32. SocialMPCConfig (the reference's own
+# defaults: horizon 5, block 5) is NB = 1.
+CONFIG_CHANGES = {
+    # horizon 7, block 4: NB = 2 with a partial last block and no
+    # velocity-feasibility row (n_vf uses floor division)
+    "social_h7_bl4": ("benchmark_social_config",
+                      {"optimizer": {"control_horizon": 7, "parameter_block_length": 4}}),
+    "social_n12": ("benchmark_social_config", {"n_agents": 12}),  # NB = 3, N = 12
+    "social_n32": ("benchmark_social_config", {"n_agents": 32}),
+}
+
+
+def config_by_name(mod, name):
+    """mod's (the JAX package's or the port's core.config) configuration
+    `name`: a function of mod, or an entry of CONFIG_CHANGES."""
+    if name not in CONFIG_CHANGES:
+        return getattr(mod, name)()
+    base, changes = CONFIG_CHANGES[name]
+    cfg = getattr(mod, base)()
+    opt = dataclasses.replace(cfg.optimizer, **changes.get("optimizer", {}))
+    return dataclasses.replace(cfg, optimizer=opt,
+                               **{k: v for k, v in changes.items() if k != "optimizer"})
+
+
 def scripted_poses(sc, n_ticks, stride=4):
     """(n_ticks, B, 3) robot poses riding each plan: tick t sits on plan
     point t*stride with the local path yaw (tests/test_parity_step.py)."""
@@ -94,10 +120,12 @@ def run_both(jcfg, people, n_ticks, np_dtype, jstep=None, keep_trace=False, make
     return out
 
 
-def assert_step_parity_f64(jax_side, torch_side, tick):
+def assert_step_parity_f64(jax_side, torch_side, tick, path_atol=1e-6):
     """f64 on the CPU: commands and paths within 1e-6; status, plan cursor,
     LM iteration counts, termination codes and the carry equal; the people
-    projection within 1e-9 with its validity column equal."""
+    projection within 1e-9 with its validity column equal. `path_atol`: the
+    paths' tolerance, for a horizon long enough that the commands' 1e-6
+    integrates to more."""
     (jcmd, jaux, jcarry), (tcmd, taux, tcarry) = jax_side, torch_side
     np.testing.assert_allclose(tcmd.linear_x, jcmd.linear_x, atol=1e-6)
     np.testing.assert_allclose(tcmd.angular_z, jcmd.angular_z, atol=1e-6)
@@ -110,12 +138,12 @@ def assert_step_parity_f64(jax_side, torch_side, tick):
     np.testing.assert_array_equal(taux.solve.usable, jaux.solve.usable)
     np.testing.assert_allclose(taux.solve.initial_cost, jaux.solve.initial_cost, rtol=1e-9)
     np.testing.assert_allclose(taux.solve.final_cost, jaux.solve.final_cost, rtol=1e-6)
-    np.testing.assert_allclose(taux.local_path, jaux.local_path, atol=1e-6)
+    np.testing.assert_allclose(taux.local_path, jaux.local_path, atol=path_atol)
     np.testing.assert_allclose(taux.ref_path, jaux.ref_path, atol=1e-9)
     np.testing.assert_allclose(taux.cmds, jaux.cmds, atol=1e-6)
     np.testing.assert_array_equal(taux.people_proj[..., 3], jaux.people_proj[..., 3])
     np.testing.assert_allclose(taux.people_proj, jaux.people_proj, atol=1e-9)
-    np.testing.assert_allclose(tcarry.prev_path, jcarry.prev_path, atol=1e-6)
+    np.testing.assert_allclose(tcarry.prev_path, jcarry.prev_path, atol=path_atol)
     np.testing.assert_allclose(tcarry.prev_cmds, jcarry.prev_cmds, atol=1e-6)
     np.testing.assert_array_equal(tcarry.prev_n, jcarry.prev_n)
     np.testing.assert_array_equal(tcarry.plan_start, jcarry.plan_start)
@@ -167,7 +195,7 @@ def fused_problems(name, dtype, near_goal=True, people=()):
     of the plan, so n_rows is small and h_dyn/bl_dyn shrink, and the others
     run the full horizon. `people` gives the number of valid people per seed
     (none when empty): their SFM projection is the JAX package's."""
-    jcfg = getattr(jcfg_mod, name)()
+    jcfg = config_by_name(jcfg_mod, name)
     jdims = jopt.ProblemDims.from_config(jcfg)
     keys = ("u", "rows", "n_rows", "proj", "present", "cmd", "cmo", "cmr")
     # Each JAX stage compiled once for the five seeds (same shapes).

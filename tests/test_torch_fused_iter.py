@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import fused_problems, fused_value_grad
+from test_torch_common import config_by_name, fused_problems, fused_value_grad
 
 from nav2_social_mpc_controller_tpu.core import config as jcfg_mod
 from nav2_social_mpc_controller_tpu.models import motion as jmotion
@@ -70,7 +70,8 @@ def test_rollout_with_sensitivities(h_dyn, bl_dyn):
 
 
 @pytest.mark.parametrize(
-    "name", ["benchmark_obstacle_only_config", "benchmark_stress_h36_config"], ids=["D6", "D12"]
+    "name", ["benchmark_obstacle_only_config", "benchmark_stress_h36_config", "SocialMPCConfig",
+             "social_h7_bl4"], ids=["D6", "D12", "D2", "D4"]
 )
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
 def test_value_grad_matches_reference(name, dtype):
@@ -78,9 +79,11 @@ def test_value_grad_matches_reference(name, dtype):
     vmapped _ref_value_grad, on a batch that mixes full-horizon problems
     with near-goal ones (shrunk h_dyn / bl_dyn). f64: rtol 1e-9. f32: 3e-5 scale-normalised, the
     tolerance of tests/test_fused_iter.py (analytic chain vs autodiff replay
-    round differently)."""
+    round differently). D2: the reference's own defaults (NB = 1, S = 59, no
+    velocity-feasibility row); D4: horizon 7 in blocks of 4 (NB = 2, a
+    partial last block, n_vf = 0)."""
     jcfg, jdims, bt = fused_problems(name, dtype)
-    tcfg = getattr(tcfg_mod, name)()
+    tcfg = config_by_name(tcfg_mod, name)
     tdims = topt.ProblemDims.from_config(tcfg)
     assert bt["n_rows"].min() <= 8 and bt["n_rows"].max() >= 29
     rng = np.random.default_rng(0)

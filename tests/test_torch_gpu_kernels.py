@@ -178,9 +178,48 @@ def test_sfm_scan_kernel_ignores_batch_position(card, name):
 def test_sfm_scan_refuses_more_agents_than_it_is_built_for(card):
     cfg = C.benchmark_social_config()
     args, kw = _sfm_case(cfg, card, 4, 3)
-    many = args[0].repeat(1, 3, 1)  # N = 9
-    with pytest.raises(ValueError, match="agents"):
+    many = args[0].repeat(1, 11, 1)  # N = 33: no count of sources a lane fits one warp
+    with pytest.raises(ValueError, match="1 to 32 agents"):
         K5.project_people(many, *args[1:], **kw)
+
+
+@pytest.mark.parametrize("n", [9, 12, 16, 17, 24, 32])
+def test_sfm_scan_kernel_at_more_agents(card, n):
+    """N agents past the benchmark configs' 3 and 6, every one valid, every
+    third robot near its goal, batch 41: a force lane for each 3..8
+    sources (N <= 16) or one lane an agent taking all of them (N > 16); the
+    plain version within 1e-4, its t column exactly; a scenario moved to
+    another block gives the same bits."""
+    cfg = dataclasses.replace(C.benchmark_social_config(), n_agents=n)
+    args, kw = _sfm_case(cfg, card, 41, n)
+    got = K5.project_people(*args, **kw)
+    perm = torch.roll(torch.arange(41, device=card), 5)
+    moved = K5.project_people(*(a.index_select(0, perm).contiguous() for a in args), **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(moved, got[perm])
+    ref = K5.project_people_plain(*args, **kw)
+    assert torch.equal(got[..., 3], ref[..., 3])
+    assert _norm_err(got, ref) <= 1e-4
+    assert bool((got[:, 1:, :, 3] != -1.0).any())
+
+
+def test_sfm_scan_kernel_past_48_kb_of_shared_memory(card):
+    """One agent over 99 steps: 32 scenarios a block stage the robot's 99
+    steps each, (64 + 32 * 99) float4s, more than the 48 KB a launch takes
+    without the kernel's opt-in; the plain version within 1e-4."""
+    base = C.benchmark_social_config()
+    tr = dataclasses.replace(base.trajectorizer, max_time=100 * base.trajectorizer.time_step)
+    cfg = dataclasses.replace(base, n_agents=1, trajectorizer=tr, esdf_window_cells=0,
+                              optimizer=dataclasses.replace(base.optimizer,
+                                                            obstacle_window_cells=0))
+    args, kw = _sfm_case(cfg, card, 67, 1)
+    s1 = args[1].shape[1]
+    assert K5.scan_shared_bytes(K5.scan_geometry(1, 67), 1, s1) > 48 * 1024
+    got = K5.project_people(*args, **kw)
+    ref = K5.project_people_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., 3], ref[..., 3])
+    assert _norm_err(got, ref) <= 1e-4
 
 
 WRAP_PROBE = r"""
@@ -219,7 +258,8 @@ def test_wrap_to_pi_branch_form_equals_fmodf_over_every_float(card, tmp_path):
     it takes its branches, and beyond, where it calls fmodf."""
     src, so = tmp_path / "wrap_probe.cu", tmp_path / "wrap_probe.so"
     src.write_text(WRAP_PROBE)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-shared",
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+                    "-I", _build.write_shapes_header(str(tmp_path)), "-shared",
                     "-o", str(so), str(src)], check=True, capture_output=True)
     fn = ctypes.CDLL(str(so)).wrap_sweep_launch
     fn.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p]
@@ -274,6 +314,31 @@ def test_fused_kernel_matches_plain(card, name):
     for g, r in zip(got, K2.fused_cost_g_jtj_plain(*args)):
         assert _norm_err(g, r) <= 1e-4
     assert torch.equal(got[2], got[2].transpose(1, 2)), "JtJ is written in both triangles"
+
+
+@pytest.mark.parametrize("people", [False, True], ids=["people_free", "people"])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 5, 6])
+def test_fused_kernel_at_every_block_count(card, nb, people):
+    """K2 at NB = 1..6 (the social config in blocks of 4, horizon 4 NB; at
+    NB = 1 no velocity-feasibility row and a zero-width vfm, which the
+    kernel never reads), with and without its people stages: the plain
+    version within 3e-5 (people) or 1e-4, JtJ symmetric."""
+    base = C.benchmark_social_config()
+    cfg = dataclasses.replace(base, optimizer=dataclasses.replace(
+        base.optimizer, control_horizon=4 * nb, parameter_block_length=4))
+    prep, vg, st, _ = _problem(cfg, card, batch=24, n_valid_people=3 if people else 0)
+    args = vg.fused_inputs(st.u)
+    assert args[10].shape[1] == nb and args[24].shape == (24, nb - 1)
+    got = K2.fused_cost_g_jtj(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, K2.fused_cost_g_jtj_plain(*args)):
+        assert _norm_err(g, r) <= (3e-5 if people else 1e-4)
+    assert torch.equal(got[2], got[2].transpose(1, 2))
+    assert bool(vg.m_social.any()) == people
+    with pytest.raises(ValueError, match="NB in 1..6"):
+        bad = list(args)
+        bad[10] = args[10].repeat(1, 7, 1)[:, :7].contiguous()  # NB = 7
+        K2.fused_cost_g_jtj(*bad)
 
 
 @pytest.mark.parametrize("name,tile", [
@@ -333,7 +398,8 @@ def test_fused_kernel_with_people_matches_plain(card, name, tile):
         assert _norm_err(g, r) <= 3e-5
 
 
-@pytest.mark.parametrize("nb,s", [(3, 29), (3, 32), (3, 39), (6, 39)])
+@pytest.mark.parametrize("nb,s", [(3, 29), (3, 32), (3, 39), (6, 39), (1, 59), (2, 29), (4, 39),
+                                  (5, 70)])
 def test_rollout_prep_kernel_matches_plain(card, nb, s):
     """K6 against its plain version with a different block map in every
     scenario (h_dyn / bl_dyn shrink near the goal) and one whose first block
@@ -349,9 +415,10 @@ def test_rollout_prep_kernel_matches_plain(card, nb, s):
     bl_dyn = np.minimum(6, h_dyn)
     block_idx = block_index_sequence_dynamic(
         s, torch.tensor(h_dyn, device=card), torch.tensor(bl_dyn, device=card)).to(torch.int32)
-    block_idx[1] = block_idx[1].clamp(min=1)
-    assert len({tuple(r) for r in block_idx.tolist()}) >= 3
-    assert not bool((block_idx[1] == 0).any())
+    if nb > 1:
+        block_idx[1] = block_idx[1].clamp(min=1)
+        assert not bool((block_idx[1] == 0).any())
+    assert len({tuple(r) for r in block_idx.tolist()}) >= (3 if nb > 1 else 1)
 
     def t(x):
         return torch.tensor(np.asarray(x, np.float32), device=card)
@@ -413,7 +480,8 @@ def test_rollout_sample_kernel_equals_rollout_prep_then_bicubic(card, name):
     assert counts["rollout_prep"] == 0 and counts["bicubic"] == 0, counts
 
 
-@pytest.mark.parametrize("nb,s", [(3, 29), (6, 39), (3, 70)])
+@pytest.mark.parametrize("nb,s", [(3, 29), (6, 39), (3, 70), (1, 59), (1, 70), (2, 29), (4, 70),
+                                  (5, 39), (6, 70)])
 def test_rollout_sample_kernel_ragged_batch_and_offset_views(card, nb, s):
     """B = 4101 (the last block partly empty), a different block map in
     most scenarios, sample points that straddle the window's borders, and at
@@ -521,7 +589,7 @@ def _trust_region_case(card, b, d):
 
 
 @pytest.mark.parametrize("b", [1, 31, 33, 4099])
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_propose_and_commit_kernels_match_plain(card, d, b):
     """K3 and K4 bit for bit against their plain versions, at batches that
     leave a block or a segment partly empty."""
@@ -551,7 +619,7 @@ def test_propose_and_commit_kernels_match_plain(card, d, b):
         assert int(out[8][6]) == K34.TERM_MIN_RADIUS and not bool(out[1][6] != state[1][6])
 
 
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_propose_and_commit_kernels_take_offset_views(card, d):
     """Inputs that are views 4 bytes into their storage take the kernels'
     scalar loads (K3's at D = 6, K4's JtJ copy): the same bits as the plain
@@ -577,7 +645,7 @@ def test_propose_and_commit_kernels_take_offset_views(card, d):
         assert _same_bits(x, y)
 
 
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_propose_and_commit_kernels_ignore_batch_position(card, d):
     """A scenario's bits do not depend on its block or its segment: a
     permuted batch gives the permuted outputs."""
@@ -600,7 +668,7 @@ def test_propose_and_commit_kernels_ignore_batch_position(card, d):
         assert _same_bits(x, y[perm])
 
 
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_propose_kernel_equals_spd_solve_and_projection(card, d):
     """K3 takes bit for bit the step of K7 on the damped system followed by
     the box projection, as the general iteration takes it."""
@@ -615,7 +683,7 @@ def test_propose_kernel_equals_spd_solve_and_projection(card, d):
         assert _same_bits(x, y)
 
 
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 7, 8, 12, 16])
 def test_spd_solve_kernel_matches_plain(card, d):
     rng = np.random.default_rng(100 + d)
     n = 300  # not a multiple of the block size
@@ -637,9 +705,9 @@ def test_spd_solve_kernel_matches_plain(card, d):
 
 
 def test_spd_solve_refuses_other_sizes_on_the_card(card):
-    a = torch.eye(5, device=card).expand(4, 5, 5).contiguous()
+    a = torch.eye(17, device=card).expand(4, 17, 17).contiguous()
     with pytest.raises(ValueError, match="D in"):
-        K7.spd_solve(a, torch.ones((4, 5), device=card))
+        K7.spd_solve(a, torch.ones((4, 17), device=card))
     with pytest.raises(ValueError, match="float32"):
         K7.spd_solve(torch.eye(6, device=card, dtype=torch.float64).expand(4, 6, 6).contiguous(),
                      torch.ones((4, 6), device=card, dtype=torch.float64))
@@ -654,7 +722,7 @@ def _damped_case(card, b, d, scaled):
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "jacobi"])
 @pytest.mark.parametrize("b", [1, 31, 33, 4099])
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_damped_step_kernel_matches_plain(card, d, b, scaled):
     """K7's damped step bit for bit against damped_step_plain (the general
     iteration's composition), one launch counted under spd_solve, at batches
@@ -673,7 +741,7 @@ def test_damped_step_kernel_matches_plain(card, d, b, scaled):
         assert bool(torch.isfinite(got[0][0]).all())
 
 
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_damped_step_kernel_without_scale_is_propose(card, d):
     """Without jac_scale the damped step is K3's function: the same bits as
     propose's kernel."""
@@ -686,7 +754,7 @@ def test_damped_step_kernel_without_scale_is_propose(card, d):
 
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "jacobi"])
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_damped_step_kernel_ignores_batch_position_and_alignment(card, d, scaled):
     """A permuted batch gives the permuted outputs, and views that start 4
     bytes into their storage (the scalar loads at D = 6) give the same bits
@@ -723,10 +791,14 @@ def test_damped_step_refuses_what_the_kernel_does_not_take(card):
              prop_in[5][:, :5].contiguous())
     with pytest.raises(ValueError, match="D in"):
         K34.damped_step(LM_CFG, *small)
+    wide, _ = _damped_case(card, 8, 14, False)  # D = 14: NB = 7, past K2's registers
+    for fn in (K34.damped_step, K34.propose):
+        with pytest.raises(ValueError, match="D in"):
+            fn(LM_CFG, *wide)
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 4099])
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 7, 8, 12, 16])
 def test_spd_solve_kernel_bits_at_every_batch_and_alignment(card, d, n):
     """The standalone solve on the damped step's layouts: bit for bit against
     spd_solve_plain at batches that leave a block or a segment partly empty,

@@ -42,7 +42,7 @@ def _jax_propose(args):
     return jax.vmap(lambda *a: jpi.propose_ref(JCFG, *a))(*map(jnp.asarray, args))
 
 
-@pytest.mark.parametrize("b,d", [(7, 6), (9, 12), (5, 2)])
+@pytest.mark.parametrize("b,d", [(7, 6), (9, 12), (5, 2), (6, 4), (5, 8), (4, 10)])
 def test_propose_matches_reference_f64(b, d):
     """f64: the unrolled Cholesky against the library solve of propose_ref;
     active bounds on most lanes (steps of several units against a +-0.7 box)."""
@@ -130,7 +130,7 @@ NAMES = ("u", "cost", "g", "jtj", "radius", "decrease_factor", "iters", "done", 
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("d", [6, 12])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 12])
 def test_commit_matches_reference(d, dtype):
     """Every output of commit equals commit_ref's: the arithmetic is the
     same elementwise chain, so floats agree to rounding (rtol 1e-6 in f32,
@@ -156,6 +156,32 @@ def test_commit_matches_reference(d, dtype):
     assert term[8] == K.TERM_NO_CONVERGENCE and not got[7][8]
     assert set(term.tolist()) >= {0, 1, 2, 3, 4, 5}
     assert got[9][2] and not got[9][3]  # failed only on the numeric failure
+
+
+@pytest.mark.parametrize("d", [2, 4, 8, 10])
+def test_propose_and_commit_match_the_pallas_kernels(d):
+    """K3 and K4's plain versions at the block counts the card now takes
+    beside 6 and 12, against the JAX package's Pallas kernels in interpret
+    mode (under jax.jit) in float32: propose to the linear-solver tolerance
+    of test_propose_matches_reference_f32 (XLA may contract a*b+c where
+    PyTorch does not), commit's floats to 1e-6 and its discrete outputs
+    equal."""
+    args = _random_state(np.random.default_rng(20 + d), 9, d, np.float32)
+    ref = jax.jit(lambda *a: jpi.propose_batched_pallas(JCFG, *a, interpret=True))(
+        *map(jnp.asarray, args))
+    got = K.propose(TCFG, *map(_t, args))
+    for g, r, name in zip(got, ref, ("u_new", "delta", "model_change")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-3, atol=5e-5, err_msg=name)
+    cargs = _commit_inputs(np.random.default_rng(30 + d), 12, d, np.float32)
+    ref = jax.jit(lambda *a: jpi.commit_batched_pallas(JCFG, *a, interpret=True))(
+        *map(jnp.asarray, cargs))
+    got = K.commit(TCFG, *map(_t, cargs))
+    for gk, rk, name in zip(got, ref, NAMES):
+        gk, rk = gk.numpy(), np.asarray(rk)
+        if gk.dtype.kind == "f":
+            np.testing.assert_allclose(gk, rk, rtol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(gk, rk.astype(gk.dtype), err_msg=name)
 
 
 def test_non_pd_system_is_rejected_and_done_lanes_are_bit_frozen():

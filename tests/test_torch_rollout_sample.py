@@ -26,8 +26,11 @@ torch.set_num_threads(1)
 
 DT, FRONT, RES = 0.05, 0.25, 0.05
 H = W = 64
-SHAPES = [(5, 3, 29), (4, 6, 39)]  # (B, NB, S): the benchmark ticks' and the stress horizon's
-IDS = ["NB3-S29", "NB6-S39"]
+# (B, NB, S): the benchmark ticks' and the stress horizon's; the reference's
+# defaults (NB = 1, S = 59), horizon 7 in blocks of 4 (NB = 2), and NB = 4
+# past 64 steps (the kernel's long form)
+SHAPES = [(5, 3, 29), (4, 6, 39), (3, 1, 59), (3, 2, 29), (3, 4, 70)]
+IDS = ["NB3-S29", "NB6-S39", "NB1-S59", "NB2-S29", "NB4-S70"]
 
 
 def _inputs(seed, b, nb, s, dtype, smooth=False):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_common import config_by_name
 
 from nav2_social_mpc_controller_tpu.controller import optimize as jopt
 from nav2_social_mpc_controller_tpu.controller.trajectorizer import trajectorize as jax_trajectorize
@@ -41,8 +42,9 @@ def _t(x):
 def _inputs(name, dtype, n_people, b=5, near_goal=False):
     """(jcfg, NumPy batch): people, robot rows and ESDF straight from the JAX
     package's pipeline. With `near_goal` the later robots start a few poses
-    before the end of their plan, so the scan's tail is beyond their rows."""
-    jcfg = getattr(jcfg_mod, name)()
+    before the end of their plan, so the scan's tail is beyond their rows.
+    `name` is a configuration of config_by_name."""
+    jcfg = config_by_name(jcfg_mod, name)
     dims = jopt.ProblemDims.from_config(jcfg)
     keys = ("people", "rows", "n_rows", "dist", "idx", "origin", "res", "valid")
     batch = {k: [] for k in keys}
@@ -101,8 +103,10 @@ def _port(jcfg, x, window, fn=tsfm.project_people):
         ("benchmark_omni_6agents_config", 6, 32, False),
         ("benchmark_stress_h36_config", 3, 44, False),
         ("benchmark_obstacle_only_config", 0, 32, False),  # the people-free tick
+        ("social_n12", 12, 32, False),  # three sources a lane ... one lane an agent
+        ("social_n32", 32, 32, False),  # on the card
     ],
-    ids=["social", "no_window", "near_goal", "omni6", "stress36", "no_people"],
+    ids=["social", "no_window", "near_goal", "omni6", "stress36", "no_people", "n12", "n32"],
 )
 def test_project_people_matches_reference_scan_f64(name, n_people, window, near_goal):
     jcfg, x = _inputs(name, np.float64, n_people, near_goal=near_goal)
@@ -197,6 +201,9 @@ def test_esdf_window_rule(name):
     (6, 4101, (2, 3, 18, 1, 5, 5, 821)),
     (1, 37, (1, 1, 1, 32, 1, 32, 2)),
     (8, 5, (2, 4, 32, 1, 4, 4, 2)),
+    (9, 1024, (3, 3, 27, 1, 3, 3, 342)),   # three sources a lane, 3 force warps
+    (17, 1024, (17, 1, 17, 1, 1, 1, 1024)),  # one lane an agent, a scenario a block
+    (32, 5, (32, 1, 32, 1, 1, 1, 5)),      # the most one warp of force lanes holds
 ])
 def test_scan_geometry(n, b, want):
     """K5's launch geometry (sources per lane, lanes per agent, force lanes
@@ -215,7 +222,7 @@ def test_scan_geometry(n, b, want):
         assert n * -(-n // (geo.sources_per_lane - 1)) > 32
 
 
-@pytest.mark.parametrize("n", [0, 9])
+@pytest.mark.parametrize("n", [0, 33])
 def test_scan_geometry_refuses_counts_the_kernel_is_not_built_for(n):
     with pytest.raises(ValueError, match="agents"):
         tsfm.scan_geometry(n, 8)

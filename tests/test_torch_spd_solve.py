@@ -38,7 +38,7 @@ def test_plain_matches_pallas_kernel_f32(seed, n, d):
     np.testing.assert_allclose(got, x64, rtol=tol[0], atol=tol[1])
 
 
-@pytest.mark.parametrize("d", [3, 6, 12])
+@pytest.mark.parametrize("d", [1, 3, 5, 6, 12, 16])
 def test_plain_matches_numpy_f64(d):
     """float64, any D: a direct solve of well-conditioned systems, rtol 1e-10
     (the figure of tests/test_pallas_solve.py's f64 case)."""

@@ -120,7 +120,7 @@ def build_all(kind, variants):
     for name, path in variants.items():
         so = os.path.join(out_dir, f"{name}.so")
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", _build.CSRC_DIR,
-               "-shared", "-o", so, path]
+               "-I", _build.write_shapes_header(out_dir), "-shared", "-o", so, path]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True))
     libs, usage = {}, {}
