@@ -53,15 +53,25 @@ Phases, each printing one JSON line:
              social config in blocks of 4) K2 with and without its people
              stages, K6, rollout_sample against K6 then K1 bit for bit (also
              in its long form, S = 69), K3, K4 and K7's damped step with and
-             without the scale; K7's standalone solve at D = 1..16 on random
-             SPD systems with every 97th negated; K5 at N = 9, 12, 16, 24,
-             32 and at N = 1 over 99 steps (shared memory past 48 KB a block)
+             without the scale; the general forms (NB and D at run time) of
+             the same kernels at NB = 7, 9, 12, 18, 36 and the limit (118;
+             the social config in blocks of 1 over S = max(69, NB + 5)
+             steps), and at NB = 3 and 6 against the templated forms; K7's
+             standalone solve at D = 1..16 and, in its general form, at
+             D = 17, 24, 32, 33, 64, 128 and the limit (237) on random SPD
+             systems with every 97th negated; K5 at N = 9, 12, 16, 24, 32
+             and at N = 1 over 99 steps (shared memory past 48 KB a block)
   step_shapes  the reference's defaults (NB = 1, D = 2, S = 59, cap 100),
              horizon 7 in blocks of 4 (NB = 2, n_vf = 0) and 12 agents
-             (NB = 3) at B = 1024 x 3 ticks: each a main_path line (with the
-             f32 gate against the CPU), then the one-launch tick against the
-             eager tick bit for bit, the same launch counts, one graph launch
-             a tick; the debug tick too at NB = 1
+             (NB = 3) at B = 1024, and the configs that run the general
+             forms: the social horizon in blocks of 2 (NB = 9, B = 4096) and
+             of 1 (NB = 18), the stress horizon in blocks of 3 (NB = 12) at
+             B = 1024; 3 ticks each: a main_path line (with the f32 gate
+             against the CPU), then the one-launch tick against the eager
+             tick bit for bit, the same launch counts, one graph launch a
+             tick, a profile of the captured tick naming each kernel's form;
+             the debug tick too at NB = 1 and on the blocks of 2, and there
+             the compacted_tick phase
   bench      the CLI's bench loop (runtime/bench.py), 10 ticks as one graph
              launch against the host loop (social B = 4096, the reference's
              defaults B = 1024): the last command bit for bit, launch counts,
@@ -179,6 +189,9 @@ Phases, each printing one JSON line:
              its damped step with and without the Jacobi scale and its
              standalone solve under `entries`; `launches_by_path` adds the
              single_step, controller, sim, stream and distributed paths);
+             the general forms at the blocks-of-2 config's shapes (B = 4096,
+             NB = 9, D = 18; K7 also at D = 36), their launches on the
+             step_shapes paths;
              beside them the launch floor, an almost empty kernel timed the
              same way
 
@@ -194,6 +207,7 @@ line of a good run is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -335,7 +349,9 @@ def nbytes(*tensors):
 # trajectorizer's distances and heading). The kernel source is included, so
 # these are the same device functions.
 SASS_PROBE_SOURCE = r"""
-#include "fused_iter.cu"
+#include "fused_rows.cuh"
+
+using namespace fused;
 
 __device__ __forceinline__ void probe_store(float* p, const Dual4& x) {
     p[0] = x.p;
@@ -1259,6 +1275,39 @@ KERNEL_INFO = {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
         "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93", "redesigned": "PR 7",
     },
+    # The general forms (NB and D at run time).
+    "rollout_prep_general": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_prep.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158",
+        "form": "general (NB at run time)",
+    },
+    "rollout_sample_general": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_sample.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158 then "
+                    "nav2_social_mpc_controller_tpu/ops/bicubic_pallas.py:288",
+        "form": "general (NB at run time)",
+    },
+    "fused_iter_general": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/fused_general.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/ops/fused_iter.py:462",
+        "form": "general (NB at run time)",
+    },
+    "propose_general": {
+        # K7's general damped step without the scale (damped_step.cuh's body)
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:322",
+        "form": "general (D at run time)",
+    },
+    "commit_general": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tr_iter.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:362",
+        "form": "general (D at run time)",
+    },
+    "spd_solve_general": {
+        "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93",
+        "form": "general (D at run time)",
+    },
     "trajectorize": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/trajectorize.cu",
         "replaces": "nav2_social_mpc_controller_tpu/controller/trajectorizer.py:123 "
@@ -1297,6 +1346,53 @@ LOOP_KERNEL = "lm_continue"
 LOOP_KERNELS = (LOOP_KERNEL, "compact_continue")
 COMPACTED_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_iter", "propose",
                           "commit", "compact_continue")
+# The kernels with a general form (NB and D at run time): a path of NB blocks
+# past kernel_shapes.BLOCKS launches each of them in that form, counted under
+# its name with "_general" appended.
+GENERAL_FORMS = ("rollout_prep", "rollout_sample", "fused_iter", "propose", "commit", "spd_solve")
+# The kernels' names in a profile, templated form and general form.
+PROFILE_NAMES = {
+    "rollout_sample": ("rollout_sample_kernel<", "rollout_sample_general_kernel"),
+    "fused_iter": ("fused_kernel<", "fused_general_kernel"),
+    "propose": ("propose_", "damped_step_general_kernel<false>"),
+    "commit": ("commit_kernel<", "commit_general_kernel"),
+    "spd_solve": ("damped_step_", "damped_step_general_kernel"),
+}
+
+
+def counter(kernel, nb):
+    """The launch counter of `kernel` on a path of NB blocks."""
+    from nav2_social_mpc_controller_tpu_torch import kernel_shapes
+
+    if kernel in GENERAL_FORMS and nb not in kernel_shapes.BLOCKS:
+        return kernel + "_general"
+    return kernel
+
+
+def path_kernels(kernels, nb):
+    """The counters a path of NB blocks launches."""
+    return tuple(counter(k, nb) for k in kernels)
+
+
+def check_profiled_forms(where, by_name, kernels, nb):
+    """Fail unless a profile's kernel names ({name: count}) show, for each
+    of `kernels` that has a general form, the form NB runs and not the
+    other (the general form past kernel_shapes.BLOCKS). Returns the names
+    of the forms seen."""
+    general = counter("fused_iter", nb) != "fused_iter"
+    seen = {}
+    for k in kernels:
+        if k not in PROFILE_NAMES:
+            continue
+        templated_tag, general_tag = PROFILE_NAMES[k]
+        gen = [n for n in by_name if general_tag in n]
+        tmpl = [n for n in by_name if templated_tag in n and general_tag not in n]
+        want, other = (gen, tmpl) if general else (tmpl, gen)
+        if not want or other:
+            fail(f"{where}: the profile shows {tmpl} (templated) and {gen} (general) for "
+                 f"{k} at NB = {nb}")
+        seen[k] = sorted(n[:80] for n in want)
+    return seen
 
 
 def without_loop_names(by_name):
@@ -1434,6 +1530,49 @@ def check_all_kernels(cfg, cap, reps):
     if out["propose"]["bits_differ"] != 0:  # K3 compiles the damped step's bodies
         fail(f"kernel propose: {out['propose']['bits_differ']:.0f} elements with other bits "
              f"than its plain version at {out['propose']['shape']}")
+    return out
+
+
+def check_general_kernels(dev, reps):
+    """Every general form at the main path's shapes of the config in blocks
+    of 2 (social_bl2: B_MAIN, NB = 9, D = 18, S = 29), inputs captured from a
+    real tick: K6 and rollout_sample, K2, K3, K4 and K7 (the damped step,
+    its scaled form and the standalone solve of its system); K7 also at
+    D = 36 (social_bl1 at B_WIDE), its library solve beside it. Returns
+    {name: row}."""
+    from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry
+
+    configs = {name: (cfg, n_valid, batch) for name, cfg, n_valid, batch in step_configs()}
+    cfg, n_valid, batch = configs[GENERAL_DEBUG_CELL]
+    sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid)
+    cap = capture_iteration(cfg, with_pose(sc, poses[0]), make_carry(cfg, batch, device=dev))
+    if cap["propose"][0].shape[1] != 18:
+        fail(f"general kernels: {GENERAL_DEBUG_CELL} solves D = {cap['propose'][0].shape[1]}")
+    out = {
+        "rollout_prep_general": check_rollout(cap["rollout_prep"], reps),
+        "rollout_sample_general": check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"],
+                                                       reps),
+        "fused_iter_general": check_fused(cap["fused"], reps),
+        "propose_general": check_propose(cap["lm_cfg"], cap["propose"], reps),
+        "commit_general": check_commit(cap["lm_cfg"], cap["commit"], reps),
+        "spd_solve_general": check_spd_solve(cap["lm_cfg"], cap, reps),
+    }
+    del cap, sc
+    cfg36, n36, b36 = configs["social_bl1"]
+    sc36, poses36 = make_batch(cfg36, b36, dev, n_valid_people=n36)
+    cap36 = capture_iteration(cfg36, with_pose(sc36, poses36[0]),
+                              make_carry(cfg36, b36, device=dev))
+    d36 = check_spd_solve(cap36["lm_cfg"], cap36, reps)
+    out["spd_solve_general"]["at_d36"] = {k: d36[k] for k in (
+        "shape", "max_err", "max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    for name, r in list(out.items()) + [("spd_solve_general at D = 36", d36)]:
+        if not r["max_err"] <= r["tol"]:
+            fail(f"kernel {name} disagrees with its plain version at {r['shape']}: "
+                 f"error {r['max_err']:.3e} > tolerance {r['tol']:.1e}")
+    if out["propose_general"]["bits_differ"] != 0:
+        fail(f"kernel propose_general: {out['propose_general']['bits_differ']:.0f} elements "
+             f"with other bits than its plain version at {out['propose_general']['shape']}")
     return out
 
 
@@ -1664,6 +1803,33 @@ def blocks_config(nb, long_rollout=False):
     return cfg
 
 
+GENERAL_BLOCK_COUNTS = (7, 9, 12, 18, 36)  # and kernel_shapes.GENERAL_MAX_BLOCKS
+GENERAL_SOLVE_DIMS = (17, 24, 32, 33, 64, 128)  # and kernel_shapes.GENERAL_MAX_DIM
+GENERAL_CROSS_CHECK_BLOCKS = (3, 6)  # the general forms against the templated ones
+
+
+def general_blocks_config(nb):
+    """The social config at NB blocks of length 1 (horizon NB) over a long
+    rollout, S = max(69, NB + 5) steps, windows off (their exactness rule is
+    sized for 29 steps)."""
+    import dataclasses
+
+    from nav2_social_mpc_controller_tpu_torch.core.config import benchmark_social_config
+
+    cfg = replace_optimizer(benchmark_social_config(), control_horizon=nb,
+                            parameter_block_length=1, obstacle_window_cells=0)
+    tr = cfg.trajectorizer
+    return dataclasses.replace(
+        cfg, esdf_window_cells=0,
+        trajectorizer=dataclasses.replace(tr, max_time=max(70, nb + 6) * tr.time_step))
+
+
+def general_batch(nb):
+    """The batch of the general forms' check at NB: B_SHAPES up to 18 blocks;
+    fewer above, where the plain K2 forms a (B, rows, D, D) product."""
+    return B_SHAPES if nb <= 18 else (256 if nb <= 36 else 16)
+
+
 def agents_config(n, steps=None):
     """The social config with N agents; `steps`: S + 1 = steps + 1 rows,
     windows off."""
@@ -1689,6 +1855,80 @@ def gate(rows):
     return rows
 
 
+@contextlib.contextmanager
+def general_forms():
+    """Every wrapper takes its kernel's general form, at a templated shape
+    too, while the block runs: kernel_shapes.form reads the lists of
+    templated shapes at each call, and these are empty for that while (the
+    built library and its dispatch tables are untouched)."""
+    from nav2_social_mpc_controller_tpu_torch import kernel_shapes
+
+    saved = kernel_shapes.BLOCKS, kernel_shapes.SOLVE_DIMS, kernel_shapes.SPD_SOLVE_DIMS
+    kernel_shapes.BLOCKS = kernel_shapes.SOLVE_DIMS = kernel_shapes.SPD_SOLVE_DIMS = ()
+    try:
+        yield
+    finally:
+        kernel_shapes.BLOCKS, kernel_shapes.SOLVE_DIMS, kernel_shapes.SPD_SOLVE_DIMS = saved
+
+
+def check_general_vs_templated(cap):
+    """Each general form at a templated shape (general_forms), on a capture's
+    inputs: K2 against the templated K2 (its tolerance: the two sum in
+    another order), K6 and rollout_sample against the templated kernels
+    (the same scans: the elements whose bits differ are reported, not gated,
+    since ptxas contracts by context), K3, K4 and K7's damped step (with and
+    without the scale) and its standalone solve against their plain versions
+    bit for bit, as the templated forms are. Returns {name: row}."""
+    from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
+    from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
+    from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
+
+    lm_cfg, prep, win = cap["lm_cfg"], cap["rollout_prep"], cap["bicubic"][0]
+    people = bool(cap["fused"][18].any())
+    with general_forms():
+        got = K2.fused_cost_g_jtj(*cap["fused"])
+    ref = K2.fused_cost_g_jtj(*cap["fused"])
+    torch.cuda.synchronize()
+    errs = [norm_err(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)) for a, b in zip(got, ref)]
+    out = {"fused_iter_general": {
+        "shape": f"B={got[0].shape[0]} D={got[1].shape[1]}", "against": "templated K2",
+        "max_err": max(e[0] for e in errs), "max_abs_err": max(e[1] for e in errs),
+        "tol": TOL["fused_iter_people" if people else "fused_iter"]}}
+    for name, fn, args in (("rollout_prep_general", K6.rollout_prep, prep),
+                           ("rollout_sample_general", K6.rollout_sample, (win, *prep))):
+        with general_forms():
+            g = fn(*args)
+        t = fn(*args)
+        keys = sorted(t)
+        torch.cuda.synchronize()
+        out[name] = {"shape": f"B={prep[2].shape[0]} S={prep[2].shape[1]} NB={prep[7]}",
+                     "against": "templated kernel", "max_err": 0.0, "tol": 0.0,
+                     "bits_differ_from_templated": bits_differ([g[k] for k in keys],
+                                                               [t[k] for k in keys]),
+                     "max_abs_err": float(max((g[k].double() - t[k].double()).abs()
+                                              .nan_to_num(0.0).max() for k in keys))}
+    with general_forms():
+        gp = K34.propose(lm_cfg, *cap["propose"])
+        cg = K34.commit(lm_cfg, *cap["commit"])
+        gd = [K34.damped_step(lm_cfg, *cap["propose"], jac) for jac in (None, cap["jac_scale"])]
+        gs = K7.spd_solve(*cap["spd_solve"])
+    bits = bits_differ(gp, K34.propose_plain(lm_cfg, *cap["propose"]))
+    out["propose_general"] = {"against": "plain version", "max_err": bits, "tol": 0.0,
+                              "bits_differ": bits}
+    cp = K34.commit_plain(lm_cfg, *cap["commit"])
+    out["commit_general"] = {"against": "plain version", "max_err": bits_differ(cg, cp),
+                             "tol": 0.0}
+    differ = 0.0
+    for got_d, jac in zip(gd, (None, cap["jac_scale"])):
+        differ += bits_differ(got_d, K34.damped_step_plain(lm_cfg, *cap["propose"], jac))
+    differ += bits_differ([gs], [K7.spd_solve_plain(*cap["spd_solve"])])
+    out["spd_solve_general"] = {"against": "plain version (damped step, scaled, standalone)",
+                                "max_err": differ, "tol": 0.0}
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_kernel_shapes(dev, reps=20):
     """Every instantiation the card now takes, against its plain version on
     the same inputs, at B = B_SHAPES: for NB = 1..6 (D = 2 NB; the social
@@ -1699,7 +1939,13 @@ def phase_kernel_shapes(dev, reps=20):
     (and the standalone solve of its system); rollout_sample and K6 in their
     long form (S = 69); K7's standalone solve at D = 1..16 on random SPD
     systems with every 97th negated; K5 at N = 9, 12, 16, 24 and 32 and at
-    N = 1 over 99 steps, past 48 KB of shared memory a block."""
+    N = 1 over 99 steps, past 48 KB of shared memory a block. The general
+    forms (NB and D at run time): at NB = 7, 9, 12, 18, 36 and the limit
+    (general_blocks_config, blocks of 1 over S = max(69, NB + 5) steps) the
+    same checks of K2, K6, rollout_sample, K3, K4 and K7 against their plain
+    versions; at NB = 3 and 6 each general form against the templated one
+    (check_general_vs_templated); K7's standalone solve at D = 17, 24, 32,
+    33, 64, 128 and the limit."""
     from nav2_social_mpc_controller_tpu_torch import kernel_shapes
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
 
@@ -1734,18 +1980,54 @@ def phase_kernel_shapes(dev, reps=20):
             fail(f"kernel_shapes: the long rollout has {args[2].shape[1]} steps")
         add("rollout_prep", {**what, "form": "long"}, check_rollout(args, reps))
         add("rollout_sample", {**what, "form": "long"}, check_rollout_sample(win, args, reps))
+    # The general forms: at NB past the templated list, in blocks of 1 over a
+    # long rollout, each against its plain version; at NB = 3 and 6 against
+    # the templated forms too.
+    for nb in GENERAL_BLOCK_COUNTS + (kernel_shapes.GENERAL_MAX_BLOCKS,):
+        cfg = general_blocks_config(nb)
+        batch = general_batch(nb)
+        what = {"nb": nb, "d": 2 * nb, "batch": batch}
+        reps_nb = reps if nb <= 18 else 3
+        for n_valid in (cfg.n_agents, 0):
+            sc, poses = make_batch(cfg, batch, dev, n_valid_people=n_valid)
+            sc = with_pose(sc, near_goal_every(sc, poses[0]))
+            cap = capture_iteration(cfg, sc, make_carry(cfg, batch, device=dev))
+            if cap["propose"][0].shape[1] != 2 * nb:
+                fail(f"kernel_shapes: the config for NB = {nb} solves D = "
+                     f"{cap['propose'][0].shape[1]}")
+            what["s"] = cap["dims"].s
+            add("fused_iter_general", {**what, "people": bool(n_valid)},
+                check_fused(cap["fused"], reps_nb))
+            if not n_valid:
+                continue
+            add("rollout_prep_general", what, check_rollout(cap["rollout_prep"], reps_nb))
+            add("rollout_sample_general", what,
+                check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"], reps_nb))
+            add("propose_general", what, check_propose(cap["lm_cfg"], cap["propose"], reps_nb))
+            add("commit_general", what, check_commit(cap["lm_cfg"], cap["commit"], reps_nb))
+            add("spd_solve_general", what, check_spd_solve(cap["lm_cfg"], cap, reps_nb))
+            del cap
+    for nb in GENERAL_CROSS_CHECK_BLOCKS:
+        cfg = blocks_config(nb)
+        sc, poses = make_batch(cfg, B_SHAPES, dev, n_valid_people=cfg.n_agents)
+        sc = with_pose(sc, near_goal_every(sc, poses[0]))
+        cap = capture_iteration(cfg, sc, make_carry(cfg, B_SHAPES, device=dev))
+        for name, r in check_general_vs_templated(cap).items():
+            add(name, {"nb": nb, "d": 2 * nb, "form": "general against templated"}, r)
     gen = torch.Generator(device=dev).manual_seed(1)
-    for d in kernel_shapes.SPD_SOLVE_DIMS:
+    for d in kernel_shapes.SPD_SOLVE_DIMS + GENERAL_SOLVE_DIMS + (kernel_shapes.GENERAL_MAX_DIM,):
         m = torch.randn((B_SHAPES, d, d), device=dev, generator=gen)
         a = m @ m.transpose(1, 2) + 0.5 * torch.eye(d, device=dev)
         a[::97] = -a[::97]
         r = check_spd_solve_system(
-            a.contiguous(), torch.randn((B_SHAPES, d), device=dev, generator=gen), reps)
+            a.contiguous(), torch.randn((B_SHAPES, d), device=dev, generator=gen),
+            reps if d <= 64 else 3)
         if r["non_finite_systems"] != len(range(0, B_SHAPES, 97)):
             fail(f"kernel spd_solve on random systems at D={d}: {r['non_finite_systems']} "
                  "non-finite systems")
-        add("spd_solve", {"d": d, "entry": "standalone",
-                          "systems": "random SPD, every 97th negated"}, r)
+        name = "spd_solve" if d in kernel_shapes.SPD_SOLVE_DIMS else "spd_solve_general"
+        add(name, {"d": d, "entry": "standalone", "systems": "random SPD, every 97th negated"}, r)
+        del m, a
     for n, steps in [(n, None) for n in K5_AGENT_COUNTS] + [(1, K5_LONG_STEPS)]:
         from nav2_social_mpc_controller_tpu_torch.models.sfm import scan_geometry, scan_shared_bytes
 
@@ -1765,53 +2047,75 @@ def phase_kernel_shapes(dev, reps=20):
                          "sources_per_lane": scan_geometry(n, 1).sources_per_lane}, r)
     gate(rows)
     for r in rows:
-        if r["name"] == "propose" and r["bits_differ"] != 0:
+        if r["name"] in ("propose", "propose_general") and r["bits_differ"] != 0:
             fail(f"kernel propose: {r['bits_differ']:.0f} elements with other bits than its "
                  f"plain version at {r['shape']}")
     emit({"phase": "kernel_shapes", "batch": B_SHAPES, "kernels": rows})
 
 
 def step_configs():
-    """(name, config, valid people) of the shapes the benchmark configs do
-    not reach: the reference's defaults (NB = 1, D = 2, S = 59, a cap of 100
-    iterations, no window), horizon 7 in blocks of 4 (NB = 2, n_vf = 0) and
-    12 agents (NB = 3, K5 with 6 sources a lane)."""
+    """(name, config, valid people, batch) of the shapes the benchmark
+    configs do not reach: the reference's defaults (NB = 1, D = 2, S = 59, a
+    cap of 100 iterations, no window), horizon 7 in blocks of 4 (NB = 2,
+    n_vf = 0) and 12 agents (NB = 3, K5 with 6 sources a lane), at B_WIDE;
+    and the configs in more than six blocks, which run the kernels' general
+    forms: the social horizon of 18 in blocks of 2 (NB = 9, D = 18, at the
+    social benchmark's width B_MAIN) and of 1 (NB = 18, D = 36), and the
+    H = 36 stress horizon in blocks of 3 (NB = 12, D = 24, S = 39), at
+    B_WIDE."""
     from nav2_social_mpc_controller_tpu_torch.core.config import (
-        SocialMPCConfig, benchmark_social_config,
+        SocialMPCConfig, benchmark_social_config, benchmark_stress_h36_config,
     )
 
     social = benchmark_social_config()
-    return [("default", SocialMPCConfig(), 3),
+    return [("default", SocialMPCConfig(), 3, B_WIDE),
             ("social_h7_bl4", replace_optimizer(social, control_horizon=7,
-                                                parameter_block_length=4), 3),
-            ("social_n12", agents_config(12), 12)]
+                                                parameter_block_length=4), 3, B_WIDE),
+            ("social_n12", agents_config(12), 12, B_WIDE),
+            ("social_bl2", replace_optimizer(social, parameter_block_length=2), 3, B_MAIN),
+            ("social_bl1", replace_optimizer(social, parameter_block_length=1), 3, B_WIDE),
+            ("stress36_bl3", replace_optimizer(benchmark_stress_h36_config(),
+                                               parameter_block_length=3), 3, B_WIDE)]
+
+
+GENERAL_DEBUG_CELL = "social_bl2"  # the config in finer blocks whose debug and compacted ticks run
 
 
 def phase_step_shapes(dev):
-    """The three step_configs through the main path at B = B_WIDE, 3 ticks
+    """The step_configs through the main path at their batches, 3 ticks
     with the carry fed back (phase_main_path: launches, outputs, the f32
     gate against the CPU plain path), then the one-launch tick against the
     eager tick (capture=False) on the same ticks: every output and the carry
     bit for bit, the launch counts equal but lm_continue's, one graph launch
-    a tick; on the reference's defaults also the debug tick, captured
-    against eager bit for bit, with K7's damped step once per iteration the
-    loop runs and every result equal to the plain tick's. Returns the
-    launch counts of the main-path runs, summed."""
+    a tick, and the profile of a captured tick naming each kernel's form
+    (the general forms, and no templated one, past NB = 6); on the
+    reference's defaults and on GENERAL_DEBUG_CELL also the debug tick,
+    captured against eager bit for bit, with K7's damped step once per
+    iteration the loop runs and every result equal to the plain tick's; on
+    GENERAL_DEBUG_CELL the compacted warm-start tick too
+    (phase_compacted_tick). Returns the launch counts by path: the main-path
+    runs, the debug ticks' and the compacted ticks', each summed."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import (
         make_carry, make_step_batch,
     )
     from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims
 
-    total = {}
-    cells = []
-    for name, cfg, n_valid in step_configs():
-        dims = ProblemDims.from_config(cfg)
-        launches, sc, poses = phase_main_path(name, cfg, dev, B_WIDE, n_valid)
+    totals = {"step_shapes": {}, "step_shapes_debug": {}, "step_shapes_compacted": {}}
+
+    def add(path, launches):
         for k, n in launches.items():
-            total[k] = total.get(k, 0) + n
+            totals[path][k] = totals[path].get(k, 0) + n
+
+    cells = []
+    for name, cfg, n_valid, batch in step_configs():
+        dims = ProblemDims.from_config(cfg)
+        nb = dims.n_blocks
+        launches, sc, poses = phase_main_path(name, cfg, dev, batch, n_valid)
+        add("step_shapes", launches)
+        debug = nb == 1 or name == GENERAL_DEBUG_CELL
         kinds = [("plain", cfg)] + ([("debug", replace_optimizer(cfg, debug_optimizer=True))]
-                                    if dims.n_blocks == 1 else [])
+                                    if debug else [])
         plain_outs = None
         for kind, c in kinds:
             where = f"step_shapes {name} {kind}"
@@ -1819,11 +2123,11 @@ def phase_step_shapes(dev):
                      "eager": make_step_batch(c, device=dev, capture=False)}
             outs, by_kind = {}, {}
             for k, step in steps.items():
-                run_ticks(step, sc, poses[:1], make_carry(c, B_WIDE, device=dev))  # capture
+                run_ticks(step, sc, poses[:1], make_carry(c, batch, device=dev))  # capture
                 if k == "captured":
                     step.tick.reset_host_launches()
                 _build.reset_launch_counts()
-                outs[k] = run_ticks(step, sc, poses, make_carry(c, B_WIDE, device=dev))
+                outs[k] = run_ticks(step, sc, poses, make_carry(c, batch, device=dev))
                 by_kind[k] = dict(_build.launch_counts)
             for t, (got, want) in enumerate(zip(outs["captured"][0], outs["eager"][0])):
                 same_bits(f"{where} tick {t}", got, want, parts=("cmd", "aux"))
@@ -1831,33 +2135,44 @@ def phase_step_shapes(dev):
             if without_loop(by_kind["captured"]) != without_loop(by_kind["eager"]):
                 fail(f"{where}: kernel launches {by_kind['captured']} captured, "
                      f"{by_kind['eager']} eager")
-            check_launches(where, by_kind["captured"],
-                           DEBUG_PATH_KERNELS if kind == "debug" else DEFAULT_PATH_KERNELS,
+            kernels = DEBUG_PATH_KERNELS if kind == "debug" else DEFAULT_PATH_KERNELS
+            check_launches(where, by_kind["captured"], path_kernels(kernels, nb),
                            ticks=len(poses))
             host_ops = dict(steps["captured"].tick.host_launches)
             if host_ops["graph_replays"] != len(poses):
                 fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch a tick")
-            cell = {"config": name, "kind": kind, "nb": dims.n_blocks, "d": 2 * dims.n_blocks,
-                    "s": dims.s, "n_agents": cfg.n_agents, "batch": B_WIDE,
+            # the kernels a captured tick ran, by their names in a profile
+            _build.launch_counts.settle()
+            run_ticks(steps["captured"], sc, poses[:1], make_carry(c, batch, device=dev))
+            torch.cuda.synchronize()
+            by_name = one_launch_profile(steps["captured"])[3]
+            forms = check_profiled_forms(where, by_name, kernels, nb)
+            cell = {"config": name, "kind": kind, "nb": nb, "d": 2 * nb,
+                    "s": dims.s, "n_agents": cfg.n_agents, "batch": batch,
                     "ticks": len(poses), "captured_bit_equal_to_eager": True,
                     "launches": by_kind["captured"], "host_operations": host_ops,
-                    **loop_record(steps["captured"])}
+                    "profiled_kernel_forms": forms, **loop_record(steps["captured"])}
             if kind == "plain":
                 plain_outs = outs["captured"][0]
             else:
+                add("step_shapes_debug", by_kind["captured"])
                 t_len = c.optimizer.max_iterations
                 ran = sum(loop_iterations(aux.solve.iterations, t_len)
                           for _, aux in outs["captured"][0])
-                if by_kind["captured"]["spd_solve"] != ran:
-                    fail(f"{where}: spd_solve launched {by_kind['captured']['spd_solve']} "
+                k7 = counter("spd_solve", nb)
+                if by_kind["captured"][k7] != ran:
+                    fail(f"{where}: {k7} launched {by_kind['captured'][k7]} "
                          f"times, the LM loops ran {ran} iterations")
                 for t, (got, want) in enumerate(zip(outs["captured"][0], plain_outs)):
                     same_results(f"{where} tick {t} vs the plain tick", got, want)
                 cell["equal_to_the_plain_tick"] = True
             cells.append(cell)
             del steps, outs
+        if name == GENERAL_DEBUG_CELL:
+            add("step_shapes_compacted", phase_compacted_tick([(name, cfg, sc, poses)], dev))
+        del sc
     emit({"phase": "step_shapes", "cells": cells})
-    return total
+    return totals
 
 
 BENCH_TICKS = 10  # the CLI's --iters in the cli phase
@@ -1977,10 +2292,12 @@ def check_launches(name, launches, expected, ticks=None):
 
 
 def check_one_sample_per_evaluation(name, launches):
-    """An evaluation launches the rollout-sample kernel once, then K2."""
-    if launches["rollout_sample"] != launches["fused_iter"]:
-        fail(f"{name}: rollout_sample launched {launches['rollout_sample']} times for "
-             f"{launches['fused_iter']} evaluations")
+    """An evaluation launches the rollout-sample kernel once, then K2 (each
+    in either form)."""
+    samples = launches["rollout_sample"] + launches["rollout_sample_general"]
+    evaluations = launches["fused_iter"] + launches["fused_iter_general"]
+    if samples != evaluations:
+        fail(f"{name}: rollout_sample launched {samples} times for {evaluations} evaluations")
 
 
 def loop_iterations(iterations, max_iterations):
@@ -2015,10 +2332,11 @@ def phase_main_path(name, cfg, dev, batch, n_valid_people, n_ticks=N_TICKS, comp
     launches = dict(_build.launch_counts)
     loops = loop_record(step)
 
-    check_launches(name, launches, DEFAULT_PATH_KERNELS, ticks=n_ticks)
-    check_one_sample_per_evaluation(name, launches)
     opt = cfg.optimizer
     dims = ProblemDims.from_config(cfg)
+    check_launches(name, launches, path_kernels(DEFAULT_PATH_KERNELS, dims.n_blocks),
+                   ticks=n_ticks)
+    check_one_sample_per_evaluation(name, launches)
     prev_cursor = torch.zeros_like(carry.plan_start)
     iters_mean, with_people = [], []
     for t, (cmd, aux) in enumerate(outs):
@@ -2847,12 +3165,14 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
     counts."""
     from nav2_social_mpc_controller_tpu_torch import _build
     from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, make_step_batch
-    from nav2_social_mpc_controller_tpu_torch.controller.optimize import make_lm_config
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims, make_lm_config
 
     batch = sc.robot.pose.shape[0]
     dbg = replace_optimizer(cfg, debug_optimizer=True)
     t_len = cfg.optimizer.max_iterations
     where = f"debug_tick {name}"
+    nb = ProblemDims.from_config(cfg).n_blocks
+    k7 = counter("spd_solve", nb)
 
     def fresh():
         return make_carry(cfg, batch, device=dev)
@@ -2880,15 +3200,15 @@ def phase_debug_tick(name, cfg, dev, sc, poses):
     if without_loop(by_kind["captured"]) != without_loop(by_kind["eager"]):
         fail(f"{where}: kernel launches {by_kind['captured']} captured, {by_kind['eager']} eager")
     launches = by_kind["captured"]
-    check_launches(where, launches, DEBUG_PATH_KERNELS, ticks=len(poses))
+    check_launches(where, launches, path_kernels(DEBUG_PATH_KERNELS, nb), ticks=len(poses))
     if host_ops["graph_replays"] != len(poses):
         fail(f"{where}: {host_ops} over {len(poses)} ticks, not one graph launch a tick")
     loops = loop_record(steps["captured"])
     check_one_sample_per_evaluation(where, launches)
 
     ran = sum(loop_iterations(aux.solve.iterations, t_len) for _, aux in outs)
-    if launches["spd_solve"] != ran:
-        fail(f"{where}: spd_solve launched {launches['spd_solve']} times, the LM loops ran "
+    if launches[k7] != ran:
+        fail(f"{where}: {k7} launched {launches[k7]} times, the LM loops ran "
              f"{ran} iterations")
     apart_lanes, worst_same = 0, 0.0
     for t, ((cmd, aux), (cmd_p, aux_p)) in enumerate(zip(outs, plain_outs)):
@@ -3339,11 +3659,14 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
         make_carry, make_step_batch, make_step_batch_compacted,
     )
 
+    from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims
+
     path_launches = None
     for name, cfg, sc, poses in cells:
         batch = sc.robot.pose.shape[0]
         warm = replace_optimizer(cfg, warm_start_mode="previous_solution")
         where = f"compacted_tick {name}"
+        nb = ProblemDims.from_config(cfg).n_blocks
 
         def fresh():
             return make_carry(warm, batch, device=dev)
@@ -3391,7 +3714,8 @@ def phase_compacted_tick(cells, dev, capacity_frac=0.25):
         res = held(poses, "main")
         launches = res["captured"][2]
         # the schedule runs on the device: compact_continue, no lm_continue
-        check_launches(where, launches, COMPACTED_PATH_KERNELS, ticks=len(poses))
+        check_launches(where, launches, path_kernels(COMPACTED_PATH_KERNELS, nb),
+                       ticks=len(poses))
         check_one_sample_per_evaluation(where, launches)
         host = {kind: host_launches_per_tick(steps[kind].tick, len(poses))
                 for kind in ("captured", "plain")}
@@ -4340,6 +4664,8 @@ def main():
     # evaluation, the residual path, alone).
     cap = capture_iteration(social, with_pose(sc, poses[0]), make_carry(social, B_MAIN, device=dev))
     res = check_all_kernels(social, cap, reps=200)
+    del cap
+    res.update(check_general_kernels(dev, reps=200))
     by_path = {"social": launches, "obstacle": launches_obstacle, "debug": launches_debug,
                "jacobi": launches_jacobi, "latent": launches_latent,
                "latent_debug": launches_latent_debug,
@@ -4347,20 +4673,29 @@ def main():
                "compacted": launches_compacted, "single_step": launches_single,
                "controller": launches_controller, "sim": launches_sim,
                "stream": launches_stream, "distributed": launches_distributed,
-               "step_shapes": launches_step_shapes, "bench": launches_bench}
+               **launches_step_shapes, "bench": launches_bench}
     own_path = {k: "social" for k in res} | {"spd_solve": "debug, jacobi", "bicubic": None,
                                              "rollout_prep": None,
                                              "compact_continue": "compacted"}
+    own_path |= {k: "step_shapes, step_shapes_compacted" for k in res if k.endswith("_general")}
+    own_path |= {"rollout_prep_general": None, "spd_solve_general": "step_shapes_debug"}
     from nav2_social_mpc_controller_tpu_torch import kernel_shapes
 
     def span(values):
         return f"{values[0]}..{values[-1]}"
 
     nb, d = f"NB {span(kernel_shapes.BLOCKS)}", f"even D {span(kernel_shapes.SOLVE_DIMS)}"
+    nb_g = f"NB 1..{kernel_shapes.GENERAL_MAX_BLOCKS} at run time (taken past {span(kernel_shapes.BLOCKS)})"
+    d_g = (f"even D 2..{2 * kernel_shapes.GENERAL_MAX_BLOCKS} at run time (taken past "
+           f"{span(kernel_shapes.SOLVE_DIMS)})")
     instantiated = {"sfm_scan": f"N 1..{kernel_shapes.MAX_AGENTS}", "rollout_prep": nb,
                     "rollout_sample": nb, "fused_iter": nb, "propose": d, "commit": d,
                     "spd_solve": f"damped step {d}, standalone D "
-                                 f"{span(kernel_shapes.SPD_SOLVE_DIMS)}"}
+                                 f"{span(kernel_shapes.SPD_SOLVE_DIMS)}",
+                    "rollout_prep_general": nb_g, "rollout_sample_general": nb_g,
+                    "fused_iter_general": nb_g, "propose_general": d_g, "commit_general": d_g,
+                    "spd_solve_general": f"damped step {d_g}, standalone D "
+                                         f"1..{kernel_shapes.GENERAL_MAX_DIM} at run time"}
     emit({"kernels": [
         {"name": k, **KERNEL_INFO[k], "path": own_path[k],
          "instantiated_for": instantiated.get(k, "any shape"),

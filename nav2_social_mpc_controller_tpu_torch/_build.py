@@ -1,18 +1,20 @@
 """Builds and loads the package's CUDA kernels.
 
-The nine sources under ``csrc/`` (eleven kernels: ``tr_iter.cu`` holds K3
-and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
+The ten sources under ``csrc/`` (eleven kernels, six of them with a general
+form that takes NB or D at run time, ``fused_general.cu`` K2's, K7's general
+damped step K3's as well; ``tr_iter.cu`` holds K3 and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
 package's jitted trajectorizer scan; ``tick_graph.cu`` is the port's own
 too, the loops' conditions ``lm_continue`` and ``compact_continue`` and the
 primitives of the parent graphs that run a tick, a compacted tick or a
 simulated campaign as one launch, the counterparts of the JAX package's
 ``lax.while_loop``s and ``lax.scan``) expose a plain C interface (no PyTorch
 headers), so each compiles in seconds (the headers ``chol.cuh``,
-``damped_step.cuh``, ``bicubic.cuh`` and ``rollout.cuh`` hold the code that
-two kernels share).
-The shapes each kernel is instantiated for come from ``kernel_shapes.py``,
-written into every build as ``kernel_shapes.h`` (``write_shapes_header``),
-whose X-macro lists the sources' dispatch tables expand.
+``damped_step.cuh``, ``bicubic.cuh``, ``rollout.cuh`` and ``fused_rows.cuh``
+hold the code that two kernels share).
+The shapes each kernel is instantiated for, and the general forms' limits,
+come from ``kernel_shapes.py``, written into every build as
+``kernel_shapes.h`` (``write_shapes_header``), whose X-macro lists the
+sources' dispatch tables expand.
 ``load()`` compiles every ``*.cu`` for Hopper
 (``sm_90a``) with one ``nvcc`` process per source, all started together,
 links the objects into one shared library under ``build/`` (git-ignored),
@@ -29,7 +31,10 @@ the trust-region ratio rho decides accept/reject.
 The launch counters live here too: each kernel wrapper adds one to its entry
 of ``launch_counts`` where it launches its kernel, and nowhere else, so a run
 can show that it really went through the kernels. K7's two entries, the
-damped step and the standalone solve, count under ``spd_solve``. A tick
+damped step and the standalone solve, count under ``spd_solve``. A kernel's
+general form (NB or D at run time, past kernel_shapes' lists) counts under
+its own name, the templated form's with ``_general`` appended
+(``counter_name``). A tick
 or a campaign launched as one graph (controller/graph.py,
 controller/graph_compacted.py, runtime/simulator.py) runs its loops' bodies
 as often as the device decides: what it owes the counters is read from the device
@@ -122,7 +127,19 @@ launch_counts = LaunchCounts({
     "sfm_scan": 0, "rollout_prep": 0, "bicubic": 0, "rollout_sample": 0, "fused_iter": 0,
     "propose": 0, "commit": 0, "spd_solve": 0, "trajectorize": 0, "lm_continue": 0,
     "compact_continue": 0,
+    # the general forms (NB and D at run time, past kernel_shapes' lists)
+    "rollout_prep_general": 0, "rollout_sample_general": 0, "fused_iter_general": 0,
+    "propose_general": 0, "commit_general": 0, "spd_solve_general": 0,
 })
+
+GENERAL_SUFFIX = "_general"
+
+
+def counter_name(name: str, form: str) -> str:
+    """The launch counter of kernel `name` in `form` (kernel_shapes.form):
+    a general form counts under its own name, so that a run shows which
+    form it went through."""
+    return name if form == kernel_shapes.TEMPLATED else name + GENERAL_SUFFIX
 
 _lock = threading.Lock()
 _lib = None
@@ -200,6 +217,10 @@ _SIGNATURES = {
     "social_mpc_compact_continue": [_P, _I, _I, _P, _P] + [_I] * 6 + [_P],
 }
 
+# The general forms (kernel_shapes.form) take their templated forms' arguments.
+GENERAL_ENTRIES = tuple(f"social_mpc_{k}_general_f32" for k in (
+    "rollout_prep", "rollout_sample", "fused_iter", "commit", "damped_step", "spd_solve"))
+_SIGNATURES.update({name: _SIGNATURES[name.replace("_general", "")] for name in GENERAL_ENTRIES})
 
 def reset_launch_counts() -> None:
     """Every count to 0, launches owed by the device included."""

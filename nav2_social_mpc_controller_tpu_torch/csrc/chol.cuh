@@ -1,14 +1,15 @@
 // The unrolled Cholesky solve of K3 and K7 in the thread layout, D <= 6
 // (damped_step.cuh, whose rows layout for larger D repeats this order of
-// operations one row per lane) and the
+// operations one row per lane, and whose general form for any D one row per
+// thread in shared memory) and the
 // rounding helpers of K3, K4 and K7: A = L L^T, forward substitution
 // L y = rhs, back substitution L^T x = y, with reciprocal diagonals.
 //
 // Every product, sum and difference is written with the round-to-nearest
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts
 // into FMA, and division and sqrtf are IEEE (no fast math): the kernels
-// repeat their plain PyTorch versions (solver/cuda_solve.py:
-// chol_solve_unrolled) operation for operation. There is NO pivot guard: a
+// repeat their plain PyTorch versions (solver/cuda_solve.py: chol_solve)
+// operation for operation. There is NO pivot guard: a
 // non-positive pivot gives sqrt(<0) = NaN or 1/0 = inf, which flows on into
 // a non-finite solution for the caller to reject.
 

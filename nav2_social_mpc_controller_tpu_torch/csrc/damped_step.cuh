@@ -346,4 +346,176 @@ __device__ __forceinline__ void damped_step_rows(const DampedStepArgs& p) {
     if (l.first) p.model_change[l.b] = sub(-dg, mul(0.5f, dad));
 }
 
+// ---------------------------------------------------------------------------
+// The general form: D at run time, past the templated layouts' lists
+// (kernel_shapes.h: K3 / K4 / K7's damped step at every even D from 14, the
+// standalone solve from 17, both up to SOCIAL_MPC_GENERAL_MAX_DIM). The
+// block of one system keeps it in shared memory: the lower triangle of the
+// damped system, factored in place into L (D rows of D | 1 floats, an odd
+// stride, so a column's entries sit in distinct banks), and six vectors of
+// D. A warp (one 32-thread block) per system up to D = 32, a row per lane;
+// a block of 128 threads above, each thread owning rows r, r + 128, ....
+//
+// Every entry is formed in chol.cuh's order: at column j, the owner of row
+// i >= j sums its entry over k < j serially (the pivot row with the same
+// sum), the block meets at a barrier, and every thread takes the pivot's
+// sqrtf and reciprocal itself; forward substitution is row-parallel in
+// ascending k, one barrier a column; back substitution, whose sums run in
+// ascending m over rows whose x is known only one after the other, is one
+// thread's serial chain. The sums are unrolled by four, so that a chain's
+// loads from shared memory are in flight together; no chain is reordered.
+// So the bits equal chol.cuh's and the plain version's at every D, as the
+// templated layouts' do.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int general_ld(int d) { return d | 1; }
+__host__ __device__ constexpr size_t general_solve_shared_bytes(int d) {
+    return sizeof(float) * ((size_t)d * general_ld(d) + 6 * (size_t)d);
+}
+// threads of one system's block: a warp up to D = 32, 128 above
+__host__ __device__ constexpr int general_threads(int d) { return d <= 32 ? 32 : 128; }
+
+// One system's shared memory.
+struct GeneralSystem {
+    int D, ld;
+    float* L;     // D x ld: A's lower triangle, then its factor
+    float* inv;   // reciprocal diagonal of L
+    float* s;     // right-hand side, then forward substitution's running sums
+    float* y;     // L y = rhs
+    float* x;     // L^T x = y
+    float* tcol;  // a column's sums before the pivot is known
+    float* w;     // the caller's own vector (the Jacobi scale)
+
+    __device__ __forceinline__ GeneralSystem(float* shared, int d) : D(d), ld(general_ld(d)) {
+        L = shared;
+        inv = L + (size_t)d * ld;
+        s = inv + d;
+        y = s + d;
+        x = y + d;
+        tcol = x + d;
+        w = tcol + d;
+    }
+};
+
+// Solve A x = rhs by the calling block (every thread calls it). On entry the
+// lower triangle of m.L holds A and m.s the right-hand side, visible to the
+// whole block; on exit m.x holds the solution, visible to the whole block.
+__device__ __forceinline__ void general_chol_solve(const GeneralSystem& m) {
+    const int t = threadIdx.x, G = blockDim.x, D = m.D, ld = m.ld;
+    for (int j = 0; j < D; ++j) {
+        const float* lj = m.L + (size_t)j * ld;
+        for (int i = j + t; i < D; i += G) {
+            const float* li = m.L + (size_t)i * ld;
+            float v = li[j];
+#pragma unroll 4
+            for (int k = 0; k < j; ++k) v = sub(v, mul(li[k], lj[k]));
+            m.tcol[i] = v;
+        }
+        __syncthreads();
+        const float ljj = sqrtf(m.tcol[j]);
+        const float invj = 1.0f / ljj;
+        for (int i = j + t; i < D; i += G) m.L[(size_t)i * ld + j] = i == j ? ljj : mul(m.tcol[i], invj);
+        if (t == 0) m.inv[j] = invj;
+        __syncthreads();
+    }
+    // Forward substitution: y[k] = s[k] * inv[k], then every later row
+    // subtracts L[r][k] y[k] from its running sum.
+    for (int k = 0; k < D; ++k) {
+        const float yk = mul(m.s[k], m.inv[k]);
+        if (t == 0) m.y[k] = yk;
+        for (int r = k + 1 + t; r < D; r += G) m.s[r] = sub(m.s[r], mul(m.L[(size_t)r * ld + k], yk));
+        __syncthreads();
+    }
+    // Back substitution, x[k] = (y[k] - sum_m>k L[m][k] x[m]) * inv[k], the
+    // sum in ascending m.
+    if (t == 0) {
+        for (int k = D - 1; k >= 0; --k) {
+            float v = m.y[k];
+#pragma unroll 4
+            for (int q = k + 1; q < D; ++q) v = sub(v, mul(m.L[(size_t)q * ld + k], m.x[q]));
+            m.x[k] = mul(v, m.inv[k]);
+        }
+    }
+    __syncthreads();
+}
+
+// The whole damped step of scenario blockIdx.x, D at run time, by the
+// calling block (`shared`: general_solve_shared_bytes(D)).
+template <bool JAC>
+__device__ __forceinline__ void damped_step_general(const DampedStepArgs& p, int D,
+                                                    float* shared) {
+    const int b = blockIdx.x, t = threadIdx.x, G = blockDim.x;
+    const GeneralSystem m(shared, D);
+    const size_t o = (size_t)b * D;
+    const float* jtj = p.jtj + o * D;
+    const float inv_radius = 1.0f / p.radius[b];
+    for (int r = t; r < D; r += G) m.w[r] = JAC ? __ldg(p.jac_scale + o + r) : 1.0f;
+    __syncthreads();
+    // The damped (scaled) system's lower triangle, read coalesced.
+    for (int k = t; k < D * D; k += G) {
+        const int i = k / D, j = k - i * D;
+        if (j > i) continue;
+        float e = __ldg(jtj + k);
+        if (JAC) e = mul(e, mul(m.w[i], m.w[j]));
+        if (i == j) e = add(e, mul(clamp_keep_nan(e, p.min_diagonal, p.max_diagonal), inv_radius));
+        m.L[(size_t)i * m.ld + j] = e;
+    }
+    for (int r = t; r < D; r += G) {
+        const float gr = __ldg(p.g + o + r);
+        m.s[r] = JAC ? -mul(m.w[r], gr) : -gr;
+    }
+    __syncthreads();
+    general_chol_solve(m);
+
+    // Map back, project, and keep delta (in y) for the model change.
+    for (int r = t; r < D; r += G) {
+        const float step = JAC ? mul(m.w[r], m.x[r]) : m.x[r];
+        const float ur = __ldg(p.u + o + r);
+        const float un = clamp_keep_nan(add(ur, step), __ldg(p.lower + o + r),
+                                        __ldg(p.upper + o + r));
+        const float delta = sub(un, ur);
+        p.u_new[o + r] = un;
+        p.delta[o + r] = delta;
+        m.y[r] = delta;
+    }
+    __syncthreads();
+    // The model change: each row's products, then the sums over rows in
+    // row order (tcol: delta_r g_r, s: delta_r (JtJ delta)_r).
+    for (int r = t; r < D; r += G) {
+        const float* row = jtj + (size_t)r * D;
+        float jd = mul(__ldg(row), m.y[0]);
+#pragma unroll 4
+        for (int j = 1; j < D; ++j) jd = add(jd, mul(__ldg(row + j), m.y[j]));
+        m.tcol[r] = mul(m.y[r], __ldg(p.g + o + r));
+        m.s[r] = mul(m.y[r], jd);
+    }
+    __syncthreads();
+    if (t == 0) {
+        float dg = m.tcol[0], dad = 0.0f;
+        for (int k = 1; k < D; ++k) dg = add(dg, m.tcol[k]);
+        for (int k = 0; k < D; ++k) dad = add(dad, m.s[k]);
+        p.model_change[b] = sub(-dg, mul(0.5f, dad));
+    }
+}
+
+// Dynamic shared memory above the 48 KB every launch may take needs the
+// kernel's opt-in (once, before any capture: a tick's eager warm-up launches
+// first; a caller's standalone solve launches outside captures); the
+// card's limit a block is the ceiling. Returns a cudaError_t.
+template <typename Kernel>
+__host__ int general_opt_in(Kernel kernel, size_t bytes, int& opted) {
+    if (opted == 0) opted = 48 * 1024;
+    if (bytes <= (size_t)opted) return 0;
+    int dev = 0, limit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (e != cudaSuccess) {
+        cudaGetLastError();
+        return (int)e;
+    }
+    opted = limit;
+    return bytes <= (size_t)opted ? 0 : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace social_mpc

@@ -7,7 +7,9 @@
 // rollout.cuh's; on the evaluation path it runs inside the rollout-sample
 // kernel (rollout_sample.cu), which samples the costmap at (row, col)
 // instead of storing them. This standalone launch is the reference that
-// kernel is held to, bit for bit, with K1 (bicubic.cu) after it.
+// kernel is held to, bit for bit, with K1 (bicubic.cu) after it; its general
+// form (NB at run time, past the templated NB = 1..6) is the reference of
+// the rollout-sample kernel's general form.
 
 #include <cuda_runtime.h>
 
@@ -15,6 +17,27 @@
 #include "rollout.cuh"
 
 namespace {
+
+// The body of both forms: the rollout of scenario b, its blocks in `blocks`.
+template <typename Blocks>
+__device__ __forceinline__ void rollout_prep_body(
+    Blocks& blocks, const float* __restrict__ pose0, const int* __restrict__ block_idx,
+    const float* __restrict__ win_origin, const float* __restrict__ resolution,
+    float* __restrict__ planes, float* __restrict__ sens, int b, int lane, int B, int S,
+    float dt, float front) {
+    const size_t plane = (size_t)B * S;
+    float* out = planes + (size_t)b * S;
+    rollout::rollout_warp(
+        blocks, pose0, block_idx, win_origin, resolution, sens, b, lane, S, dt, front,
+        [&](int s, float px, float py, float th, float v, float row, float col) {
+            out[0 * plane + s] = px;
+            out[1 * plane + s] = py;
+            out[2 * plane + s] = th;
+            out[3 * plane + s] = v;
+            out[4 * plane + s] = row;
+            out[5 * plane + s] = col;
+        });
+}
 
 // Instantiated for every NB of kernel_shapes.h's SOCIAL_MPC_BLOCKS (1..6).
 template <int NB>
@@ -26,18 +49,25 @@ __global__ void __launch_bounds__(rollout::WARPS * 32) rollout_prep_kernel(
     const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (b >= B) return;  // uniform across the warp
-    const size_t plane = (size_t)B * S;
-    float* out = planes + (size_t)b * S;
-    rollout::rollout_warp<NB>(
-        u, pose0, block_idx, win_origin, resolution, sens, b, lane, S, dt, front,
-        [&](int s, float px, float py, float th, float v, float row, float col) {
-            out[0 * plane + s] = px;
-            out[1 * plane + s] = py;
-            out[2 * plane + s] = th;
-            out[3 * plane + s] = v;
-            out[4 * plane + s] = row;
-            out[5 * plane + s] = col;
-        });
+    rollout::RegisterBlocks<NB> blocks(u, b);
+    rollout_prep_body(blocks, pose0, block_idx, win_origin, resolution, planes, sens, b, lane,
+                      B, S, dt, front);
+}
+
+// The general form: NB at run time, each warp's carried sums in its slice of
+// the block's shared memory.
+__global__ void __launch_bounds__(rollout::WARPS * 32) rollout_prep_general_kernel(
+    const float* __restrict__ u, const float* __restrict__ pose0,
+    const int* __restrict__ block_idx, const float* __restrict__ win_origin,
+    const float* __restrict__ resolution, float* __restrict__ planes,
+    float* __restrict__ sens, int B, int S, int NB, float dt, float front) {
+    extern __shared__ float shared[];
+    const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (b >= B) return;  // uniform across the warp
+    rollout::SharedBlocks blocks(u, b, NB, shared + (threadIdx.x >> 5) * 5 * NB, lane);
+    rollout_prep_body(blocks, pose0, block_idx, win_origin, resolution, planes, sens, b, lane,
+                      B, S, dt, front);
 }
 
 }  // namespace
@@ -60,5 +90,22 @@ extern "C" int social_mpc_rollout_prep_f32(
         default: return (int)cudaErrorInvalidValue;
     }
 #undef ROLLOUT_PREP_CASE
+    return (int)cudaGetLastError();
+}
+
+// NB from 1 to SOCIAL_MPC_GENERAL_MAX_BLOCKS (the wrapper takes it past
+// SOCIAL_MPC_BLOCKS).
+extern "C" int social_mpc_rollout_prep_general_f32(
+    const float* u, const float* pose0, const int* block_idx,
+    const float* win_origin, const float* resolution, float* planes,
+    float* sens, int B, int S, int NB, float dt, float front,
+    cudaStream_t stream) {
+    if (NB < 1 || NB > SOCIAL_MPC_GENERAL_MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+    if (B <= 0 || S <= 0) return (int)cudaGetLastError();
+    const int blocks = (B + rollout::WARPS - 1) / rollout::WARPS;
+    const int threads = rollout::WARPS * 32;
+    const size_t shared = rollout::WARPS * rollout::shared_blocks_bytes(NB);
+    rollout_prep_general_kernel<<<blocks, threads, shared, stream>>>(
+        u, pose0, block_idx, win_origin, resolution, planes, sens, B, S, NB, dt, front);
     return (int)cudaGetLastError();
 }

@@ -17,7 +17,9 @@
 // than inside its chunk loop keeps the sample's registers apart from the
 // scans' and loads the taps of the chunks together. Both
 // parts compile from the headers the standalone kernels compile from, so the
-// outputs equal, bit for bit, those of rollout_prep.cu then bicubic.cu.
+// outputs equal, bit for bit, those of rollout_prep.cu then bicubic.cu; the
+// general form (NB at run time, rollout.cuh) those of rollout_prep.cu's
+// general form then bicubic.cu.
 
 #include <cuda_runtime.h>
 
@@ -27,28 +29,23 @@
 
 namespace {
 
-// Instantiated for every NB of kernel_shapes.h's SOCIAL_MPC_BLOCKS (1..6),
-// each in two forms. LONG: S > 64, the instantiation that parks the steps
-// past the first two chunks; the other keeps no code for them (and fewer
-// registers).
-template <int NB, bool LONG>
-__global__ void __launch_bounds__(rollout::WARPS * 32) rollout_sample_kernel(
-    const float* __restrict__ u, const float* __restrict__ pose0,
-    const int* __restrict__ block_idx, const float* __restrict__ win_origin,
-    const float* __restrict__ resolution, const float* __restrict__ win,
-    float* __restrict__ planes, float* __restrict__ sens, int B, int S, int H, int W,
-    float dt, float front) {
-    const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (b >= B) return;  // uniform across the warp
+// The body of both forms: scenario b, its blocks in `blocks`. LONG: S > 64,
+// the form that parks the steps past the first two chunks; the other keeps
+// no code for them (and fewer registers).
+template <bool LONG, typename Blocks>
+__device__ __forceinline__ void rollout_sample_body(
+    Blocks& blocks, const float* __restrict__ pose0, const int* __restrict__ block_idx,
+    const float* __restrict__ win_origin, const float* __restrict__ resolution,
+    const float* __restrict__ win, float* __restrict__ planes, float* __restrict__ sens, int b,
+    int lane, int B, int S, int H, int W, float dt, float front) {
     const size_t plane = (size_t)B * S;
     float* out = planes + (size_t)b * S;
     // The lane's front point (row, col) in each of the first two chunks of 32
     // steps, kept in registers until the rollout is done; a longer rollout
     // parks the rest in the val / d_row planes, which the sample overwrites.
     float row0 = 0.0f, col0 = 0.0f, row1 = 0.0f, col1 = 0.0f;
-    rollout::rollout_warp<NB>(
-        u, pose0, block_idx, win_origin, resolution, sens, b, lane, S, dt, front,
+    rollout::rollout_warp(
+        blocks, pose0, block_idx, win_origin, resolution, sens, b, lane, S, dt, front,
         [&](int s, float px, float py, float th, float v, float row, float col) {
             out[0 * plane + s] = px;
             out[1 * plane + s] = py;
@@ -84,6 +81,40 @@ __global__ void __launch_bounds__(rollout::WARPS * 32) rollout_sample_kernel(
     }
 }
 
+// Instantiated for every NB of kernel_shapes.h's SOCIAL_MPC_BLOCKS (1..6),
+// each in two forms (LONG or not).
+template <int NB, bool LONG>
+__global__ void __launch_bounds__(rollout::WARPS * 32) rollout_sample_kernel(
+    const float* __restrict__ u, const float* __restrict__ pose0,
+    const int* __restrict__ block_idx, const float* __restrict__ win_origin,
+    const float* __restrict__ resolution, const float* __restrict__ win,
+    float* __restrict__ planes, float* __restrict__ sens, int B, int S, int H, int W,
+    float dt, float front) {
+    const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (b >= B) return;  // uniform across the warp
+    rollout::RegisterBlocks<NB> blocks(u, b);
+    rollout_sample_body<LONG>(blocks, pose0, block_idx, win_origin, resolution, win, planes,
+                              sens, b, lane, B, S, H, W, dt, front);
+}
+
+// The general form: NB at run time (rollout.cuh's SharedBlocks), any S (the
+// LONG body, which at S <= 64 parks nothing).
+__global__ void __launch_bounds__(rollout::WARPS * 32) rollout_sample_general_kernel(
+    const float* __restrict__ u, const float* __restrict__ pose0,
+    const int* __restrict__ block_idx, const float* __restrict__ win_origin,
+    const float* __restrict__ resolution, const float* __restrict__ win,
+    float* __restrict__ planes, float* __restrict__ sens, int B, int S, int NB, int H, int W,
+    float dt, float front) {
+    extern __shared__ float shared[];
+    const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (b >= B) return;  // uniform across the warp
+    rollout::SharedBlocks blocks(u, b, NB, shared + (threadIdx.x >> 5) * 5 * NB, lane);
+    rollout_sample_body<true>(blocks, pose0, block_idx, win_origin, resolution, win, planes,
+                              sens, b, lane, B, S, H, W, dt, front);
+}
+
 }  // namespace
 
 extern "C" int social_mpc_rollout_sample_f32(
@@ -107,5 +138,23 @@ extern "C" int social_mpc_rollout_sample_f32(
     }
 #undef ROLLOUT_SAMPLE_CASES
 #undef ROLLOUT_SAMPLE
+    return (int)cudaGetLastError();
+}
+
+// NB from 1 to SOCIAL_MPC_GENERAL_MAX_BLOCKS (the wrapper takes it past
+// SOCIAL_MPC_BLOCKS).
+extern "C" int social_mpc_rollout_sample_general_f32(
+    const float* u, const float* pose0, const int* block_idx,
+    const float* win_origin, const float* resolution, const float* win, float* planes,
+    float* sens, int B, int S, int NB, int H, int W, float dt, float front,
+    cudaStream_t stream) {
+    if (NB < 1 || NB > SOCIAL_MPC_GENERAL_MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+    if (B <= 0 || S <= 0) return (int)cudaGetLastError();
+    const int blocks = (B + rollout::WARPS - 1) / rollout::WARPS;
+    const int threads = rollout::WARPS * 32;
+    const size_t shared = rollout::WARPS * rollout::shared_blocks_bytes(NB);
+    rollout_sample_general_kernel<<<blocks, threads, shared, stream>>>(
+        u, pose0, block_idx, win_origin, resolution, win, planes, sens, B, S, NB, H, W, dt,
+        front);
     return (int)cudaGetLastError();
 }

@@ -40,6 +40,11 @@
 // system in 128-thread blocks filled 32 SMs at B = 4096 and read its systems
 // D * D floats apart).
 //
+// The general form (damped_step.cuh: one system a block in shared memory,
+// D at run time) takes every D past those lists up to kernel_shapes.h's
+// SOCIAL_MPC_GENERAL_MAX_DIM: a config in more than 6 blocks, a caller's
+// own larger system.
+//
 // Numerics: chol.cuh's order of every operation and its round-to-nearest
 // intrinsics, IEEE division and sqrtf: both entries repeat their plain
 // versions (solver/cuda_iter.py: damped_step_plain, solver/cuda_solve.py:
@@ -119,6 +124,42 @@ void launch_spd_solve(const float* a, const float* b, float* x, int N, cudaStrea
                 a, b, x, N);
 }
 
+// The general form (damped_step.cuh): one system a block, D at run time.
+template <bool JAC>
+__global__ void __launch_bounds__(128) damped_step_general_kernel(const DampedStepArgs p, int D) {
+    extern __shared__ float shared[];
+    social_mpc::damped_step_general<JAC>(p, D, shared);
+}
+
+__global__ void __launch_bounds__(128)
+spd_solve_general_kernel(const float* __restrict__ a_in, const float* __restrict__ b_in,
+                         float* __restrict__ x_out, int D) {
+    extern __shared__ float shared[];
+    const social_mpc::GeneralSystem m(shared, D);
+    const int t = threadIdx.x, G = blockDim.x;
+    const size_t o = (size_t)blockIdx.x * D;
+    const float* a = a_in + o * D;
+    for (int k = t; k < D * D; k += G) {
+        const int i = k / D, j = k - i * D;
+        if (j <= i) m.L[(size_t)i * m.ld + j] = __ldg(a + k);
+    }
+    for (int r = t; r < D; r += G) m.s[r] = __ldg(b_in + o + r);
+    __syncthreads();
+    social_mpc::general_chol_solve(m);
+    for (int r = t; r < D; r += G) x_out[o + r] = m.x[r];
+}
+
+template <bool JAC>
+int launch_damped_step_general(const DampedStepArgs& p, int D, cudaStream_t stream) {
+    static int opted = 0;
+    const size_t bytes = social_mpc::general_solve_shared_bytes(D);
+    const int err = social_mpc::general_opt_in(damped_step_general_kernel<JAC>, bytes, opted);
+    if (err != 0) return err;
+    damped_step_general_kernel<JAC>
+        <<<p.B, social_mpc::general_threads(D), bytes, stream>>>(p, D);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int social_mpc_damped_step_f32(const float* u, const float* g, const float* jtj,
@@ -154,5 +195,32 @@ extern "C" int social_mpc_spd_solve_f32(const float* a, const float* b, float* x
         default: return (int)cudaErrorInvalidValue;
     }
 #undef SPD_SOLVE_CASE
+    return (int)cudaGetLastError();
+}
+
+// The general forms: the damped step at every even D up to
+// SOCIAL_MPC_GENERAL_MAX_DIM, the standalone solve at every D up to it (the
+// wrappers take them past the templated lists).
+extern "C" int social_mpc_damped_step_general_f32(
+    const float* u, const float* g, const float* jtj, const float* radius, const float* lower,
+    const float* upper, const float* jac_scale, float* u_new, float* delta, float* model_change,
+    int B, int D, float min_diagonal, float max_diagonal, cudaStream_t stream) {
+    if (D < 1 || D > SOCIAL_MPC_GENERAL_MAX_DIM || D % 2 != 0) return (int)cudaErrorInvalidValue;
+    if (B <= 0) return (int)cudaGetLastError();
+    const DampedStepArgs p{u, g, jtj, radius, lower, upper, jac_scale, u_new, delta,
+                           model_change, B, min_diagonal, max_diagonal};
+    return jac_scale != nullptr ? launch_damped_step_general<true>(p, D, stream)
+                                : launch_damped_step_general<false>(p, D, stream);
+}
+
+extern "C" int social_mpc_spd_solve_general_f32(const float* a, const float* b, float* x,
+                                                int N, int D, cudaStream_t stream) {
+    if (D < 1 || D > SOCIAL_MPC_GENERAL_MAX_DIM) return (int)cudaErrorInvalidValue;
+    if (N <= 0) return (int)cudaGetLastError();
+    static int opted = 0;
+    const size_t bytes = social_mpc::general_solve_shared_bytes(D);
+    const int err = social_mpc::general_opt_in(spd_solve_general_kernel, bytes, opted);
+    if (err != 0) return err;
+    spd_solve_general_kernel<<<N, social_mpc::general_threads(D), bytes, stream>>>(a, b, x, D);
     return (int)cudaGetLastError();
 }

@@ -34,7 +34,13 @@
 //            16-byte aligned). The copy is where the bytes are.
 //
 // Both are instantiated for every even D of kernel_shapes.h's
-// SOCIAL_MPC_SOLVE_DIMS (2..12).
+// SOCIAL_MPC_SOLVE_DIMS (2..12). Past those, each has a general form that
+// takes D at run time (every even D up to SOCIAL_MPC_GENERAL_MAX_DIM, the
+// D = 2 NB of a config in more blocks): propose's is K7's general damped
+// step without the scale (spd_solve.cu's social_mpc_damped_step_general_f32,
+// damped_step.cuh's general body, one system a block with the factor in
+// shared memory); commit's is the same decide-then-copy, its staged vectors
+// in dynamic shared memory and its loops over D at run time.
 //
 // Numerics: every product, sum and difference is written with the
 // round-to-nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc
@@ -106,8 +112,9 @@ struct CommitArgs {
 // Every scalar of commit for scenario b, whose u, u_new, g and delta are at
 // the given (shared-memory) addresses: writes the scalar outputs and returns
 // whether the step is accepted.
-template <int D>
-__device__ __forceinline__ bool commit_decide(const CommitArgs& a, int b, const float* u,
+// D is a template argument of the templated kernel (its loops unrolled)
+// and a run-time one of the general kernel; the arithmetic is the same.
+__device__ __forceinline__ bool commit_decide(const CommitArgs& a, int b, int D, const float* u,
                                               const float* u_new, const float* g,
                                               const float* delta) {
     const float cost = a.cost[b];
@@ -186,12 +193,14 @@ __device__ __forceinline__ bool commit_decide(const CommitArgs& a, int b, const 
     return accept;
 }
 
-template <int D>
-__global__ void __launch_bounds__(COMMIT_THREADS) commit_kernel(const CommitArgs a) {
-    constexpr int G = COMMIT_G, DD = D * D;
-    static_assert(DD % 4 == 0, "a float4 of JtJ must not straddle two scenarios");
-    __shared__ float s_u[G * D], s_un[G * D], s_g[G * D], s_d[G * D];
-    __shared__ bool s_acc[G];
+// Both phases of commit for the block's scenarios, staged through s_u,
+// s_un, s_g, s_d (G D floats each) and s_acc. D is a template argument of
+// the templated kernel (a constant here once inlined, its loops unrolled)
+// and a run-time one of the general kernel; the arithmetic is the same.
+__device__ __forceinline__ void commit_block(const CommitArgs& a, int D, float* s_u, float* s_un,
+                                             float* s_g, float* s_d, bool* s_acc) {
+    constexpr int G = COMMIT_G;
+    const int DD = D * D;  // a multiple of 4 at even D: a float4 never straddles two scenarios
     const int t = threadIdx.x;
     const int b0 = blockIdx.x * G;
     const int n = min(G, a.B - b0);
@@ -206,8 +215,8 @@ __global__ void __launch_bounds__(COMMIT_THREADS) commit_kernel(const CommitArgs
         s_d[k] = a.delta[v0 + k];
     }
     __syncthreads();
-    if (t < n) s_acc[t] = commit_decide<D>(a, b0 + t, s_u + t * D, s_un + t * D, s_g + t * D,
-                                           s_d + t * D);
+    if (t < n) s_acc[t] = commit_decide(a, b0 + t, D, s_u + t * D, s_un + t * D, s_g + t * D,
+                                        s_d + t * D);
     __syncthreads();
 
     // Phase 2, copy: the block's spans of u, g and JtJ, each element read
@@ -228,6 +237,25 @@ __global__ void __launch_bounds__(COMMIT_THREADS) commit_kernel(const CommitArgs
         for (int k = t; k < n * DD; k += COMMIT_THREADS)
             a.jtj_o[m0 + k] = __ldg((s_acc[k / DD] ? a.jtj_new : a.jtj) + m0 + k);
     }
+}
+
+template <int D>
+__global__ void __launch_bounds__(COMMIT_THREADS) commit_kernel(const CommitArgs a) {
+    constexpr int G = COMMIT_G;
+    static_assert((D * D) % 4 == 0, "a float4 of JtJ must not straddle two scenarios");
+    __shared__ float s_u[G * D], s_un[G * D], s_g[G * D], s_d[G * D];
+    __shared__ bool s_acc[G];
+    commit_block(a, D, s_u, s_un, s_g, s_d, s_acc);
+}
+
+// The general form: D at run time (every even D, up to
+// SOCIAL_MPC_GENERAL_MAX_DIM), the staged vectors in dynamic shared memory
+// (4 G D floats, 30 KB at D = 236).
+__global__ void __launch_bounds__(COMMIT_THREADS) commit_general_kernel(const CommitArgs a, int D) {
+    constexpr int G = COMMIT_G;
+    extern __shared__ float staged[];
+    __shared__ bool s_acc[G];
+    commit_block(a, D, staged, staged + G * D, staged + 2 * G * D, staged + 3 * G * D, s_acc);
 }
 
 }  // namespace
@@ -279,5 +307,32 @@ extern "C" int social_mpc_commit_f32(
         default: return (int)cudaErrorInvalidValue;
     }
 #undef COMMIT_CASE
+    return (int)cudaGetLastError();
+}
+
+// The general form, every even D up to SOCIAL_MPC_GENERAL_MAX_DIM (the
+// wrapper takes it past SOCIAL_MPC_SOLVE_DIMS); the same arguments.
+extern "C" int social_mpc_commit_general_f32(
+    const float* u, const float* cost, const float* g, const float* jtj,
+    const float* radius, const float* decrease, const int* iters,
+    const unsigned char* done, const int* term, const unsigned char* failed,
+    const float* u_new, const float* delta, const float* model_change,
+    const float* new_cost, const float* g_new, const float* jtj_new,
+    float* u_o, float* cost_o, float* g_o, float* jtj_o, float* radius_o,
+    float* decrease_o, int* iters_o, unsigned char* done_o, int* term_o,
+    unsigned char* failed_o, int B, int D, float gradient_tol, float fn_tol,
+    float param_tol, float min_relative_decrease, float max_radius,
+    float min_radius, float one_third, cudaStream_t stream) {
+    if (D < 2 || D > SOCIAL_MPC_GENERAL_MAX_DIM || D % 2 != 0) return (int)cudaErrorInvalidValue;
+    CommitArgs a{u, cost, g, jtj, radius, decrease, iters, done, term, failed,
+                 u_new, delta, model_change, new_cost, g_new, jtj_new,
+                 u_o, cost_o, g_o, jtj_o, radius_o, decrease_o, iters_o, done_o,
+                 term_o, failed_o, B,
+                 gradient_tol, fn_tol, param_tol, min_relative_decrease,
+                 max_radius, min_radius, one_third};
+    if (B <= 0) return (int)cudaGetLastError();
+    const int blocks = (B + COMMIT_G - 1) / COMMIT_G;
+    const size_t bytes = (size_t)4 * COMMIT_G * D * sizeof(float);
+    commit_general_kernel<<<blocks, COMMIT_THREADS, bytes, stream>>>(a, D);
     return (int)cudaGetLastError();
 }

@@ -32,6 +32,10 @@ import torch
 from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.costs import critic_grads as cg
 from nav2_social_mpc_controller_tpu_torch.costs import critics
+from nav2_social_mpc_controller_tpu_torch.kernel_shapes import (
+    GENERAL_MAX_STEPS,
+    SHARED_BYTES_PER_BLOCK,
+)
 from nav2_social_mpc_controller_tpu_torch.models.motion import (
     block_index_sequence_dynamic,
     dynamic_horizon,
@@ -276,8 +280,10 @@ def fused_cost_g_jtj(
     (B, 4) [final_x, final_y, goal_yaw, 1/resolution]; vfm (B, n_vf) bool.
     Returns (cost (B,), g (B, D), jtj (B, D, D)).
 
-    CUDA tensors launch kernel K2 (float32 only); CPU tensors take the plain
-    version."""
+    CUDA tensors launch kernel K2 (float32 only): its templated form at
+    NB = 1..6, its general form (``csrc/fused_general.cu``, counted as
+    ``fused_iter_general``) above, up to kernel_shapes.GENERAL_MAX_BLOCKS;
+    CPU tensors take the plain version."""
     args = (u, px, py, pth, v, dxdv, dydv, dxdw, dydw, dth, eb,
             val, drow, dcol, agents,
             m_step, m_vel, m_social, active, steer, refx, refy, scal, vfm)
@@ -285,7 +291,12 @@ def fused_cost_g_jtj(
         return fused_cost_g_jtj_plain(statics, *args)
     b, nb, s = dth.shape
     d = 2 * nb
-    check_blocks("fused_cost_g_jtj", nb)
+    kernel = _build.counter_name("fused_iter", check_blocks("fused_cost_g_jtj", nb))
+    if kernel != "fused_iter" and s > GENERAL_MAX_STEPS:
+        raise ValueError(
+            f"fused_cost_g_jtj: the general form takes S up to {GENERAL_MAX_STEPS} steps (a "
+            f"step's 15 sums in one block's shared memory, {SHARED_BYTES_PER_BLOCK} bytes), "
+            f"got {s}")
     f32 = torch.float32
     spec = [("u", u, f32, (b, d)), ("scal", scal, f32, (b, 4)),
             ("dth", dth, f32, (b, nb, s)), ("eb", eb, f32, (b, nb, s)),
@@ -309,7 +320,7 @@ def fused_cost_g_jtj(
     st = statics
     lib = _build.load()
     with torch.cuda.device(u.device):
-        err = lib.social_mpc_fused_iter_f32(
+        err = getattr(lib, f"social_mpc_{kernel}_f32")(
             u.data_ptr(), px.data_ptr(), py.data_ptr(), pth.data_ptr(), v.data_ptr(),
             dxdv.data_ptr(), dydv.data_ptr(), dxdw.data_ptr(), dydw.data_ptr(),
             *strides,
@@ -326,8 +337,8 @@ def fused_cost_g_jtj(
             st.desired_linear_vel, st.front_offset,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "fused_iter")
-    _build.launch_counts["fused_iter"] += 1
+    _build.check_launch(err, kernel)
+    _build.launch_counts[kernel] += 1
     return cost, g, jtj
 
 

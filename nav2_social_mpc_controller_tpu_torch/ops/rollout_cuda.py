@@ -20,24 +20,23 @@ what K1 (row, col) and K2 (the rest) consume.
 costmap sample at (row, col) in the same launch (``csrc/rollout_sample.cu``),
 returning (val, d_row, d_col) in place of (row, col). ``rollout_prep`` alone
 (K6, ``csrc/rollout_prep.cu``) is the reference it is held to on the card.
+Both kernels are templated for NB = 1..6 and have a general form that takes
+NB at run time up to kernel_shapes.GENERAL_MAX_BLOCKS (``check_blocks``).
 """
 
 import torch
 
-from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
 from nav2_social_mpc_controller_tpu_torch.kernel_shapes import BLOCKS as KERNEL_BLOCKS
 from nav2_social_mpc_controller_tpu_torch.ops.bicubic_cuda import bicubic_linearize_plain
 
 
-def check_blocks(fn: str, nb: int) -> None:
-    """Raise unless K2, K6 and the rollout-sample kernel are instantiated
-    for NB blocks (kernel_shapes.BLOCKS)."""
-    if nb not in KERNEL_BLOCKS:
-        raise ValueError(
-            f"{fn}: the kernel is built for NB in {KERNEL_BLOCKS[0]}..{KERNEL_BLOCKS[-1]} "
-            f"(D = 2 NB up to 12: K2 keeps 1 + D + D(D+1)/2 partial sums a lane in "
-            f"registers, 91 at D = 12; a wider problem needs a JtJ tile reduced in shared "
-            f"memory), got {nb}")
+def check_blocks(fn: str, nb: int) -> str:
+    """The form of K2, K6 and the rollout-sample kernel that runs NB blocks
+    on the card: "templated" for NB in kernel_shapes.BLOCKS, "general" up to
+    kernel_shapes.GENERAL_MAX_BLOCKS; raises past it, naming the limit and
+    why (kernel_shapes.form)."""
+    return kernel_shapes.form(fn, "blocks", nb)
 
 
 def rollout_prep_plain(u, pose0, block_idx, win_origin, resolution, dt, front_offset, n_blocks):
@@ -101,13 +100,14 @@ def rollout_prep(u, pose0, block_idx, win_origin, resolution, dt, front_offset, 
     a dict of px, py, pth, v, row, col (B, S) and dxdv, dydv, dxdw, dydw
     (B, NB, S; slices of one stack).
 
-    CUDA tensors launch kernel K6 (float32 only); CPU tensors take the plain
+    CUDA tensors launch kernel K6 (float32 only; its general form past
+    NB = 6, counted as ``rollout_prep_general``); CPU tensors take the plain
     version."""
     args = (u, pose0, block_idx, win_origin, resolution, dt, front_offset, n_blocks)
     if not u.is_cuda:
         return rollout_prep_plain(*args)
     nb = n_blocks
-    check_blocks("rollout_prep", nb)
+    kernel = _build.counter_name("rollout_prep", check_blocks("rollout_prep", nb))
     b, s = block_idx.shape
     f32 = torch.float32
     for name, t, dtype, shape in (
@@ -121,14 +121,14 @@ def rollout_prep(u, pose0, block_idx, win_origin, resolution, dt, front_offset, 
     sens = torch.empty((b, 4 * nb, s), device=u.device, dtype=f32)
     lib = _build.load()
     with torch.cuda.device(u.device):
-        err = lib.social_mpc_rollout_prep_f32(
+        err = getattr(lib, f"social_mpc_{kernel}_f32")(
             u.data_ptr(), pose0.data_ptr(), block_idx.data_ptr(), win_origin.data_ptr(),
             resolution.data_ptr(), planes.data_ptr(), sens.data_ptr(),
             b, s, nb, float(dt), float(front_offset),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "rollout_prep")
-    _build.launch_counts["rollout_prep"] += 1
+    _build.check_launch(err, kernel)
+    _build.launch_counts[kernel] += 1
     return {
         "px": planes[0], "py": planes[1], "pth": planes[2], "v": planes[3],
         "row": planes[4], "col": planes[5],
@@ -157,13 +157,14 @@ def rollout_sample(win, u, pose0, block_idx, win_origin, resolution, dt, front_o
     ``rollout_prep``'s. Returns a dict of px, py, pth, v, val, d_row, d_col
     (B, S) and dxdv, dydv, dxdw, dydw (B, NB, S; slices of one stack).
 
-    CUDA tensors launch the rollout-sample kernel (float32 only); CPU tensors
+    CUDA tensors launch the rollout-sample kernel (float32 only; its general
+    form past NB = 6, counted as ``rollout_sample_general``); CPU tensors
     take the plain version."""
     args = (u, pose0, block_idx, win_origin, resolution, dt, front_offset, n_blocks)
     if not u.is_cuda:
         return rollout_sample_plain(win, *args)
     nb = n_blocks
-    check_blocks("rollout_sample", nb)
+    kernel = _build.counter_name("rollout_sample", check_blocks("rollout_sample", nb))
     b, s = block_idx.shape
     f32 = torch.float32
     if win.ndim != 3:
@@ -180,14 +181,14 @@ def rollout_sample(win, u, pose0, block_idx, win_origin, resolution, dt, front_o
     sens = torch.empty((b, 4 * nb, s), device=u.device, dtype=f32)
     lib = _build.load()
     with torch.cuda.device(u.device):
-        err = lib.social_mpc_rollout_sample_f32(
+        err = getattr(lib, f"social_mpc_{kernel}_f32")(
             u.data_ptr(), pose0.data_ptr(), block_idx.data_ptr(), win_origin.data_ptr(),
             resolution.data_ptr(), win.data_ptr(), planes.data_ptr(), sens.data_ptr(),
             b, s, nb, h, w, float(dt), float(front_offset),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "rollout_sample")
-    _build.launch_counts["rollout_sample"] += 1
+    _build.check_launch(err, kernel)
+    _build.launch_counts[kernel] += 1
     return {
         "px": planes[0], "py": planes[1], "pth": planes[2], "v": planes[3],
         "val": planes[4], "d_row": planes[5], "d_col": planes[6],

@@ -19,9 +19,11 @@ Counterpart of the JAX package's ``solver/pallas_iter.py``:
 Reference semantics: the Ceres trust-region update rules
 (levenberg_marquardt_strategy.cc / trust_region_minimizer.cc).
 
-The plain versions are the SAME unrolled arithmetic written as batched
-tensor operations, one (B,) tensor per matrix entry (the Cholesky solve is
-``solver/cuda_solve.py``'s, shared with kernel K7). A library Cholesky is
+The plain versions are the SAME arithmetic written as batched tensor
+operations (the Cholesky solve is ``solver/cuda_solve.py``'s ``chol_solve``,
+shared with kernel K7). On the card each kernel is templated for the even D
+from 2 to 12 and has a general form above (``check_dims``), counted under
+its name with ``_general`` appended. A library Cholesky is
 not a stand-in: a non-positive pivot must flow on as NaN into a non-finite
 step that commit rejects, where ``torch.linalg.cholesky`` raises and
 ``cholesky_ex`` returns garbage silently. CUDA tensors launch the kernels
@@ -35,7 +37,7 @@ import torch
 from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import (
     check_dims,
-    chol_solve_unrolled,
+    chol_solve,
     spd_solve_plain,
 )
 
@@ -76,16 +78,17 @@ def project_step(u, step, g, jtj, lower, upper):
     u_new = torch.minimum(torch.maximum(u + step, lower), upper)
     delta = u_new - u
 
-    # model_change = -<delta, g> - 0.5 <delta, JtJ delta> (undamped JtJ)
+    # model_change = -<delta, g> - 0.5 <delta, JtJ delta> (undamped JtJ);
+    # each row's sum in column order, batched over the rows
     dg = delta[:, 0] * g[:, 0]
     for i in range(1, d):
         dg = dg + delta[:, i] * g[:, i]
+    rows = jtj[:, :, 0] * delta[:, 0:1]
+    for j in range(1, d):
+        rows = rows + jtj[:, :, j] * delta[:, j : j + 1]
     dad = torch.zeros_like(dg)
     for i in range(d):
-        row = jtj[:, i, 0] * delta[:, 0]
-        for j in range(1, d):
-            row = row + jtj[:, i, j] * delta[:, j]
-        dad = dad + delta[:, i] * row
+        dad = dad + delta[:, i] * rows[:, i]
     return u_new, delta, -dg - 0.5 * dad
 
 
@@ -110,7 +113,8 @@ def damped_step(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
     if not u.is_cuda:
         return damped_step_plain(cfg, u, g, jtj, radius, lower, upper, jac_scale)
     b, d = u.shape
-    check_dims("damped_step", d)
+    form = check_dims("damped_step", d)
+    entry, kernel = (_build.counter_name(k, form) for k in ("damped_step", "spd_solve"))
     f32 = torch.float32
     spec = [("u", u, (b, d)), ("g", g, (b, d)), ("jtj", jtj, (b, d, d)),
             ("radius", radius, (b,)), ("lower", lower, (b, d)), ("upper", upper, (b, d))]
@@ -123,7 +127,7 @@ def damped_step(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
     model_change = torch.empty_like(radius)
     lib = _build.load()
     with torch.cuda.device(u.device):
-        err = lib.social_mpc_damped_step_f32(
+        err = getattr(lib, f"social_mpc_{entry}_f32")(
             u.data_ptr(), g.data_ptr(), jtj.data_ptr(), radius.data_ptr(),
             lower.data_ptr(), upper.data_ptr(),
             None if jac_scale is None else jac_scale.data_ptr(),
@@ -131,27 +135,16 @@ def damped_step(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
             b, d, cfg.min_diagonal, cfg.max_diagonal,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "damped_step")
-    _build.launch_counts["spd_solve"] += 1
+    _build.check_launch(err, entry)
+    _build.launch_counts[kernel] += 1
     return u_new, delta, model_change
 
 
 def propose_plain(cfg, u, g, jtj, radius, lower, upper):
     """Plain PyTorch version of kernel K3. u/g/lower/upper (B, D), jtj
     (B, D, D), radius (B,) -> u_new, delta (B, D), model_change (B,)."""
-    d = u.shape[1]
-    inv_radius = 1.0 / radius
-
-    def a(i, j):
-        base = jtj[:, i, j]
-        if i != j:
-            return base
-        diag = torch.clamp(base, cfg.min_diagonal, cfg.max_diagonal)
-        return base + diag * inv_radius
-
-    # Unrolled Cholesky of the damped system, solving A x = -g.
-    x = chol_solve_unrolled(a, [-g[:, i] for i in range(d)], d)
-    return project_step(u, torch.stack(x, dim=1), g, jtj, lower, upper)
+    a, rhs = damped_system(cfg, g, jtj, radius)
+    return project_step(u, chol_solve(a, rhs), g, jtj, lower, upper)
 
 
 class CommitAux(NamedTuple):
@@ -250,11 +243,13 @@ def commit_with_aux(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, 
 
 
 def propose(cfg, u, g, jtj, radius, lower, upper):
-    """Trial step of one LM iteration (see module docstring)."""
+    """Trial step of one LM iteration (see module docstring). Its general
+    form is K7's general damped step without the scale (one body), counted
+    as ``propose_general``."""
     if not u.is_cuda:
         return propose_plain(cfg, u, g, jtj, radius, lower, upper)
     b, d = u.shape
-    check_dims("propose", d)
+    kernel = _build.counter_name("propose", check_dims("propose", d))
     f32 = torch.float32
     for name, t, shape in (
         ("u", u, (b, d)), ("g", g, (b, d)), ("jtj", jtj, (b, d, d)),
@@ -265,16 +260,18 @@ def propose(cfg, u, g, jtj, radius, lower, upper):
     delta = torch.empty_like(u)
     model_change = torch.empty_like(radius)
     lib = _build.load()
+    general = kernel != "propose"
+    entry = "damped_step_general" if general else "propose"
     with torch.cuda.device(u.device):
-        err = lib.social_mpc_propose_f32(
+        err = getattr(lib, f"social_mpc_{entry}_f32")(
             u.data_ptr(), g.data_ptr(), jtj.data_ptr(), radius.data_ptr(),
-            lower.data_ptr(), upper.data_ptr(),
+            lower.data_ptr(), upper.data_ptr(), *((None,) if general else ()),
             u_new.data_ptr(), delta.data_ptr(), model_change.data_ptr(),
             b, d, cfg.min_diagonal, cfg.max_diagonal,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "propose")
-    _build.launch_counts["propose"] += 1
+    _build.check_launch(err, kernel)
+    _build.launch_counts[kernel] += 1
     return u_new, delta, model_change
 
 
@@ -287,7 +284,7 @@ def commit(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
     if not u.is_cuda:
         return commit_plain(cfg, *args)
     b, d = u.shape
-    check_dims("commit", d)
+    kernel = _build.counter_name("commit", check_dims("commit", d))
     f32, i32, bl = torch.float32, torch.int32, torch.bool
     spec = (
         ("u", f32, (b, d)), ("cost", f32, (b,)), ("g", f32, (b, d)), ("jtj", f32, (b, d, d)),
@@ -301,12 +298,12 @@ def commit(cfg, u, cost, g, jtj, radius, decrease_factor, iters, done, term,
     outs = tuple(torch.empty_like(t) for t in args[:10])
     lib = _build.load()
     with torch.cuda.device(u.device):
-        err = lib.social_mpc_commit_f32(
+        err = getattr(lib, f"social_mpc_{kernel}_f32")(
             *(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
             b, d, cfg.gradient_tol, cfg.fn_tol, cfg.param_tol,
             cfg.min_relative_decrease, cfg.max_radius, cfg.min_radius, 1.0 / 3.0,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "commit")
-    _build.launch_counts["commit"] += 1
+    _build.check_launch(err, kernel)
+    _build.launch_counts[kernel] += 1
     return outs

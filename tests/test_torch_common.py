@@ -42,8 +42,8 @@ from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as tfused
 
 
 # Configurations beyond the named ones of core/config.py, by name: the shapes
-# the card takes since the kernels run at every NB from 1 to 6 (D = 2 NB)
-# and every agent count from 1 to 32. SocialMPCConfig (the reference's own
+# the card takes since the kernels run at every NB (D = 2 NB), templated
+# from 1 to 6 and general above, and every agent count from 1 to 32. SocialMPCConfig (the reference's own
 # defaults: horizon 5, block 5) is NB = 1.
 CONFIG_CHANGES = {
     # horizon 7, block 4: NB = 2 with a partial last block and no
@@ -52,6 +52,14 @@ CONFIG_CHANGES = {
                       {"optimizer": {"control_horizon": 7, "parameter_block_length": 4}}),
     "social_n12": ("benchmark_social_config", {"n_agents": 12}),  # NB = 3, N = 12
     "social_n32": ("benchmark_social_config", {"n_agents": 32}),
+    # finer blocks and a longer horizon than the benchmark's: the kernels'
+    # general forms (NB > 6). Horizon 18 in blocks of 2 (NB = 9, D = 18) and
+    # of 1 (NB = 18, D = 36); the H = 36 stress horizon in blocks of 3
+    # (NB = 12, D = 24, S = 39).
+    "social_bl2": ("benchmark_social_config", {"optimizer": {"parameter_block_length": 2}}),
+    "social_bl1": ("benchmark_social_config", {"optimizer": {"parameter_block_length": 1}}),
+    "stress36_bl3": ("benchmark_stress_h36_config",
+                     {"optimizer": {"parameter_block_length": 3}}),
 }
 
 
@@ -254,17 +262,18 @@ PEOPLE_BATCHES = {
 }
 
 
-def check_value_grad_with_people(batch, dtype):
+def check_value_grad_with_people(batch, dtype, batches=PEOPLE_BATCHES):
     """cost, g, JtJ with valid people, all three people stages on. f64: the
     port's ValueGrad (plain K6, K1, K2) vs the vmapped _ref_value_grad
     (autodiff over the production residual closure) at 1e-9
     scale-normalised. f32: vs the JAX package's fused pipeline with its
     Pallas kernels in interpret mode at 3e-5 scale-normalised, the tolerance
     of tests/test_fused_iter.py. The mixed batch has scenarios without any
-    person, whose people stages must contribute exactly nothing."""
-    name, people = PEOPLE_BATCHES[batch]
+    person, whose people stages must contribute exactly nothing. `batches`:
+    name -> (config name, valid people per seed)."""
+    name, people = batches[batch]
     jcfg, jdims, bt = fused_problems(name, dtype, True, people)
-    tcfg = getattr(tcfg_mod, name)()
+    tcfg = config_by_name(tcfg_mod, name)
     tdims = topt.ProblemDims.from_config(tcfg)
     assert bt["present"].tolist() == [n > 0 for n in people]
     assert (bt["proj"][bt["present"]][:, 1:, :, 3] != -1.0).any()

@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
 from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry, step_pre
 from nav2_social_mpc_controller_tpu_torch.controller.optimize import ProblemDims, make_lm_config
 from nav2_social_mpc_controller_tpu_torch.core import config as C
@@ -335,9 +335,10 @@ def test_fused_kernel_at_every_block_count(card, nb, people):
         assert _norm_err(g, r) <= (3e-5 if people else 1e-4)
     assert torch.equal(got[2], got[2].transpose(1, 2))
     assert bool(vg.m_social.any()) == people
-    with pytest.raises(ValueError, match="NB in 1..6"):
+    past = kernel_shapes.GENERAL_MAX_BLOCKS + 1
+    with pytest.raises(ValueError, match=f"NB from 1 to {past - 1}"):
         bad = list(args)
-        bad[10] = args[10].repeat(1, 7, 1)[:, :7].contiguous()  # NB = 7
+        bad[10] = args[10].repeat(1, past, 1)[:, :past].contiguous()
         K2.fused_cost_g_jtj(*bad)
 
 
@@ -531,6 +532,14 @@ def test_rollout_sample_kernel_ragged_batch_and_offset_views(card, nb, s):
         K6.rollout_sample(win, args[0], args[1], block_idx.long(), *args[3:])
 
 
+def _general_forms(mp):
+    """Every wrapper takes its kernel's general form, at a templated shape
+    too, while `mp` (a pytest.MonkeyPatch) holds: kernel_shapes.form reads
+    the emptied lists of templated shapes at each call."""
+    for name in ("BLOCKS", "SOLVE_DIMS", "SPD_SOLVE_DIMS"):
+        mp.setattr(kernel_shapes, name, ())
+
+
 def _same_bits(got, ref):
     """Every element's bits equal, NaN against NaN counted equal."""
     if got.dtype != ref.dtype or got.shape != ref.shape:
@@ -705,9 +714,10 @@ def test_spd_solve_kernel_matches_plain(card, d):
 
 
 def test_spd_solve_refuses_other_sizes_on_the_card(card):
-    a = torch.eye(17, device=card).expand(4, 17, 17).contiguous()
-    with pytest.raises(ValueError, match="D in"):
-        K7.spd_solve(a, torch.ones((4, 17), device=card))
+    past = kernel_shapes.GENERAL_MAX_DIM + 1
+    a = torch.eye(past, device=card).expand(4, past, past).contiguous()
+    with pytest.raises(ValueError, match=f"D from 1 to {past - 1}"):
+        K7.spd_solve(a, torch.ones((4, past), device=card))
     with pytest.raises(ValueError, match="float32"):
         K7.spd_solve(torch.eye(6, device=card, dtype=torch.float64).expand(4, 6, 6).contiguous(),
                      torch.ones((4, 6), device=card, dtype=torch.float64))
@@ -789,11 +799,12 @@ def test_damped_step_refuses_what_the_kernel_does_not_take(card):
     small = (prop_in[0][:, :5].contiguous(), prop_in[1][:, :5].contiguous(),
              prop_in[2][:, :5, :5].contiguous(), prop_in[3], prop_in[4][:, :5].contiguous(),
              prop_in[5][:, :5].contiguous())
-    with pytest.raises(ValueError, match="D in"):
+    with pytest.raises(ValueError, match="every even D"):
         K34.damped_step(LM_CFG, *small)
-    wide, _ = _damped_case(card, 8, 14, False)  # D = 14: NB = 7, past K2's registers
+    past = 2 * kernel_shapes.GENERAL_MAX_BLOCKS + 2  # past the general solve's shared memory
+    wide, _ = _damped_case(card, 8, past, False)
     for fn in (K34.damped_step, K34.propose):
-        with pytest.raises(ValueError, match="D in"):
+        with pytest.raises(ValueError, match="shared memory"):
             fn(LM_CFG, *wide)
 
 
@@ -819,6 +830,229 @@ def test_spd_solve_kernel_bits_at_every_batch_and_alignment(card, d, n):
 
     shifted = K7.spd_solve(offset(a_t), offset(b_t))
     torch.cuda.synchronize()
+    assert _same_bits(got, ref) and _same_bits(shifted, ref)
+    assert torch.isnan(got[0]).all()
+
+
+# ---------------------------------------------------------------------------
+# The general forms (NB and D at run time), past the templated lists
+# ---------------------------------------------------------------------------
+
+
+def _social_in_blocks_of_one(nb):
+    base = C.benchmark_social_config()
+    return dataclasses.replace(base, optimizer=dataclasses.replace(
+        base.optimizer, control_horizon=nb, parameter_block_length=1))
+
+
+@pytest.mark.parametrize("people", [False, True], ids=["people_free", "people"])
+@pytest.mark.parametrize("nb", [7, 9, 18])
+def test_fused_general_form_matches_plain(card, nb, people):
+    """K2's general form at NB past 6 (the social horizon in blocks of 1):
+    the plain version within 3e-5 (people) or 1e-4, JtJ symmetric, one
+    launch counted under fused_iter_general and none under fused_iter."""
+    prep, vg, st, _ = _problem(_social_in_blocks_of_one(nb), card, batch=24,
+                               n_valid_people=3 if people else 0)
+    args = vg.fused_inputs(st.u)
+    assert args[10].shape[1] == nb
+    before = dict(_build.launch_counts)
+    got = K2.fused_cost_g_jtj(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_iter_general"] == before["fused_iter_general"] + 1
+    assert _build.launch_counts["fused_iter"] == before["fused_iter"]
+    for g, r in zip(got, K2.fused_cost_g_jtj_plain(*args)):
+        assert _norm_err(g, r) <= (3e-5 if people else 1e-4)
+    assert torch.equal(got[2], got[2].transpose(1, 2))
+
+
+@pytest.mark.parametrize("people", [False, True], ids=["people_free", "people"])
+@pytest.mark.parametrize("nb", [3, 6])
+def test_fused_general_form_agrees_with_the_templated_form(card, nb, people):
+    """At a templated NB the general form (_general_forms) sums in another
+    order than the templated K2: the two agree within K2's tolerances."""
+    base = C.benchmark_social_config()
+    cfg = dataclasses.replace(base, optimizer=dataclasses.replace(
+        base.optimizer, control_horizon=4 * nb, parameter_block_length=4))
+    prep, vg, st, _ = _problem(cfg, card, batch=24, n_valid_people=3 if people else 0)
+    args = vg.fused_inputs(st.u)
+    with pytest.MonkeyPatch.context() as mp:
+        _general_forms(mp)
+        got = K2.fused_cost_g_jtj(*args)
+    for g, r in zip(got, K2.fused_cost_g_jtj(*args)):
+        assert _norm_err(g, r) <= (3e-5 if people else 1e-4)
+
+
+@pytest.mark.parametrize("nb,s", [(7, 29), (9, 29), (18, 29), (36, 70), (118, 123)])
+def test_rollout_general_forms_match_plain(card, nb, s):
+    """K6's general form against its plain version (K6's tolerances, the
+    controls exact), rollout_sample's general form bit for bit against K6's
+    general form then K1, both counted under their general names; blocks of
+    1 with a shrunk horizon in most scenarios."""
+    from nav2_social_mpc_controller_tpu_torch.models.motion import block_index_sequence_dynamic
+
+    rng = np.random.default_rng(nb)
+    b = 45
+    h_dyn = rng.integers(1, nb + 1, b)
+    h_dyn[0] = nb
+    block_idx = block_index_sequence_dynamic(
+        s, torch.tensor(h_dyn, device=card), torch.ones(b, dtype=torch.long, device=card)
+    ).to(torch.int32).contiguous()
+    assert set(block_idx[0].tolist()) == set(range(min(nb, s)))
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=card)
+
+    pose0 = rng.uniform(-5, 5, (b, 3))
+    args = (t(rng.uniform(-0.8, 0.8, (b, 2 * nb))), t(pose0), block_idx,
+            t(pose0[:, :2] - rng.uniform(0.0, 3.4, (b, 2))), t(np.full((b,), 0.05)), 0.05, 0.25,
+            nb)
+    before = dict(_build.launch_counts)
+    got = K6.rollout_prep(*args)
+    ref = K6.rollout_prep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got["v"], ref["v"])
+    for name in ref:
+        atol = 2e-4 if name in ("row", "col") else 1e-5
+        torch.testing.assert_close(got[name], ref[name], rtol=2e-5, atol=atol, msg=name)
+    win = t(np.rint(rng.uniform(0, 254, (b, 64, 64))))
+    sampled = K6.rollout_sample(win, *args)
+    want = _prep_then_sample(win, args)
+    for key in want:
+        assert _same_bits(sampled[key], want[key]), key
+    counts = _build.launch_counts
+    assert counts["rollout_prep_general"] == before["rollout_prep_general"] + 2
+    assert counts["rollout_sample_general"] == before["rollout_sample_general"] + 1
+    assert counts["rollout_prep"] == before["rollout_prep"]
+
+
+@pytest.mark.parametrize("nb,s", [(3, 29), (6, 39), (3, 70)])
+def test_rollout_general_forms_agree_with_the_templated_forms(card, nb, s):
+    """At a templated NB the general forms run the same scans in the same
+    order as the templated kernels: equal within K6's tolerances (their
+    bits too, where ptxas contracts alike; reported by chip_smoke.py)."""
+    rng = np.random.default_rng(nb + s)
+    b = 33
+    from nav2_social_mpc_controller_tpu_torch.models.motion import block_index_sequence_dynamic
+
+    block_idx = block_index_sequence_dynamic(
+        s, torch.full((b,), 4 * nb, device=card), torch.full((b,), 4, device=card)
+    ).to(torch.int32).contiguous()
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=card)
+
+    pose0 = rng.uniform(-5, 5, (b, 3))
+    args = (t(rng.uniform(-0.8, 0.8, (b, 2 * nb))), t(pose0), block_idx,
+            t(pose0[:, :2] - 1.6), t(np.full((b,), 0.05)), 0.05, 0.25, nb)
+    win = t(np.rint(rng.uniform(0, 254, (b, 64, 64))))
+    with pytest.MonkeyPatch.context() as mp:
+        _general_forms(mp)
+        got = K6.rollout_sample(win, *args)
+    want = K6.rollout_sample(win, *args)
+    torch.cuda.synchronize()
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], rtol=2e-5, atol=2e-4, msg=name)
+
+
+@pytest.mark.parametrize("b", [1, 33, 301])
+@pytest.mark.parametrize("d", [14, 18, 24, 36, 64, 128, 236])
+def test_propose_and_commit_general_forms_match_plain(card, d, b):
+    """K3 and K4's general forms bit for bit against their plain versions,
+    every corner case of _trust_region_case, counted under their general
+    names; a D past 48 KB of shared memory a system (D = 128, 236) takes the
+    kernel's opt-in."""
+    prop_in, state, evaluated = _trust_region_case(card, b, d)
+    before = dict(_build.launch_counts)
+    got = K34.propose(LM_CFG, *prop_in)
+    ref = K34.propose_plain(LM_CFG, *prop_in)
+    trial = (*ref, *evaluated)
+    out = K34.commit(LM_CFG, *state, *trial)
+    out_ref = K34.commit_plain(LM_CFG, *state, *trial)
+    torch.cuda.synchronize()
+    for x, y in zip((*got, *out), (*ref, *out_ref)):
+        assert _same_bits(x, y)
+    if b > 1:
+        assert torch.isnan(got[1][1]).all(), "a negative pivot must flow on as NaN"
+    counts = _build.launch_counts
+    assert (counts["propose_general"], counts["commit_general"]) == (
+        before["propose_general"] + 1, before["commit_general"] + 1)
+    assert (counts["propose"], counts["commit"]) == (before["propose"], before["commit"])
+
+
+@pytest.mark.parametrize("d", [2, 6, 12])
+def test_general_solve_forms_at_templated_shapes_equal_plain(card, d):
+    """The general forms at a templated D (_general_forms): K3, K4, K7's
+    damped step (scaled and not) and its standalone solve, bit for bit
+    against the plain versions, as the templated forms are."""
+    prop_in, state, evaluated = _trust_region_case(card, 301, d)
+    jac = lm.jacobi_scale(prop_in[2])
+    prop_ref = K34.propose_plain(LM_CFG, *prop_in)
+    trial = (*prop_ref, *evaluated)
+    a, rhs = K34.damped_system(LM_CFG, prop_in[1], prop_in[2], prop_in[3])
+    before = dict(_build.launch_counts)
+    with pytest.MonkeyPatch.context() as mp:
+        _general_forms(mp)
+        pairs = [(K34.propose(LM_CFG, *prop_in), prop_ref)]
+        for scale in (None, jac):
+            pairs.append((K34.damped_step(LM_CFG, *prop_in, scale),
+                          K34.damped_step_plain(LM_CFG, *prop_in, scale)))
+        pairs.append((K34.commit(LM_CFG, *state, *trial),
+                      K34.commit_plain(LM_CFG, *state, *trial)))
+        pairs.append(((K7.spd_solve(a.contiguous(), rhs.contiguous()),),
+                      (K7.spd_solve_plain(a, rhs),)))
+    counts = _build.launch_counts
+    assert [counts[k] - before[k] for k in ("propose_general", "commit_general",
+                                            "spd_solve_general")] == [1, 1, 3]
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        for x, y in zip(got, ref):
+            assert _same_bits(x, y)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "jacobi"])
+@pytest.mark.parametrize("d", [14, 18, 36, 128, 236])
+def test_damped_step_general_form_matches_plain(card, d, scaled):
+    """K7's damped step past D = 12 bit for bit against damped_step_plain,
+    counted under spd_solve_general; without the scale it is K3's general
+    form's function, bit for bit."""
+    prop_in, jac = _damped_case(card, 33, d, scaled)
+    before = _build.launch_counts["spd_solve_general"]
+    got = K34.damped_step(LM_CFG, *prop_in, jac)
+    ref = K34.damped_step_plain(LM_CFG, *prop_in, jac)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["spd_solve_general"] == before + 1
+    for x, y in zip(got, ref):
+        assert _same_bits(x, y)
+    assert torch.isnan(got[1][1]).all() and bool(torch.isfinite(got[0][0]).all())
+    if not scaled:
+        for x, y in zip(got, K34.propose(LM_CFG, *prop_in)):
+            assert _same_bits(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 33, 301])
+@pytest.mark.parametrize("d", [17, 24, 32, 33, 64, 128, 237])
+def test_spd_solve_general_form_bits(card, d, n):
+    """K7's standalone solve past D = 16 (a warp a system to D = 32, a block
+    of 128 above) bit for bit against spd_solve_plain, NaN for the systems
+    that are not positive definite, the same bits from views 4 bytes into
+    their storage."""
+    rng = np.random.default_rng(10 * n + d)
+    m = rng.standard_normal((n, d, d))
+    a = np.einsum("bij,bkj->bik", m, m) + 0.5 * np.eye(d)
+    a[::7] = -a[::7]
+    a_t = torch.tensor(a.astype(np.float32), device=card)
+    b_t = torch.tensor(rng.standard_normal((n, d)).astype(np.float32), device=card)
+    before = _build.launch_counts["spd_solve_general"]
+    got = K7.spd_solve(a_t, b_t)
+    ref = K7.spd_solve_plain(a_t, b_t)
+
+    def offset(x):
+        v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        return v.copy_(x)
+
+    shifted = K7.spd_solve(offset(a_t), offset(b_t))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["spd_solve_general"] == before + 2
     assert _same_bits(got, ref) and _same_bits(shifted, ref)
     assert torch.isnan(got[0]).all()
 
@@ -871,8 +1105,10 @@ def test_step_on_the_card_launches_every_kernel(card):
     torch.cuda.synchronize()
     # K7 belongs to the general iteration; K6 and K1 run inside the
     # rollout-sample kernel, once per evaluation, as K2 does; compact_continue
-    # decides the compacted tick's schedule only
-    off_path = ("spd_solve", "rollout_prep", "bicubic", "compact_continue")
+    # decides the compacted tick's schedule only; the general forms run past
+    # NB = 6 only (NB = 3 here)
+    off_path = ("spd_solve", "rollout_prep", "bicubic", "compact_continue") + tuple(
+        k for k in _build.launch_counts if k.endswith(_build.GENERAL_SUFFIX))
     default_path = {k: n for k, n in _build.launch_counts.items() if k not in off_path}
     assert all(n > 0 for n in default_path.values()), _build.launch_counts
     assert all(_build.launch_counts[k] == 0 for k in off_path), _build.launch_counts

@@ -91,18 +91,40 @@ def test_no_source_lists_a_shape_by_hand():
         assert not re.search(r"\bcase\s+[0-9][0-9\s*+]*:", text), name
 
 
+LIMIT_NB = kernel_shapes.GENERAL_MAX_BLOCKS
+LIMIT_D = kernel_shapes.GENERAL_MAX_DIM
+
+
 @pytest.mark.parametrize("check,limit,message", [
-    (lambda: rollout_cuda.check_blocks("rollout_sample", 7), "NB in 1..6", "registers"),
-    (lambda: cuda_solve.check_dims("propose", 14), "D in [2, 4, 6, 8, 10, 12]", "registers"),
-    (lambda: cuda_solve.check_dims("damped_step", 5), "D in [2, 4, 6, 8, 10, 12]", "registers"),
-    (lambda: cuda_solve.check_dims("spd_solve", 17, cuda_solve.SPD_SOLVE_DIMS), "D in [1, 2, 3",
-     "16-lane segment"),
+    (lambda: rollout_cuda.check_blocks("rollout_sample", LIMIT_NB + 1), f"NB from 1 to {LIMIT_NB}",
+     "shared memory"),
+    (lambda: cuda_solve.check_dims("propose", 2 * LIMIT_NB + 2),
+     f"every even D from 2 to {2 * LIMIT_NB}", "shared memory"),
+    (lambda: cuda_solve.check_dims("damped_step", 5), f"every even D from 2 to {2 * LIMIT_NB}",
+     "D = 2 NB"),
+    (lambda: cuda_solve.check_dims("spd_solve", LIMIT_D + 1, cuda_solve.SPD_SOLVE_DIMS),
+     f"D from 1 to {LIMIT_D}", "shared memory"),
     (lambda: sfm.scan_geometry(33, 8), "1 to 32 agents", "one warp"),
-], ids=["NB7", "propose_D14", "damped_step_D5", "spd_solve_D17", "N33"])
+], ids=["NB119", "propose_D238", "damped_step_D5", "spd_solve_D238", "N33"])
 def test_the_wrappers_refuse_past_the_limits_and_say_why(check, limit, message):
     with pytest.raises(ValueError) as err:
         check()
     assert limit in str(err.value) and message in str(err.value)
+
+
+def test_the_general_limits_are_what_one_block_s_shared_memory_holds():
+    """The general solve's factor and vectors fit 227 KB at D = 237 and not
+    at 238: NB stops at 118, past the 64 blocks (D = 128) a horizon of 64
+    steps in blocks of one needs."""
+    assert kernel_shapes.SHARED_BYTES_PER_BLOCK == 227 * 1024 == 232448
+    assert kernel_shapes.general_solve_shared_bytes(LIMIT_D) <= 232448
+    assert kernel_shapes.general_solve_shared_bytes(LIMIT_D + 1) > 232448
+    assert (LIMIT_D, LIMIT_NB) == (237, 118)
+    assert LIMIT_NB >= 64 and 2 * LIMIT_NB >= 128
+    assert kernel_shapes.fused_general_shared_bytes(kernel_shapes.GENERAL_MAX_STEPS) <= 232448
+    lists = kernel_shapes.header()
+    for name, value in kernel_shapes.LIMITS.items():
+        assert f"#define {name} {value}\n" in lists
 
 
 @pytest.mark.parametrize("check", [
@@ -111,9 +133,82 @@ def test_the_wrappers_refuse_past_the_limits_and_say_why(check, limit, message):
     lambda: cuda_solve.check_dims("commit", 2),
     lambda: cuda_solve.check_dims("spd_solve", 16, cuda_solve.SPD_SOLVE_DIMS),
     lambda: sfm.scan_geometry(32, 4101),
-], ids=["NB1", "NB6", "commit_D2", "spd_solve_D16", "N32"])
+    lambda: rollout_cuda.check_blocks("rollout_sample", 7),
+    lambda: rollout_cuda.check_blocks("fused_cost_g_jtj", 64),
+    lambda: rollout_cuda.check_blocks("fused_cost_g_jtj", LIMIT_NB),
+    lambda: cuda_solve.check_dims("propose", 14),
+    lambda: cuda_solve.check_dims("propose", 128),
+    lambda: cuda_solve.check_dims("damped_step", 2 * LIMIT_NB),
+    lambda: cuda_solve.check_dims("spd_solve", 17, cuda_solve.SPD_SOLVE_DIMS),
+    lambda: cuda_solve.check_dims("spd_solve", LIMIT_D, cuda_solve.SPD_SOLVE_DIMS),
+], ids=["NB1", "NB6", "commit_D2", "spd_solve_D16", "N32", "NB7", "NB64", "NB118",
+        "propose_D14", "propose_D128", "damped_step_D236", "spd_solve_D17", "spd_solve_D237"])
 def test_the_wrappers_take_the_new_shapes(check):
     check()
+
+
+@pytest.mark.parametrize("kind,n,form", [
+    ("blocks", 1, "templated"), ("blocks", 6, "templated"), ("blocks", 7, "general"),
+    ("blocks", 18, "general"), ("solve", 12, "templated"), ("solve", 14, "general"),
+    ("solve", 36, "general"), ("spd_solve", 16, "templated"), ("spd_solve", 17, "general"),
+    ("spd_solve", 33, "general"),
+])
+def test_the_wrappers_pick_the_templated_form_where_it_is_instantiated(kind, n, form):
+    """One function chooses: the templated form for a shape of its list, the
+    general form past it; the wrappers count each under its own name."""
+    assert kernel_shapes.form("f", kind, n) == form
+    assert _build.counter_name("fused_iter", form) == (
+        "fused_iter" if form == "templated" else "fused_iter_general")
+    assert _build.counter_name("fused_iter", form) in _build.launch_counts
+
+
+def test_form_reads_the_lists_at_each_call(monkeypatch):
+    """A cross-check of the two forms takes the general forms at a templated
+    shape by emptying the lists for a while: form reads them at each call."""
+    for name in ("BLOCKS", "SOLVE_DIMS", "SPD_SOLVE_DIMS"):
+        monkeypatch.setattr(kernel_shapes, name, ())
+    assert rollout_cuda.check_blocks("rollout_sample", 3) == kernel_shapes.GENERAL
+    assert cuda_solve.check_dims("propose", 6) == kernel_shapes.GENERAL
+    assert cuda_solve.check_dims("spd_solve", 5, cuda_solve.SPD_SOLVE_DIMS) == kernel_shapes.GENERAL
+    # the build's dispatch tables are made at import and keep every case
+    assert "#define SOCIAL_MPC_BLOCKS(X) X(1) X(2) X(3) X(4) X(5) X(6)\n" in kernel_shapes.header()
+    monkeypatch.undo()
+    assert cuda_solve.check_dims("propose", 6) == kernel_shapes.TEMPLATED
+
+
+@pytest.mark.parametrize("entry,limit", [
+    ("social_mpc_rollout_prep_general_f32", "SOCIAL_MPC_GENERAL_MAX_BLOCKS"),
+    ("social_mpc_rollout_sample_general_f32", "SOCIAL_MPC_GENERAL_MAX_BLOCKS"),
+    ("social_mpc_fused_iter_general_f32", "SOCIAL_MPC_GENERAL_MAX_BLOCKS"),
+    ("social_mpc_commit_general_f32", "SOCIAL_MPC_GENERAL_MAX_DIM"),
+    ("social_mpc_damped_step_general_f32", "SOCIAL_MPC_GENERAL_MAX_DIM"),
+    ("social_mpc_spd_solve_general_f32", "SOCIAL_MPC_GENERAL_MAX_DIM"),
+])
+def test_every_general_entry_checks_its_generated_limit(entry, limit):
+    """A general form's C entry refuses past the limit kernel_shapes.h
+    carries, names no shape of its own and expands no list; _build declares
+    it with its templated form's arguments."""
+    source = next(f for f in sorted(os.listdir(_build.CSRC_DIR)) if f.endswith(".cu")
+                  and f'extern "C" int {entry}(' in open(os.path.join(_build.CSRC_DIR, f)).read())
+    body = _entry_body(source, entry)
+    assert limit in body and "switch" not in body
+    for name in kernel_shapes.LISTS:
+        assert f"{name}(" not in body
+    assert entry in _build.GENERAL_ENTRIES
+    assert _build._SIGNATURES[entry] == _build._SIGNATURES[entry.replace("_general", "")]
+
+
+def test_general_entries_are_the_sources_own():
+    """_build declares exactly the general C entries the sources define;
+    propose's general form has none of its own: it is K7's general damped
+    step without the scale (one body, damped_step.cuh)."""
+    defined = set()
+    for f in sorted(os.listdir(_build.CSRC_DIR)):
+        if f.endswith(".cu"):
+            text = open(os.path.join(_build.CSRC_DIR, f)).read()
+            defined |= set(re.findall(r'extern "C" int (social_mpc_\w+_general_f32)\(', text))
+    assert defined == set(_build.GENERAL_ENTRIES)
+    assert "social_mpc_propose_general_f32" not in defined
 
 
 def test_scan_shared_memory_passes_48_kb_only_past_94_steps_at_one_agent():

@@ -5,9 +5,10 @@ not reach, alone, on one card:
     python3 tools/torch_kernel_shapes.py [--steps] [--bench]
 
 device, build (ptxas and the SASS probes), kernel_shapes (every NB, D and
-N instantiation against its plain version), and with --steps the
-step_shapes phase (the reference's defaults, horizon 7 in blocks of 4, 12
-agents: main path, one launch against eager), with --bench the bench phase
+N instantiation against its plain version, the general forms up to their
+limits), and with --steps the step_shapes phase (the reference's defaults,
+horizon 7 in blocks of 4, 12 agents, and the configs that run the general
+forms: main path, one launch against eager), with --bench the bench phase
 (the CLI's bench loop, one launch against the host loop). One JSON line per
 phase, then the card's name and power limit.
 """
