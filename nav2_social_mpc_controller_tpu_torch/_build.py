@@ -1,8 +1,8 @@
 """Builds and loads the package's CUDA kernels.
 
-The ten sources under ``csrc/`` (eleven kernels, six of them with a general
-form that takes NB or D at run time, ``fused_general.cu`` K2's, K7's general
-damped step K3's as well; ``tr_iter.cu`` holds K3 and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
+The ten sources under ``csrc/`` (eleven kernels, seven of them with a general
+form that takes NB, D or N at run time, ``fused_general.cu`` K2's, K7's general
+damped step K3's as well, ``sfm_scan.cu`` K5's past 32 agents; ``tr_iter.cu`` holds K3 and K4; ``trajectorize.cu`` is the port's own, the counterpart of the JAX
 package's jitted trajectorizer scan; ``tick_graph.cu`` is the port's own
 too, the loops' conditions ``lm_continue`` and ``compact_continue`` and the
 primitives of the parent graphs that run a tick, a compacted tick or a
@@ -32,7 +32,7 @@ The launch counters live here too: each kernel wrapper adds one to its entry
 of ``launch_counts`` where it launches its kernel, and nowhere else, so a run
 can show that it really went through the kernels. K7's two entries, the
 damped step and the standalone solve, count under ``spd_solve``. A kernel's
-general form (NB or D at run time, past kernel_shapes' lists) counts under
+general form (NB, D or N at run time, past kernel_shapes' lists) counts under
 its own name, the templated form's with ``_general`` appended
 (``counter_name``). A tick
 or a campaign launched as one graph (controller/graph.py,
@@ -130,6 +130,8 @@ launch_counts = LaunchCounts({
     # the general forms (NB and D at run time, past kernel_shapes' lists)
     "rollout_prep_general": 0, "rollout_sample_general": 0, "fused_iter_general": 0,
     "propose_general": 0, "commit_general": 0, "spd_solve_general": 0,
+    # K5's general form (N at run time, past 32 agents)
+    "sfm_scan_general": 0,
 })
 
 GENERAL_SUFFIX = "_general"
@@ -219,7 +221,8 @@ _SIGNATURES = {
 
 # The general forms (kernel_shapes.form) take their templated forms' arguments.
 GENERAL_ENTRIES = tuple(f"social_mpc_{k}_general_f32" for k in (
-    "rollout_prep", "rollout_sample", "fused_iter", "commit", "damped_step", "spd_solve"))
+    "rollout_prep", "rollout_sample", "fused_iter", "commit", "damped_step", "spd_solve",
+    "sfm_scan"))
 _SIGNATURES.update({name: _SIGNATURES[name.replace("_general", "")] for name in GENERAL_ENTRIES})
 
 def reset_launch_counts() -> None:

@@ -15,7 +15,8 @@ forms' limits beside them. The two cannot drift: there is no other list.
                  (spd_solve.cu): every even D from 2 to 12.
   SPD_SOLVE_DIMS D of K7's standalone solve spd_solve(a, b): 1..16.
   SFM_SHAPES     (N, sources per lane) of K5 (sfm_scan.cu): N = 1..32 with
-                 the sources per lane ``sources_per_lane(N)`` gives.
+                 the sources per lane ``sources_per_lane(N)`` gives; N from
+                 33 to GENERAL_MAX_AGENTS runs K5's general form.
 
 Past those lists the general forms run (``form``): NB from 7 to
 GENERAL_MAX_BLOCKS for K2, K6 and rollout_sample, every even D from 14 to
@@ -30,15 +31,21 @@ and six vectors of D (``general_solve_shared_bytes``), which fits up to
 D = 237. A config of NB blocks solves D = 2 NB, so NB stops at 118. K2's
 general form holds 15 floats a step there (``fused_general_shared_bytes``).
 
-What stays refused: past those limits, and K5 past N = 32: a scenario's
-force lanes must fit one warp, and at N = 33 no count of sources per lane
-does.
+K5's templated form stops at N = 32 because a scenario's force lanes must
+fit one warp (at N = 33 no count of sources per lane does). Past that its
+general form runs (``form`` with kind "agents"): a block of
+SFM_GENERAL_THREADS threads a scenario, with every agent's scan state in
+shared memory, 64 bytes an agent, beside the block's pair forces
+(``sfm_general_shared_bytes``); one block's 227 KB holds N = 3567
+(GENERAL_MAX_AGENTS).
+
+What stays refused: past those limits.
 """
 
 BLOCKS = tuple(range(1, 7))
 SOLVE_DIMS = tuple(range(2, 13, 2))
 SPD_SOLVE_DIMS = tuple(range(1, 17))
-MAX_AGENTS = 32
+MAX_TEMPLATED_AGENTS = 32  # K5's templated form: N = 1..32
 
 # Dynamic shared memory one block may opt in to on an H100 (and an H200).
 SHARED_BYTES_PER_BLOCK = 232448
@@ -58,6 +65,19 @@ def fused_general_shared_bytes(s: int) -> int:
     return 4 * 15 * s
 
 
+# K5's general form: one block of this many threads a scenario.
+SFM_GENERAL_THREADS = 256
+
+
+def sfm_general_shared_bytes(n: int) -> int:
+    """Shared memory of one scenario of K5's general form
+    (csrc/sfm_scan.cu): a float4 of state (position, velocity) and 12 words
+    of the rest of each agent's scan state (heading, goal, obstacle entry,
+    the step's social force, flags, window), the robot's float4, and the
+    block's pair forces, a float2 a thread in two buffers."""
+    return 64 * n + 16 + 16 * SFM_GENERAL_THREADS
+
+
 GENERAL_MAX_DIM = max(
     d for d in range(1, 1024) if general_solve_shared_bytes(d) <= SHARED_BYTES_PER_BLOCK)
 GENERAL_MAX_BLOCKS = GENERAL_MAX_DIM // 2
@@ -66,6 +86,10 @@ GENERAL_MAX_STEPS = SHARED_BYTES_PER_BLOCK // fused_general_shared_bytes(1)
 SOLVE_WHY = ("the general form holds one system's Cholesky factor in one block's shared "
              f"memory, {SHARED_BYTES_PER_BLOCK} bytes on an H100, which fits "
              f"D <= {GENERAL_MAX_DIM}")
+GENERAL_MAX_AGENTS = (SHARED_BYTES_PER_BLOCK - sfm_general_shared_bytes(0)) // 64
+AGENTS_WHY = ("K5's general form keeps 64 bytes of each agent's scan state and its block's "
+              f"pair forces in one block's shared memory, {SHARED_BYTES_PER_BLOCK} bytes on an "
+              f"H100, which holds N <= {GENERAL_MAX_AGENTS}")
 TEMPLATED, GENERAL = "templated", "general"
 
 
@@ -77,7 +101,7 @@ def form(fn: str, kind: str, n: int) -> str:
 
     kind "blocks": n = NB of K2, K6 and rollout_sample; "solve": n = D of
     K3, K4 and K7's damped step (D = 2 NB, even); "spd_solve": n = D of K7's
-    standalone solve."""
+    standalone solve; "agents": n = N of K5."""
     if kind == "blocks":
         if n in BLOCKS:
             return TEMPLATED
@@ -105,6 +129,15 @@ def form(fn: str, kind: str, n: int) -> str:
             f"{fn}: the kernel takes D from 1 to {GENERAL_MAX_DIM} (templated for D in "
             f"{SPD_SOLVE_DIMS[0]}..{SPD_SOLVE_DIMS[-1]}, general above): {SOLVE_WHY}; "
             f"got {n}")
+    if kind == "agents":
+        if any(n == shape[0] for shape in SFM_SHAPES):
+            return TEMPLATED
+        if 1 <= n <= GENERAL_MAX_AGENTS:
+            return GENERAL
+        raise ValueError(
+            f"{fn}: the kernel takes 1 to {GENERAL_MAX_AGENTS} agents (templated for "
+            f"1..{MAX_TEMPLATED_AGENTS}: a scenario's force lanes fit one warp of 32; general "
+            f"above): {AGENTS_WHY}; got {n}")
     raise ValueError(f"{fn}: unknown kernel kind {kind!r}")
 
 
@@ -117,7 +150,7 @@ def sources_per_lane(n_agents: int) -> int:
     raise ValueError(f"{n_agents} agents do not fit one warp of force lanes")
 
 
-SFM_SHAPES = tuple((n, sources_per_lane(n)) for n in range(1, MAX_AGENTS + 1))
+SFM_SHAPES = tuple((n, sources_per_lane(n)) for n in range(1, MAX_TEMPLATED_AGENTS + 1))
 
 # macro name -> the tuples it lists, in kernel_shapes.h
 LISTS = {
@@ -127,11 +160,14 @@ LISTS = {
     "SOCIAL_MPC_SFM_SHAPES": SFM_SHAPES,
 }
 
-# macro name -> value, in kernel_shapes.h: the general forms' limits
+# macro name -> value, in kernel_shapes.h: the general forms' limits (and K5's
+# general block size)
 LIMITS = {
     "SOCIAL_MPC_GENERAL_MAX_BLOCKS": GENERAL_MAX_BLOCKS,
     "SOCIAL_MPC_GENERAL_MAX_DIM": GENERAL_MAX_DIM,
     "SOCIAL_MPC_GENERAL_MAX_STEPS": GENERAL_MAX_STEPS,
+    "SOCIAL_MPC_SFM_GENERAL_MAX_AGENTS": GENERAL_MAX_AGENTS,
+    "SOCIAL_MPC_SFM_GENERAL_THREADS": SFM_GENERAL_THREADS,
 }
 
 HEADER_NAME = "kernel_shapes.h"

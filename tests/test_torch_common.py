@@ -43,7 +43,8 @@ from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as tfused
 
 # Configurations beyond the named ones of core/config.py, by name: the shapes
 # the card takes since the kernels run at every NB (D = 2 NB), templated
-# from 1 to 6 and general above, and every agent count from 1 to 32. SocialMPCConfig (the reference's own
+# from 1 to 6 and general above, and every agent count, templated from 1 to
+# 32 and general above (crowds). SocialMPCConfig (the reference's own
 # defaults: horizon 5, block 5) is NB = 1.
 CONFIG_CHANGES = {
     # horizon 7, block 4: NB = 2 with a partial last block and no
@@ -52,6 +53,9 @@ CONFIG_CHANGES = {
                       {"optimizer": {"control_horizon": 7, "parameter_block_length": 4}}),
     "social_n12": ("benchmark_social_config", {"n_agents": 12}),  # NB = 3, N = 12
     "social_n32": ("benchmark_social_config", {"n_agents": 32}),
+    # a crowd: K5's general form (N > 32)
+    "social_n33": ("benchmark_social_config", {"n_agents": 33}),
+    "social_n64": ("benchmark_social_config", {"n_agents": 64}),
     # finer blocks and a longer horizon than the benchmark's: the kernels'
     # general forms (NB > 6). Horizon 18 in blocks of 2 (NB = 9, D = 18) and
     # of 1 (NB = 18, D = 36); the H = 36 stress horizon in blocks of 3

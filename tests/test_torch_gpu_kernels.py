@@ -26,7 +26,13 @@ chol.cuh's order of every sum, so K3, K4 and K7 are held to equality of bits
 K5 (the SFM scan) carries float32 rounding through every step of the
 pedestrian dynamics: 1e-4 scale-normalised, its validity column exact; its
 branch form of the angle wrap equals the fmodf form bit for bit over every
-float32. The rollout-sample kernel compiles K6's and K1's arithmetic from
+float32. Its general form (past 32 agents) is held to the same figures at
+N = 33..128, on crowds of the scenario generator's density to 64 agents and
+spread to one person every two square metres above (the generator packs
+everyone into 2.5 m x 3 m); at its limit, on the scenarios whose plain
+version another order of its social sums moves by at most 1e-5: in the
+others the forces cancel or a branch turns on the last bits, and any two
+float32 computations part. The rollout-sample kernel compiles K6's and K1's arithmetic from
 their shared headers and is held to equal bits with K6 then K1.
 """
 
@@ -178,8 +184,9 @@ def test_sfm_scan_kernel_ignores_batch_position(card, name):
 def test_sfm_scan_refuses_more_agents_than_it_is_built_for(card):
     cfg = C.benchmark_social_config()
     args, kw = _sfm_case(cfg, card, 4, 3)
-    many = args[0].repeat(1, 11, 1)  # N = 33: no count of sources a lane fits one warp
-    with pytest.raises(ValueError, match="1 to 32 agents"):
+    limit = kernel_shapes.GENERAL_MAX_AGENTS  # what one block's shared memory holds
+    many = args[0].repeat(1, -(-(limit + 1) // 3), 1)[:, :limit + 1].contiguous()
+    with pytest.raises(ValueError, match=f"1 to {limit} agents"):
         K5.project_people(many, *args[1:], **kw)
 
 
@@ -201,6 +208,101 @@ def test_sfm_scan_kernel_at_more_agents(card, n):
     assert torch.equal(got[..., 3], ref[..., 3])
     assert _norm_err(got, ref) <= 1e-4
     assert bool((got[:, 1:, :, 3] != -1.0).any())
+
+
+def _crowd_case(card, n, batch):
+    """K5's arguments for `batch` scenarios of the social config with N
+    agents, every one valid, every third robot near its goal (_sfm_case);
+    past 64 agents the crowd spread about the generator's near edge to one
+    person every two square metres (the generator puts everyone in
+    2.5 m x 3 m)."""
+    args, kw = _sfm_case(dataclasses.replace(C.benchmark_social_config(), n_agents=n), card,
+                         batch, n)
+    if n > 64:
+        k = (n / (7.5 * 0.5)) ** 0.5
+        people = args[0].clone()
+        valid = people[..., 3] != -1.0
+        people[..., 0] = torch.where(valid, 0.5 + (people[..., 0] - 0.5) * k, people[..., 0])
+        people[..., 1] = torch.where(valid, people[..., 1] * k, people[..., 1])
+        args = (people.contiguous(),) + args[1:]
+    return args, kw
+
+
+def _general_sfm(card, args, kw):
+    """K5 through its general form (kernel_shapes.form past N = 32), one
+    launch of it counted."""
+    before = _build.launch_counts["sfm_scan_general"]
+    got = K5.project_people(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["sfm_scan_general"] == before + 1
+    return got
+
+
+@pytest.mark.parametrize("n", [33, 48, 64, 128])
+def test_sfm_scan_general_form_matches_plain(card, n):
+    """Past 32 agents K5 runs its general form (a block a scenario, N at run
+    time), every agent valid, every third robot near its goal, batch 41
+    (_crowd_case): the plain version within 1e-4, its t column exactly; a
+    scenario moved to another block gives the same bits."""
+    args, kw = _crowd_case(card, n, 41)
+    assert isinstance(K5.scan_geometry(n, 41), K5.GeneralScanGeometry)
+    got = _general_sfm(card, args, kw)
+    perm = torch.roll(torch.arange(41, device=card), 5)
+    moved = K5.project_people(*(a.index_select(0, perm).contiguous() for a in args), **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(moved, got[perm])
+    ref = K5.project_people_plain(*args, **kw)
+    assert torch.equal(got[..., 3], ref[..., 3])
+    assert torch.equal(got[:, 0], args[0])
+    assert _norm_err(got, ref) <= 1e-4
+    assert bool((got[:, 1:, :, 3] != -1.0).any())
+
+
+def _order_insensitive(args, kw, ref, monkeypatch):
+    """(B,) bool: the scenarios whose plain version (`ref`) moves by at most
+    1e-5 when each agent's social forces are added by torch's reduction or
+    in the reversed order, not in the list's order."""
+    serial = K5.sum_in_list_order
+    calm = torch.ones(ref.shape[0], dtype=torch.bool, device=ref.device)
+    for fn in (lambda f: f.sum(dim=2), lambda f: serial(f.flip(2))):
+        monkeypatch.setattr(K5, "sum_in_list_order", fn)
+        other = K5.project_people_plain(*args, **kw)
+        monkeypatch.undo()
+        calm &= torch.tensor([_norm_err(o[None], r[None]) <= 1e-5 for o, r in zip(other, ref)],
+                             device=ref.device)
+    return calm
+
+
+def test_sfm_scan_general_form_at_its_limit(card, monkeypatch):
+    """At the most agents one block's shared memory holds (past 48 KB: the
+    launch opts in) the general form agrees with the plain version within
+    1e-4 on the scenarios insensitive to the order of their sums (at least
+    half of 4), its t column exactly on all."""
+    n = kernel_shapes.GENERAL_MAX_AGENTS
+    args, kw = _crowd_case(card, n, 4)
+    assert K5.scan_shared_bytes(K5.scan_geometry(n, 4), n, args[1].shape[1]) > 48 * 1024
+    got = _general_sfm(card, args, kw)
+    ref = K5.project_people_plain(*args, **kw)
+    assert torch.equal(got[..., 3], ref[..., 3])
+    calm = _order_insensitive(args, kw, ref, monkeypatch)
+    assert int(calm.sum()) >= 2
+    assert _norm_err(got[calm], ref[calm]) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [24, 32])
+def test_sfm_scan_general_form_agrees_with_the_templated_form(card, n, monkeypatch):
+    """At a templated N the general form (kernel_shapes.SFM_SHAPES emptied
+    for the call) adds each agent's forces in the templated form's order:
+    both agree with the plain version and with each other within 1e-4, the
+    t column exactly."""
+    args, kw = _crowd_case(card, n, 41)
+    tmpl = K5.project_people(*args, **kw)
+    monkeypatch.setattr(kernel_shapes, "SFM_SHAPES", ())
+    got = _general_sfm(card, args, kw)
+    monkeypatch.undo()
+    ref = K5.project_people_plain(*args, **kw)
+    assert torch.equal(got[..., 3], tmpl[..., 3]) and torch.equal(got[..., 3], ref[..., 3])
+    assert _norm_err(got, tmpl) <= 1e-4 and _norm_err(got, ref) <= 1e-4
 
 
 def test_sfm_scan_kernel_past_48_kb_of_shared_memory(card):

@@ -66,8 +66,9 @@ def test_the_header_lists_every_wrapper_set():
         == tuple(range(1, 17))
     assert lists["SOCIAL_MPC_SFM_SHAPES"] == tuple(
         (n, sfm.scan_geometry(n, 1).sources_per_lane)
-        for n in range(1, sfm.KERNEL_MAX_AGENTS + 1))
-    assert sfm.KERNEL_MAX_AGENTS == 32
+        for n in range(1, kernel_shapes.MAX_TEMPLATED_AGENTS + 1))
+    assert kernel_shapes.MAX_TEMPLATED_AGENTS == 32
+    assert sfm.KERNEL_MAX_AGENTS == kernel_shapes.GENERAL_MAX_AGENTS == 3567
 
 
 @pytest.mark.parametrize("entry", sorted(DISPATCH))
@@ -93,6 +94,7 @@ def test_no_source_lists_a_shape_by_hand():
 
 LIMIT_NB = kernel_shapes.GENERAL_MAX_BLOCKS
 LIMIT_D = kernel_shapes.GENERAL_MAX_DIM
+LIMIT_N = kernel_shapes.GENERAL_MAX_AGENTS
 
 
 @pytest.mark.parametrize("check,limit,message", [
@@ -104,8 +106,8 @@ LIMIT_D = kernel_shapes.GENERAL_MAX_DIM
      "D = 2 NB"),
     (lambda: cuda_solve.check_dims("spd_solve", LIMIT_D + 1, cuda_solve.SPD_SOLVE_DIMS),
      f"D from 1 to {LIMIT_D}", "shared memory"),
-    (lambda: sfm.scan_geometry(33, 8), "1 to 32 agents", "one warp"),
-], ids=["NB119", "propose_D238", "damped_step_D5", "spd_solve_D238", "N33"])
+    (lambda: sfm.scan_geometry(LIMIT_N + 1, 8), f"1 to {LIMIT_N} agents", "shared memory"),
+], ids=["NB119", "propose_D238", "damped_step_D5", "spd_solve_D238", "N3568"])
 def test_the_wrappers_refuse_past_the_limits_and_say_why(check, limit, message):
     with pytest.raises(ValueError) as err:
         check()
@@ -122,6 +124,8 @@ def test_the_general_limits_are_what_one_block_s_shared_memory_holds():
     assert (LIMIT_D, LIMIT_NB) == (237, 118)
     assert LIMIT_NB >= 64 and 2 * LIMIT_NB >= 128
     assert kernel_shapes.fused_general_shared_bytes(kernel_shapes.GENERAL_MAX_STEPS) <= 232448
+    assert kernel_shapes.sfm_general_shared_bytes(LIMIT_N) <= 232448
+    assert kernel_shapes.sfm_general_shared_bytes(LIMIT_N + 1) > 232448
     lists = kernel_shapes.header()
     for name, value in kernel_shapes.LIMITS.items():
         assert f"#define {name} {value}\n" in lists
@@ -133,6 +137,8 @@ def test_the_general_limits_are_what_one_block_s_shared_memory_holds():
     lambda: cuda_solve.check_dims("commit", 2),
     lambda: cuda_solve.check_dims("spd_solve", 16, cuda_solve.SPD_SOLVE_DIMS),
     lambda: sfm.scan_geometry(32, 4101),
+    lambda: sfm.scan_geometry(33, 4101),
+    lambda: sfm.scan_geometry(LIMIT_N, 1),
     lambda: rollout_cuda.check_blocks("rollout_sample", 7),
     lambda: rollout_cuda.check_blocks("fused_cost_g_jtj", 64),
     lambda: rollout_cuda.check_blocks("fused_cost_g_jtj", LIMIT_NB),
@@ -141,7 +147,7 @@ def test_the_general_limits_are_what_one_block_s_shared_memory_holds():
     lambda: cuda_solve.check_dims("damped_step", 2 * LIMIT_NB),
     lambda: cuda_solve.check_dims("spd_solve", 17, cuda_solve.SPD_SOLVE_DIMS),
     lambda: cuda_solve.check_dims("spd_solve", LIMIT_D, cuda_solve.SPD_SOLVE_DIMS),
-], ids=["NB1", "NB6", "commit_D2", "spd_solve_D16", "N32", "NB7", "NB64", "NB118",
+], ids=["NB1", "NB6", "commit_D2", "spd_solve_D16", "N32", "N33", "N3567", "NB7", "NB64", "NB118",
         "propose_D14", "propose_D128", "damped_step_D236", "spd_solve_D17", "spd_solve_D237"])
 def test_the_wrappers_take_the_new_shapes(check):
     check()
@@ -151,25 +157,27 @@ def test_the_wrappers_take_the_new_shapes(check):
     ("blocks", 1, "templated"), ("blocks", 6, "templated"), ("blocks", 7, "general"),
     ("blocks", 18, "general"), ("solve", 12, "templated"), ("solve", 14, "general"),
     ("solve", 36, "general"), ("spd_solve", 16, "templated"), ("spd_solve", 17, "general"),
-    ("spd_solve", 33, "general"),
+    ("spd_solve", 33, "general"), ("agents", 1, "templated"), ("agents", 32, "templated"),
+    ("agents", 33, "general"), ("agents", 64, "general"), ("agents", LIMIT_N, "general"),
 ])
 def test_the_wrappers_pick_the_templated_form_where_it_is_instantiated(kind, n, form):
     """One function chooses: the templated form for a shape of its list, the
     general form past it; the wrappers count each under its own name."""
     assert kernel_shapes.form("f", kind, n) == form
-    assert _build.counter_name("fused_iter", form) == (
-        "fused_iter" if form == "templated" else "fused_iter_general")
-    assert _build.counter_name("fused_iter", form) in _build.launch_counts
+    name = "sfm_scan" if kind == "agents" else "fused_iter"
+    assert _build.counter_name(name, form) == (name if form == "templated" else name + "_general")
+    assert _build.counter_name(name, form) in _build.launch_counts
 
 
 def test_form_reads_the_lists_at_each_call(monkeypatch):
     """A cross-check of the two forms takes the general forms at a templated
     shape by emptying the lists for a while: form reads them at each call."""
-    for name in ("BLOCKS", "SOLVE_DIMS", "SPD_SOLVE_DIMS"):
+    for name in ("BLOCKS", "SOLVE_DIMS", "SPD_SOLVE_DIMS", "SFM_SHAPES"):
         monkeypatch.setattr(kernel_shapes, name, ())
     assert rollout_cuda.check_blocks("rollout_sample", 3) == kernel_shapes.GENERAL
     assert cuda_solve.check_dims("propose", 6) == kernel_shapes.GENERAL
     assert cuda_solve.check_dims("spd_solve", 5, cuda_solve.SPD_SOLVE_DIMS) == kernel_shapes.GENERAL
+    assert isinstance(sfm.scan_geometry(24, 8), sfm.GeneralScanGeometry)
     # the build's dispatch tables are made at import and keep every case
     assert "#define SOCIAL_MPC_BLOCKS(X) X(1) X(2) X(3) X(4) X(5) X(6)\n" in kernel_shapes.header()
     monkeypatch.undo()
@@ -183,6 +191,7 @@ def test_form_reads_the_lists_at_each_call(monkeypatch):
     ("social_mpc_commit_general_f32", "SOCIAL_MPC_GENERAL_MAX_DIM"),
     ("social_mpc_damped_step_general_f32", "SOCIAL_MPC_GENERAL_MAX_DIM"),
     ("social_mpc_spd_solve_general_f32", "SOCIAL_MPC_GENERAL_MAX_DIM"),
+    ("social_mpc_sfm_scan_general_f32", "SOCIAL_MPC_SFM_GENERAL_MAX_AGENTS"),
 ])
 def test_every_general_entry_checks_its_generated_limit(entry, limit):
     """A general form's C entry refuses past the limit kernel_shapes.h
@@ -218,6 +227,27 @@ def test_scan_shared_memory_passes_48_kb_only_past_94_steps_at_one_agent():
     assert sfm.scan_shared_bytes(geo, 1, 95) == 48 * 1024
     assert sfm.scan_shared_bytes(geo, 1, 96) > 48 * 1024
     assert sfm.scan_shared_bytes(sfm.scan_geometry(32, 8), 32, 400) < 48 * 1024
+
+
+@pytest.mark.parametrize("n,shared", [(33, 6224), (64, 8208), (703, 49104), (704, 49168),
+                                      (LIMIT_N, 232400)])
+def test_general_scan_shared_memory_and_its_limit(n, shared):
+    """K5's general form: 64 bytes an agent, 16 for the robot and 16 a
+    thread of its block of 256, whatever the steps; past 48 KB (from 704
+    agents) the launch opts in; the limit is the most agents one block's
+    227 KB holds, and the kernel reads the limit and the block from the
+    generated header."""
+    geo = sfm.scan_geometry(n, 3)
+    assert sfm.scan_shared_bytes(geo, n, 30) == sfm.scan_shared_bytes(geo, n, 400) == shared
+    assert (shared > 48 * 1024) == (n >= 704)
+    assert geo.threads == kernel_shapes.SFM_GENERAL_THREADS == 256
+    header = kernel_shapes.header()
+    assert f"#define SOCIAL_MPC_SFM_GENERAL_MAX_AGENTS {LIMIT_N}\n" in header
+    assert "#define SOCIAL_MPC_SFM_GENERAL_THREADS 256\n" in header
+    with open(os.path.join(_build.CSRC_DIR, "sfm_scan.cu")) as f:
+        source = f.read()
+    assert "kGeneralThreads = SOCIAL_MPC_SFM_GENERAL_THREADS;" in source
+    assert "return (size_t)64 * n + 16 + (size_t)16 * kGeneralThreads;" in source
 
 
 FAKE_NVCC = textwrap.dedent("""\

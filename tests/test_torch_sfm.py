@@ -105,8 +105,11 @@ def _port(jcfg, x, window, fn=tsfm.project_people):
         ("benchmark_obstacle_only_config", 0, 32, False),  # the people-free tick
         ("social_n12", 12, 32, False),  # three sources a lane ... one lane an agent
         ("social_n32", 32, 32, False),  # on the card
+        ("social_n33", 33, 32, False),  # the general form on the card: a crowd
+        ("social_n64", 64, 32, False),
     ],
-    ids=["social", "no_window", "near_goal", "omni6", "stress36", "no_people", "n12", "n32"],
+    ids=["social", "no_window", "near_goal", "omni6", "stress36", "no_people", "n12", "n32",
+         "n33", "n64"],
 )
 def test_project_people_matches_reference_scan_f64(name, n_people, window, near_goal):
     jcfg, x = _inputs(name, np.float64, n_people, near_goal=near_goal)
@@ -222,7 +225,30 @@ def test_scan_geometry(n, b, want):
         assert n * -(-n // (geo.sources_per_lane - 1)) > 32
 
 
-@pytest.mark.parametrize("n", [0, 33])
+@pytest.mark.parametrize("n", [0, tsfm.KERNEL_MAX_AGENTS + 1])
 def test_scan_geometry_refuses_counts_the_kernel_is_not_built_for(n):
     with pytest.raises(ValueError, match="agents"):
         tsfm.scan_geometry(n, 8)
+
+
+@pytest.mark.parametrize("n,b,want", [
+    (33, 4096, (256, 33, 7, 1, 5, 1, 4096)),    # 7 lanes an agent, 5 rounds a step
+    (48, 41, (256, 48, 5, 1, 10, 1, 41)),
+    (64, 4096, (256, 64, 4, 1, 16, 1, 4096)),   # social_n64
+    (128, 41, (256, 128, 2, 1, 64, 1, 41)),
+    (256, 2, (256, 256, 1, 1, 256, 1, 2)),      # one lane an agent: no round barrier
+    (257, 2, (256, 256, 1, 2, 257, 1, 2)),      # two groups of agents
+    (3567, 1, (256, 256, 1, 14, 3567, 1, 1)),   # the limit
+])
+def test_general_scan_geometry(n, b, want):
+    """K5's general form (N > 32): threads, agents a group, lanes an agent,
+    groups, sources a lane (rounds), scenarios a block, blocks. Every
+    agent of a group has its lanes among the block's threads, every source
+    of its list a lane in some round, one scenario a block."""
+    geo = tsfm.scan_geometry(n, b)
+    assert isinstance(geo, tsfm.GeneralScanGeometry) and tuple(geo) == want
+    assert geo.agents_per_group * geo.lanes_per_agent <= geo.threads
+    assert geo.groups * geo.agents_per_group >= n > (geo.groups - 1) * geo.agents_per_group
+    assert geo.sources_per_lane * geo.lanes_per_agent >= n
+    assert (geo.sources_per_lane - 1) * geo.lanes_per_agent < n
+    assert geo.blocks == b and geo.scenarios_per_block == 1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Do two checkouts' templated kernels give the same bits? On the machine
-with the card (it needs nvcc), for the kernels templated on NB and D:
+with the card (it needs nvcc), for the kernels templated on NB, D and N:
 
     python3 tools/torch_templated_bits.py PARENT_ROOT [--batch 1024] [--out FILE]
 
@@ -10,11 +10,13 @@ social config in blocks of 4, every person valid, every fourth robot near its
 goal, as chip_smoke.py's kernel_shapes phase) this checkout captures the
 inputs of K2 (with people and people-free), K6, rollout_sample, K3, K4 and
 K7 (its damped step with and without the Jacobi scale, its standalone solve)
-as a real tick hands them over, after 3 LM iterations, and saves them. Then,
+as a real tick hands them over, after 3 LM iterations, and for N = 3, 6, 24
+and 32 agents (the social config with N agents, every person valid) the
+inputs of K5 as a tick's head hands them over, and saves them. Then,
 in a fresh process for each checkout, with that checkout first on sys.path
 and its library built from its own sources, every templated wrapper runs on
 the saved inputs and its outputs are saved. Prints one JSON line per kernel
-and NB with the number of output elements whose bits differ between the two
+and NB (or N) with the number of output elements whose bits differ between the two
 checkouts (NaN against NaN counted equal) and the elements compared, then a
 summary line, then the card's name and power limit as nvidia-smi gives them.
 Exits 1 if a wrapper did not launch its templated form.
@@ -35,8 +37,17 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 from nav2_social_mpc_controller_tpu_torch.controller.controller import make_carry
 
+from nav2_social_mpc_controller_tpu_torch.controller.controller import step_pre
+
 dev, batch, out = torch.device("cuda"), int(sys.argv[2]), sys.argv[3]
-saved = {}
+saved = {"blocks": {}, "agents": {}}
+for n in (3, 6, 24, 32):
+    cfg = cs.agents_config(n)
+    sc, poses = cs.make_batch(cfg, batch, dev, n_valid_people=n)
+    sc = cs.with_pose(sc, poses[0])
+    prep = step_pre(cfg, sc, make_carry(cfg, batch, device=dev)).prep
+    saved["agents"][n] = {"args": cs.sfm_inputs(sc, sc.people.state, prep),
+                          "kw": cs.sfm_keywords(cfg)}
 for nb in range(1, 7):
     cfg = cs.blocks_config(nb)
     caps = {}
@@ -46,7 +57,7 @@ for nb in range(1, 7):
         caps[n_valid] = cs.capture_iteration(cfg, sc, make_carry(cfg, batch, device=dev))
     cap = caps[cfg.n_agents]
     assert cap["propose"][0].shape[1] == 2 * nb
-    saved[nb] = {
+    saved["blocks"][nb] = {
         "statics": tuple(cap["fused"][0]), "fused": cap["fused"][1:],
         "fused_free": caps[0]["fused"][1:], "lm_cfg": cap["lm_cfg"]._asdict(),
         "rollout_prep": cap["rollout_prep"], "win": cap["bicubic"][0],
@@ -61,6 +72,7 @@ RUN = r"""
 import sys, torch
 sys.path.insert(0, sys.argv[1])
 from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
 from nav2_social_mpc_controller_tpu_torch.ops import fused_iter as K2
 from nav2_social_mpc_controller_tpu_torch.ops import rollout_cuda as K6
 from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
@@ -69,14 +81,18 @@ from nav2_social_mpc_controller_tpu_torch.solver.lm import LMConfig
 
 caps = torch.load(sys.argv[2], weights_only=False)
 outs, counts = {}, {}
-for nb, c in caps.items():
+for n, c in caps["agents"].items():
+    before = _build.launch_counts["sfm_scan"]
+    outs[("N", n)] = {"sfm_scan": [K5.project_people(*c["args"], **c["kw"])]}
+    counts[("N", n)] = {"sfm_scan": _build.launch_counts["sfm_scan"] - before}
+for nb, c in caps["blocks"].items():
     statics = K2.FusedStatics(*c["statics"])
     lm_cfg = LMConfig(**c["lm_cfg"])
     before = {k: _build.launch_counts[k] for k in
               ("fused_iter", "rollout_prep", "rollout_sample", "propose", "commit", "spd_solve")}
     prep = K6.rollout_prep(*c["rollout_prep"])
     sample = K6.rollout_sample(c["win"], *c["rollout_prep"])
-    outs[nb] = {
+    outs[("NB", nb)] = {
         "fused_iter": list(K2.fused_cost_g_jtj(statics, *c["fused"])),
         "fused_iter_people_free": list(K2.fused_cost_g_jtj(statics, *c["fused_free"])),
         "rollout_prep": [prep[k] for k in sorted(prep)],
@@ -87,14 +103,14 @@ for nb, c in caps.items():
         "damped_step_jacobi": list(K34.damped_step(lm_cfg, *c["propose"], c["jac_scale"])),
         "spd_solve": [K7.spd_solve(*c["spd_solve"])],
     }
-    counts[nb] = {k: _build.launch_counts[k] - v for k, v in before.items()}
+    counts[("NB", nb)] = {k: _build.launch_counts[k] - v for k, v in before.items()}
 torch.cuda.synchronize()
 torch.save({"outs": {nb: {k: [t.cpu() for t in v] for k, v in o.items()} for nb, o in outs.items()},
             "counts": counts}, sys.argv[3])
 """
 
 WANT_COUNTS = {"fused_iter": 2, "rollout_prep": 1, "rollout_sample": 1, "propose": 1,
-               "commit": 1, "spd_solve": 3}
+               "commit": 1, "spd_solve": 3, "sfm_scan": 1}
 
 
 def child(code, *args):
@@ -137,20 +153,22 @@ def main():
             child(RUN, root, caps, path)
             runs[name] = torch.load(path, weights_only=False)
     lines, ok, total_differ, total = [], True, 0, 0
-    for nb in sorted(runs["change"]["outs"]):
-        for name, rows in runs["change"]["counts"][nb].items():
-            if rows != WANT_COUNTS[name] or runs["parent"]["counts"][nb][name] != rows:
+    for key in sorted(runs["change"]["outs"]):
+        kind, size = key
+        for name, rows in runs["change"]["counts"][key].items():
+            if rows != WANT_COUNTS[name] or runs["parent"]["counts"][key][name] != rows:
                 ok = False
-                print(f"NB = {nb}: {name} launched its templated form {rows} times "
-                      f"(parent {runs['parent']['counts'][nb][name]}), want {WANT_COUNTS[name]}",
+                print(f"{kind} = {size}: {name} launched its templated form {rows} times "
+                      f"(parent {runs['parent']['counts'][key][name]}), want {WANT_COUNTS[name]}",
                       file=sys.stderr)
-        for kernel, got in runs["change"]["outs"][nb].items():
-            ref = runs["parent"]["outs"][nb][kernel]
+        for kernel, got in runs["change"]["outs"][key].items():
+            ref = runs["parent"]["outs"][key][kernel]
             differ = sum(bits_differ(a, b) for a, b in zip(got, ref))
             n = sum(a.numel() for a in got)
             total_differ += differ
             total += n
-            lines.append({"kernel": kernel, "nb": nb, "d": 2 * nb, "batch": args.batch,
+            shape = {"nb": size, "d": 2 * size} if kind == "NB" else {"n": size}
+            lines.append({"kernel": kernel, **shape, "batch": args.batch,
                           "elements": n, "bits_differ": differ})
     lines.append({"summary": True, "elements": total, "bits_differ": total_differ,
                   "parent": parent, "change": ROOT})
