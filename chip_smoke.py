@@ -1026,20 +1026,26 @@ def check_fused(args, reps):
     tensors = [t for t in args[1:] if isinstance(t, torch.Tensor) and t is not agents]
     # The work depends on the data: masked-off steps are skipped, and the
     # agents are read (5 of their 6 fields) only for steps whose social mask
-    # is on. A contraction costs 8D + D(D+1) + 3 operations. A social step
-    # needs the robot's duals once, the sin/cos of 1 + N headings, the force
-    # on each of the N agents' slots and the force on the robot from each
-    # valid agent (an invalid agent's is selected away), counted by the FP32
-    # and MUFU instructions of their SASS probes (a force probe less the
-    # robot's duals it also builds), plus the pair sums, the proxemics scan
-    # and three more contractions.
+    # is on. A live step has 5 rows and a social one 3 more; the rows'
+    # partials reach cost, g and JtJ by the fewer operations of two
+    # contractions: the templated form's per-row outer product, 8D + D(D+1)
+    # + 3 a row, or the general form's per-step one, M_s = sum p p^T, q_s
+    # and the cost (31 a row), then P = M_s f_j for each column (24 D a
+    # step) and e_i^T P_j over JtJ's upper triangle and g (3 D(D+1) + 6 D a
+    # step). A social step needs the robot's duals once, the sin/cos of
+    # 1 + N headings, the force on each of the N agents' slots and the force
+    # on the robot from each valid agent (an invalid agent's is selected
+    # away), counted by the FP32 and MUFU instructions of their SASS probes
+    # (a force probe less the robot's duals it also builds), plus the pair
+    # sums and the proxemics scan.
     live = float(m_step.sum())
     social = float(m_social.sum())
     on_robot_pairs = float(((agents[..., 3] != -1.0) & m_social[..., None]).sum())
     on_agent_pairs = social * n
-    contraction = 8 * d + d * (d + 1) + 3
-    flops = (live * (5 * contraction + 120) + social * (10 * n + 3 * contraction)
-             + b * statics.n_vf * 40)
+    rows = 5 * live + 3 * social
+    outer_product = rows * (8 * d + d * (d + 1) + 3)
+    per_step = rows * 31 + live * (3 * d * (d + 1) + 30 * d)
+    rest = live * 120 + social * 10 * n + b * statics.n_vf * 40
     sc = SASS_COUNTS
     state = sc["probe_robot_state"]
 
@@ -1048,8 +1054,11 @@ def check_fused(args, reps):
                 + on_agent_pairs * (sc["probe_force_on_agent"][kind] - state[kind])
                 + social * (state[kind] + (1 + n) * sc["probe_sincosf"][kind]))
 
+    moved = nbytes(*tensors) + nbytes(*got) + social * n * 5 * 4
     bnd, by, parts = bound_by_instructions(
-        nbytes(*tensors) + nbytes(*got) + social * n * 5 * 4, flops, people("fp32"), people("mufu"))
+        moved, rest + min(outer_product, per_step), people("fp32"), people("mufu"))
+    bnd_outer, _, _ = bound_by_instructions(
+        moved, rest + outer_product, people("fp32"), people("mufu"))
     people = social > 0
     return {
         "shape": f"B={b} S={s} D={d} N={n}", "social_steps": int(social),
@@ -1061,6 +1070,8 @@ def check_fused(args, reps):
         "host_ms": time_host(lambda: K2.fused_cost_g_jtj(*args), reps),
         "plain_ms": time_cuda(lambda: K2.fused_cost_g_jtj_plain(*args), max(reps // 10, 3)),
         "bound_ms": bnd, "bound_by": by, "bound_parts": parts, "library_ms": None,
+        "contraction_flops": {"outer_product": outer_product, "per_step": per_step},
+        "bound_ms_outer_product": bnd_outer,
     }
 
 
@@ -1370,7 +1381,7 @@ KERNEL_INFO = {
     "fused_iter_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/fused_general.cu",
         "replaces": "nav2_social_mpc_controller_tpu/ops/fused_iter.py:462",
-        "form": "general (NB at run time)",
+        "form": "general (NB at run time)", "redesigned": "PR 19",
     },
     "propose_general": {
         # K7's general damped step without the scale (damped_step.cuh's body)
@@ -1391,7 +1402,7 @@ KERNEL_INFO = {
     "sfm_scan_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/sfm_scan.cu",
         "replaces": "nav2_social_mpc_controller_tpu/models/sfm_pallas.py:306",
-        "form": "general (N at run time)",
+        "form": "general (N at run time)", "redesigned": "PR 19",
     },
     "trajectorize": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/trajectorize.cu",
@@ -2127,7 +2138,10 @@ def phase_kernel_shapes(dev, reps=20):
                 fail(f"kernel_shapes: the config for NB = {nb} solves D = "
                      f"{cap['propose'][0].shape[1]}")
             what["s"] = cap["dims"].s
-            add("fused_iter_general", {**what, "people": bool(n_valid)},
+            threads, spb, tile, shared = kernel_shapes.fused_general_geometry(nb, what["s"])
+            add("fused_iter_general", {**what, "people": bool(n_valid), "threads": threads,
+                                       "scenarios_per_block": spb, "step_tile": tile,
+                                       "shared_bytes": shared},
                 check_fused(cap["fused"], reps_nb))
             if not n_valid:
                 continue
@@ -2242,7 +2256,8 @@ def check_sfm_general_shapes(dev, reps):
             fail(f"kernel_shapes: K5 at N = {n} took {type(geo).__name__}")
         rows.append({"name": "sfm_scan_general", **what,
                      "shared_bytes": K5.scan_shared_bytes(geo, n, s1),
-                     "lanes_per_agent": geo.lanes_per_agent, "rounds": geo.sources_per_lane,
+                     "threads_per_scenario": geo.threads_per_scenario,
+                     "scenarios_per_block": geo.scenarios_per_block,
                      "ptxas": ptx, **r})
     return rows
 

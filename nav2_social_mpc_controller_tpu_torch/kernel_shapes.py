@@ -29,14 +29,16 @@ what bounds them is one block's shared memory (227 KB on an H100): the
 general solve holds one system's Cholesky factor there, D x (D | 1) floats
 and six vectors of D (``general_solve_shared_bytes``), which fits up to
 D = 237. A config of NB blocks solves D = 2 NB, so NB stops at 118. K2's
-general form holds 15 floats a step there (``fused_general_shared_bytes``).
+general form holds 15 floats a step there beside a tile of steps' staged
+columns (``fused_general_shared_bytes``), which at D = 236 and a one-step
+tile leaves room for S = 3748 (GENERAL_MAX_STEPS).
 
 K5's templated form stops at N = 32 because a scenario's force lanes must
 fit one warp (at N = 33 no count of sources per lane does). Past that its
-general form runs (``form`` with kind "agents"): a block of
-SFM_GENERAL_THREADS threads a scenario, with every agent's scan state in
-shared memory, 64 bytes an agent, beside the block's pair forces
-(``sfm_general_shared_bytes``); one block's 227 KB holds N = 3567
+general form runs (``form`` with kind "agents"): up to SFM_GENERAL_THREADS
+threads a scenario, with every agent's scan state in shared memory, 64
+bytes an agent, beside 16 a thread (``sfm_general_shared_bytes``); one
+block's 227 KB holds one scenario of N = 3567 on 256 threads
 (GENERAL_MAX_AGENTS).
 
 What stays refused: past those limits.
@@ -58,37 +60,69 @@ def general_solve_shared_bytes(d: int) -> int:
     return 4 * (d * (d | 1) + 6 * d)
 
 
-def fused_general_shared_bytes(s: int) -> int:
-    """Shared memory of one scenario of K2's general form
-    (csrc/fused_general.cu): a step's 10 sums of p p^T, 4 of r p and its
-    cost, for S steps."""
-    return 4 * 15 * s
+# K2's general form (csrc/fused_general.cu): blocks of FUSED_GENERAL_BLOCK
+# threads, and the most steps a tile of its second phase stages.
+FUSED_GENERAL_BLOCK = 128
+FUSED_GENERAL_STEP_TILE = 8
 
 
-# K5's general form: one block of this many threads a scenario.
+def fused_general_shared_bytes(s: int, d: int = 0, tile: int = 1) -> int:
+    """Shared memory of one scenario of K2's general form at S steps and
+    D = 2 NB columns: a step tile of `tile` steps staged, four float4s a
+    column pair and step (its two columns' sensitivities and M_s times
+    each), then each step's 10 sums of p p^T, 4 of r p and its cost,
+    padded to 16 bytes. The defaults, the most columns and a one-step tile,
+    bound the steps it takes (GENERAL_MAX_STEPS); d = 0 stands for them."""
+    d = d or 2 * GENERAL_MAX_BLOCKS
+    return 32 * d * tile + -(-4 * 15 * s // 16) * 16
+
+
+def fused_general_geometry(nb: int, s: int):
+    """The launch of K2's general form at NB blocks and S steps, as the C
+    entry takes it: (threads a scenario, scenarios a block, step tile,
+    shared bytes a block). A warp a scenario up to D = 32, 128 threads
+    above; as many scenarios a block of FUSED_GENERAL_BLOCK as that leaves
+    if they fit in 48 KB, else one; a tile of FUSED_GENERAL_STEP_TILE steps
+    (S if fewer), fewer only where a long rollout's sums leave no room."""
+    d = 2 * nb
+    threads = 32 if d <= 32 else 128
+    tile = min(s, FUSED_GENERAL_STEP_TILE)
+    while tile > 1 and fused_general_shared_bytes(s, d, tile) > SHARED_BYTES_PER_BLOCK:
+        tile -= 1
+    spb = FUSED_GENERAL_BLOCK // threads
+    if spb * fused_general_shared_bytes(s, d, tile) > 48 * 1024:
+        spb = 1
+    return threads, spb, tile, spb * fused_general_shared_bytes(s, d, tile)
+
+
+# K5's general form: blocks of this many threads, one or more scenarios each.
 SFM_GENERAL_THREADS = 256
 
 
-def sfm_general_shared_bytes(n: int) -> int:
+def sfm_general_shared_bytes(n: int, threads: int = SFM_GENERAL_THREADS) -> int:
     """Shared memory of one scenario of K5's general form
-    (csrc/sfm_scan.cu): a float4 of state (position, velocity) and 12 words
-    of the rest of each agent's scan state (heading, goal, obstacle entry,
-    the step's social force, flags, window), the robot's float4, and the
-    block's pair forces, a float2 a thread in two buffers."""
-    return 64 * n + 16 + 16 * SFM_GENERAL_THREADS
+    (csrc/sfm_scan.cu) on `threads` threads: each agent's position and
+    velocity in two buffers (two float4s) and 8 words of the rest of its
+    scan state (heading, goal, obstacle entry, the step's social force, a
+    word of flags, rank and window corner), the robot's float4 in two
+    buffers, and a float4 a thread (its agent's desired and obstacle
+    forces)."""
+    return 64 * n + 32 + 16 * threads
 
 
 GENERAL_MAX_DIM = max(
     d for d in range(1, 1024) if general_solve_shared_bytes(d) <= SHARED_BYTES_PER_BLOCK)
 GENERAL_MAX_BLOCKS = GENERAL_MAX_DIM // 2
-GENERAL_MAX_STEPS = SHARED_BYTES_PER_BLOCK // fused_general_shared_bytes(1)
+GENERAL_MAX_STEPS = max(
+    s for s in range(1, SHARED_BYTES_PER_BLOCK // 60 + 1)
+    if fused_general_shared_bytes(s, 2 * GENERAL_MAX_BLOCKS, 1) <= SHARED_BYTES_PER_BLOCK)
 
 SOLVE_WHY = ("the general form holds one system's Cholesky factor in one block's shared "
              f"memory, {SHARED_BYTES_PER_BLOCK} bytes on an H100, which fits "
              f"D <= {GENERAL_MAX_DIM}")
 GENERAL_MAX_AGENTS = (SHARED_BYTES_PER_BLOCK - sfm_general_shared_bytes(0)) // 64
-AGENTS_WHY = ("K5's general form keeps 64 bytes of each agent's scan state and its block's "
-              f"pair forces in one block's shared memory, {SHARED_BYTES_PER_BLOCK} bytes on an "
+AGENTS_WHY = ("K5's general form keeps 64 bytes of each agent's scan state and 16 of each "
+              f"of its threads in one block's shared memory, {SHARED_BYTES_PER_BLOCK} bytes on an "
               f"H100, which holds N <= {GENERAL_MAX_AGENTS}")
 TEMPLATED, GENERAL = "templated", "general"
 
@@ -161,13 +195,15 @@ LISTS = {
 }
 
 # macro name -> value, in kernel_shapes.h: the general forms' limits (and K5's
-# general block size)
+# general block size, K2's general step tile, one block's shared memory)
 LIMITS = {
     "SOCIAL_MPC_GENERAL_MAX_BLOCKS": GENERAL_MAX_BLOCKS,
     "SOCIAL_MPC_GENERAL_MAX_DIM": GENERAL_MAX_DIM,
     "SOCIAL_MPC_GENERAL_MAX_STEPS": GENERAL_MAX_STEPS,
     "SOCIAL_MPC_SFM_GENERAL_MAX_AGENTS": GENERAL_MAX_AGENTS,
     "SOCIAL_MPC_SFM_GENERAL_THREADS": SFM_GENERAL_THREADS,
+    "SOCIAL_MPC_FUSED_GENERAL_STEP_TILE": FUSED_GENERAL_STEP_TILE,
+    "SOCIAL_MPC_SHARED_BYTES_PER_BLOCK": SHARED_BYTES_PER_BLOCK,
 }
 
 HEADER_NAME = "kernel_shapes.h"

@@ -39,9 +39,9 @@ version only for CPU tensors; there is no fallback on the card. The kernel
 gives a group of scenarios a block: force warps that compute the pair
 forces on parallel lanes and an agent warp for the rest of each agent's
 step; ``scan_geometry`` chooses the groups. Past 32 agents its general form
-runs (kernel_shapes.form): a block a scenario, the agents' states in shared
-memory, an agent's pair forces over several threads and added in the serial
-order; it counts as ``sfm_scan_general``.
+runs (kernel_shapes.form): a few warps a scenario, the valid agents' states
+in shared memory, an agent's pair forces over several lanes of one warp and
+added in the serial order; it counts as ``sfm_scan_general``.
 """
 
 import math
@@ -92,17 +92,15 @@ class ScanGeometry(NamedTuple):
 
 
 class GeneralScanGeometry(NamedTuple):
-    """The launch of K5's general form (N at run time): a block of
-    `threads` threads a scenario. The agents go in `groups` groups of
-    `agents_per_group`; each agent of a group owns `lanes_per_agent`
-    threads, each of which computes `sources_per_lane` of the agent's N pair
-    forces, one a round."""
+    """The launch of K5's general form (N at run time): blocks of `threads`
+    threads, `threads_per_scenario` of them (whole warps) a scenario, so
+    `scenarios_per_block` scenarios a block. Inside a scenario the kernel
+    spreads its valid agents over its warps and gives an agent a power of
+    two of lanes for its pair forces, chosen from the valid agents (every
+    choice gives the same bits)."""
 
     threads: int
-    agents_per_group: int
-    lanes_per_agent: int
-    groups: int
-    sources_per_lane: int
+    threads_per_scenario: int
     scenarios_per_block: int
     blocks: int
 
@@ -113,6 +111,14 @@ class GeneralScanGeometry(NamedTuple):
 KERNEL_MAX_AGENTS = kernel_shapes.GENERAL_MAX_AGENTS
 
 
+def general_threads_per_scenario(n_agents: int) -> int:
+    """A scenario's threads in K5's general form: four warps up to 64 agents
+    (two scenarios a block), the whole block of SFM_GENERAL_THREADS above.
+    Measured on an H100 against one, two and eight warps at N = 33, 64 and
+    the crowd config's tick (tools/torch_kernel_variants.py --threads)."""
+    return 128 if n_agents <= 64 else kernel_shapes.SFM_GENERAL_THREADS
+
+
 def scan_geometry(n_agents: int, batch: int):
     """The launch geometry of the scan for N agents and B scenarios. The
     templated form (ScanGeometry): the fewest sources per lane with which a
@@ -120,15 +126,14 @@ def scan_geometry(n_agents: int, batch: int):
     (kernel_shapes.sources_per_lane), as many scenarios a force warp as fit,
     and as many force warps a block as the agent warp has lanes for their
     agents. The general form (GeneralScanGeometry, kernel_shapes.form past
-    N = 32): a scenario a block, as many threads an agent as the block
-    shares among min(N, threads) agents, at most N. Past the general form's
-    limit it raises, naming the limit and why."""
+    N = 32): general_threads_per_scenario(N) threads a scenario, as many
+    scenarios a block of SFM_GENERAL_THREADS as that leaves. Past the
+    general form's limit it raises, naming the limit and why."""
     if kernel_shapes.form("project_people", "agents", n_agents) == kernel_shapes.GENERAL:
         threads = kernel_shapes.SFM_GENERAL_THREADS
-        agents = min(n_agents, threads)
-        lanes = min(threads // agents, n_agents)
-        return GeneralScanGeometry(threads, agents, lanes, -(-n_agents // agents),
-                                   -(-n_agents // lanes), 1, batch)
+        per_scenario = general_threads_per_scenario(n_agents)
+        spb = threads // per_scenario
+        return GeneralScanGeometry(threads, per_scenario, spb, -(-batch // spb))
     spl = kernel_shapes.sources_per_lane(n_agents)
     lpa = -(-n_agents // spl)
     lps = n_agents * lpa
@@ -142,9 +147,11 @@ def scan_shared_bytes(geo, n_agents: int, s1: int) -> int:
     """Dynamic shared memory of one block of the scan over s1 - 1 steps. The
     templated form: a float4 of state and one of forces per agent of the
     block, and the robot's position and velocity at every step of each
-    scenario; the general form: kernel_shapes.sfm_general_shared_bytes."""
+    scenario; the general form: kernel_shapes.sfm_general_shared_bytes for
+    each of its scenarios."""
     if isinstance(geo, GeneralScanGeometry):
-        return kernel_shapes.sfm_general_shared_bytes(n_agents)
+        return geo.scenarios_per_block * kernel_shapes.sfm_general_shared_bytes(
+            n_agents, geo.threads_per_scenario)
     steps = max(s1 - 1, 0)
     return 16 * (2 * geo.scenarios_per_block * n_agents + geo.scenarios_per_block * steps)
 
@@ -527,7 +534,7 @@ def project_people(
             esdf_indexes.data_ptr(), esdf_origin.data_ptr(), esdf_resolution.data_ptr(),
             esdf_valid.data_ptr(), out.data_ptr(),
             b, n, s1, h, w, lookup_window(esdf_window, h, w),
-            geo.lanes_per_agent if general else geo.sources_per_lane, geo.blocks, maxtime, dt,
+            geo.threads_per_scenario if general else geo.sources_per_lane, geo.blocks, maxtime, dt,
             params.lam, params.gamma, params.n, params.n_prime, params.force_factor_social,
             params.force_factor_desired, params.relaxation_time,
             params.force_factor_obstacle, params.force_sigma_obstacle,

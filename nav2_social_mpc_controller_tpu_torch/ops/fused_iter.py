@@ -295,8 +295,8 @@ def fused_cost_g_jtj(
     if kernel != "fused_iter" and s > GENERAL_MAX_STEPS:
         raise ValueError(
             f"fused_cost_g_jtj: the general form takes S up to {GENERAL_MAX_STEPS} steps (a "
-            f"step's 15 sums in one block's shared memory, {SHARED_BYTES_PER_BLOCK} bytes), "
-            f"got {s}")
+            f"step's 15 sums beside a one-step tile of its staged columns in one block's "
+            f"shared memory, {SHARED_BYTES_PER_BLOCK} bytes), got {s}")
     f32 = torch.float32
     spec = [("u", u, f32, (b, d)), ("scal", scal, f32, (b, 4)),
             ("dth", dth, f32, (b, nb, s)), ("eb", eb, f32, (b, nb, s)),

@@ -240,8 +240,8 @@ def _general_sfm(card, args, kw):
 
 @pytest.mark.parametrize("n", [33, 48, 64, 128])
 def test_sfm_scan_general_form_matches_plain(card, n):
-    """Past 32 agents K5 runs its general form (a block a scenario, N at run
-    time), every agent valid, every third robot near its goal, batch 41
+    """Past 32 agents K5 runs its general form (N at run time, a few warps
+    a scenario), every agent valid, every third robot near its goal, batch 41
     (_crowd_case): the plain version within 1e-4, its t column exactly; a
     scenario moved to another block gives the same bits."""
     args, kw = _crowd_case(card, n, 41)
@@ -256,6 +256,27 @@ def test_sfm_scan_general_form_matches_plain(card, n):
     assert torch.equal(got[:, 0], args[0])
     assert _norm_err(got, ref) <= 1e-4
     assert bool((got[:, 1:, :, 3] != -1.0).any())
+
+
+@pytest.mark.parametrize("n", [33, 64, 128])
+def test_sfm_scan_general_form_bits_do_not_depend_on_the_block(card, n, monkeypatch):
+    """K5's general form at a batch of 41 (odd: where a block holds two
+    scenarios the last holds one): a scenario rolled by 1 .. 4 places (into
+    another slot of another block) gives the same bits, and so does every
+    count of threads a scenario (one warp to the whole block; the wrapper's
+    choice is general_threads_per_scenario)."""
+    args, kw = _crowd_case(card, n, 41)
+    got = _general_sfm(card, args, kw)
+    for shift in range(1, 5):
+        perm = torch.roll(torch.arange(41, device=card), shift)
+        moved = K5.project_people(*(a.index_select(0, perm).contiguous() for a in args), **kw)
+        torch.cuda.synchronize()
+        assert _same_bits(moved, got[perm]), shift
+    for threads in (32, 64, 128, 256):
+        monkeypatch.setattr(K5, "general_threads_per_scenario", lambda _n, t=threads: t)
+        assert K5.scan_geometry(n, 41).threads_per_scenario == threads
+        assert _same_bits(_general_sfm(card, args, kw), got), threads
+    monkeypatch.undo()
 
 
 def _order_insensitive(args, kw, ref, monkeypatch):
@@ -965,6 +986,36 @@ def test_fused_general_form_matches_plain(card, nb, people):
     for g, r in zip(got, K2.fused_cost_g_jtj_plain(*args)):
         assert _norm_err(g, r) <= (3e-5 if people else 1e-4)
     assert torch.equal(got[2], got[2].transpose(1, 2))
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")], ids=["nan", "inf"])
+def test_fused_general_form_non_finite_partial(card, bad):
+    """K2's general form at NB = 9 with one scenario's obstacle partials
+    non-finite at one step (its costmap column gradient NaN or inf there,
+    its residual finite): a NaN reaches exactly the JtJ and g entries it
+    reaches in the plain version, NaN and inf in the same places; an inf
+    the same entries, which are then non-finite; every other scenario
+    stays finite and within the tolerance."""
+    prep, vg, st, _ = _problem(_social_in_blocks_of_one(9), card, batch=24, n_valid_people=3)
+    args = list(vg.fused_inputs(st.u))
+    k = 5
+    s = int(torch.nonzero(args[16][k])[0])  # a step the obstacle row holds
+    dcol = args[14].clone()
+    dcol[k, s] = bad
+    args[14] = dcol
+    got = K2.fused_cost_g_jtj(*args)
+    ref = K2.fused_cost_g_jtj_plain(*args)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("cost", "g", "jtj"), got, ref):
+        assert torch.equal(torch.isfinite(x), torch.isfinite(r)), name
+        if bad != bad:
+            assert torch.equal(torch.isnan(x), torch.isnan(r)), name
+            assert torch.equal(torch.isinf(x), torch.isinf(r)), name
+        rest = torch.arange(x.shape[0], device=card) != k
+        assert bool(torch.isfinite(x[rest]).all()), name
+        assert _norm_err(x[rest], r[rest]) <= 3e-5, name
+    assert not bool(torch.isfinite(got[2][k]).all())
+    assert _same_bits(got[2], got[2].transpose(1, 2).contiguous())
 
 
 @pytest.mark.parametrize("people", [False, True], ids=["people_free", "people"])

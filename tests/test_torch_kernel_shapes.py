@@ -229,14 +229,15 @@ def test_scan_shared_memory_passes_48_kb_only_past_94_steps_at_one_agent():
     assert sfm.scan_shared_bytes(sfm.scan_geometry(32, 8), 32, 400) < 48 * 1024
 
 
-@pytest.mark.parametrize("n,shared", [(33, 6224), (64, 8208), (703, 49104), (704, 49168),
-                                      (LIMIT_N, 232400)])
+@pytest.mark.parametrize("n,shared", [(33, 8384), (64, 12352), (128, 12320), (703, 49120),
+                                      (704, 49184), (LIMIT_N, 232416)])
 def test_general_scan_shared_memory_and_its_limit(n, shared):
-    """K5's general form: 64 bytes an agent, 16 for the robot and 16 a
-    thread of its block of 256, whatever the steps; past 48 KB (from 704
-    agents) the launch opts in; the limit is the most agents one block's
-    227 KB holds, and the kernel reads the limit and the block from the
-    generated header."""
+    """K5's general form: per scenario 64 bytes an agent, 32 for the robot
+    and 16 a thread of the scenario's, whatever the steps, times the
+    scenarios of a block of 256 (2 to 64 agents, 1 above); past
+    48 KB (from 704 agents) the launch opts in; the limit is the most
+    agents one block's 227 KB holds on 256 threads, and the kernel reads
+    the limit and the block from the generated header."""
     geo = sfm.scan_geometry(n, 3)
     assert sfm.scan_shared_bytes(geo, n, 30) == sfm.scan_shared_bytes(geo, n, 400) == shared
     assert (shared > 48 * 1024) == (n >= 704)
@@ -247,7 +248,57 @@ def test_general_scan_shared_memory_and_its_limit(n, shared):
     with open(os.path.join(_build.CSRC_DIR, "sfm_scan.cu")) as f:
         source = f.read()
     assert "kGeneralThreads = SOCIAL_MPC_SFM_GENERAL_THREADS;" in source
-    assert "return (size_t)64 * n + 16 + (size_t)16 * kGeneralThreads;" in source
+    assert "return (size_t)64 * n + 32 + (size_t)16 * threads;" in source
+
+
+@pytest.mark.parametrize("n,threads,spb,shared", [
+    (33, 128, 2, 2 * (64 * 33 + 32 + 16 * 128)),
+    (64, 128, 2, 2 * (64 * 64 + 32 + 16 * 128)),   # social_n64
+    (128, 256, 1, 64 * 128 + 32 + 16 * 256),
+    (LIMIT_N, 256, 1, 64 * LIMIT_N + 32 + 16 * 256),
+])
+def test_general_scan_threads_and_shared_bytes(n, threads, spb, shared):
+    """K5's general form: threads a scenario from N (four warps to 64
+    agents, the block above), scenarios a block, and a block's shared
+    memory, from kernel_shapes.sfm_general_shared_bytes."""
+    assert sfm.general_threads_per_scenario(n) == threads
+    geo = sfm.scan_geometry(n, 4096)
+    assert (geo.threads_per_scenario, geo.scenarios_per_block) == (threads, spb)
+    assert kernel_shapes.sfm_general_shared_bytes(n, threads) * spb == shared
+    assert sfm.scan_shared_bytes(geo, n, 30) == shared <= kernel_shapes.SHARED_BYTES_PER_BLOCK
+    assert kernel_shapes.sfm_general_shared_bytes(LIMIT_N) == 64 * LIMIT_N + 32 + 16 * 256
+
+
+@pytest.mark.parametrize("nb,s,want", [
+    (7, 29, (32, 4, 8, 4 * (32 * 14 * 8 + 1744))),     # a warp a scenario, four a block
+    (9, 29, (32, 4, 8, 4 * (32 * 18 * 8 + 1744))),     # social_bl2
+    (12, 39, (32, 4, 8, 4 * (32 * 24 * 8 + 2352))),    # stress36_bl3
+    (18, 29, (128, 1, 8, 32 * 36 * 8 + 1744)),         # social_bl1: 128 threads a scenario
+    (18, 69, (128, 1, 8, 32 * 36 * 8 + 4144)),
+    (16, 123, (32, 1, 8, 32 * 32 * 8 + 7392)),         # four would pass 48 KB: one a block
+    (118, 123, (128, 1, 8, 32 * 236 * 8 + 7392)),      # the limit
+    (118, 3748, (128, 1, 1, 32 * 236 + 224880)),       # the longest rollout: a one-step tile
+])
+def test_fused_general_geometry(nb, s, want):
+    """K2's general form: threads a scenario (a warp to D = 32, 128 above),
+    scenarios a block (as many as fit a block of 128 in 48 KB), the step
+    tile its second phase stages (8 steps, S if fewer, fewer only where the
+    sums leave no room) and a block's shared memory, within one block's
+    227 KB; the kernel reads the tile and the block's bytes from the
+    generated header."""
+    assert kernel_shapes.fused_general_geometry(nb, s) == want
+    threads, spb, tile, shared = want
+    assert spb * threads <= kernel_shapes.FUSED_GENERAL_BLOCK
+    assert shared == spb * kernel_shapes.fused_general_shared_bytes(s, 2 * nb, tile)
+    assert shared <= kernel_shapes.SHARED_BYTES_PER_BLOCK
+    assert s <= kernel_shapes.GENERAL_MAX_STEPS == 3748
+    header = kernel_shapes.header()
+    assert "#define SOCIAL_MPC_FUSED_GENERAL_STEP_TILE 8\n" in header
+    assert "#define SOCIAL_MPC_SHARED_BYTES_PER_BLOCK 232448\n" in header
+    with open(os.path.join(_build.CSRC_DIR, "fused_general.cu")) as f:
+        source = f.read()
+    assert "STEP_TILE = SOCIAL_MPC_FUSED_GENERAL_STEP_TILE;" in source
+    assert "GENERAL_BLOCK = 128;" in source
 
 
 FAKE_NVCC = textwrap.dedent("""\

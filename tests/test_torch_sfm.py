@@ -232,23 +232,29 @@ def test_scan_geometry_refuses_counts_the_kernel_is_not_built_for(n):
 
 
 @pytest.mark.parametrize("n,b,want", [
-    (33, 4096, (256, 33, 7, 1, 5, 1, 4096)),    # 7 lanes an agent, 5 rounds a step
-    (48, 41, (256, 48, 5, 1, 10, 1, 41)),
-    (64, 4096, (256, 64, 4, 1, 16, 1, 4096)),   # social_n64
-    (128, 41, (256, 128, 2, 1, 64, 1, 41)),
-    (256, 2, (256, 256, 1, 1, 256, 1, 2)),      # one lane an agent: no round barrier
-    (257, 2, (256, 256, 1, 2, 257, 1, 2)),      # two groups of agents
-    (3567, 1, (256, 256, 1, 14, 3567, 1, 1)),   # the limit
+    (33, 4096, (256, 128, 2, 2048)),   # four warps a scenario, two scenarios a block
+    (33, 41, (256, 128, 2, 21)),       # ragged: the last block holds one
+    (48, 41, (256, 128, 2, 21)),
+    (64, 4096, (256, 128, 2, 2048)),   # social_n64
+    (65, 41, (256, 256, 1, 41)),       # a block a scenario from here
+    (128, 41, (256, 256, 1, 41)),
+    (128, 4096, (256, 256, 1, 4096)),
+    (256, 2, (256, 256, 1, 2)),
+    (257, 2, (256, 256, 1, 2)),
+    (3567, 1, (256, 256, 1, 1)),       # the limit
+    (3567, 2, (256, 256, 1, 2)),
 ])
 def test_general_scan_geometry(n, b, want):
-    """K5's general form (N > 32): threads, agents a group, lanes an agent,
-    groups, sources a lane (rounds), scenarios a block, blocks. Every
-    agent of a group has its lanes among the block's threads, every source
-    of its list a lane in some round, one scenario a block."""
+    """K5's general form (N > 32): threads a block, threads a scenario,
+    scenarios a block, blocks. A scenario is whole warps, a power of two of
+    them, at least a warp for every 32 agents up to the block; the block's
+    scenarios fill it; every scenario a block; its shared memory fits one
+    block's 227 KB."""
     geo = tsfm.scan_geometry(n, b)
     assert isinstance(geo, tsfm.GeneralScanGeometry) and tuple(geo) == want
-    assert geo.agents_per_group * geo.lanes_per_agent <= geo.threads
-    assert geo.groups * geo.agents_per_group >= n > (geo.groups - 1) * geo.agents_per_group
-    assert geo.sources_per_lane * geo.lanes_per_agent >= n
-    assert (geo.sources_per_lane - 1) * geo.lanes_per_agent < n
-    assert geo.blocks == b and geo.scenarios_per_block == 1
+    warps = geo.threads_per_scenario // 32
+    assert geo.threads_per_scenario % 32 == 0 and warps & (warps - 1) == 0
+    assert min(-(-n // 32), 8) <= warps <= 8
+    assert geo.scenarios_per_block * geo.threads_per_scenario == geo.threads
+    assert geo.blocks * geo.scenarios_per_block >= b > (geo.blocks - 1) * geo.scenarios_per_block
+    assert tsfm.scan_shared_bytes(geo, n, 30) <= 232448

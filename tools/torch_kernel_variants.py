@@ -2,13 +2,21 @@
 """Time variants of the PyTorch/CUDA port's kernel sources against each
 other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds them at.
 
-    python3 tools/torch_kernel_variants.py NAME=PATH.cu [NAME=PATH.cu ...]
+    python3 tools/torch_kernel_variants.py [--general] [--threads T,...] [--bits-against NAME]
+                                           NAME=PATH.cu [...]
 
 Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
-`csrc/rollout_prep.cu` (K6), of `csrc/tr_iter.cu` (K3 propose and K4
-commit), of `csrc/sfm_scan.cu` (K5), of `csrc/rollout_sample.cu` (K6's
-rollout with K1's sample) or of `csrc/spd_solve.cu` (K7), exporting the same
-C entry points; the kind is told by those entry points. A K7 variant may
+`csrc/fused_general.cu` (K2's general form), of `csrc/rollout_prep.cu`
+(K6), of `csrc/tr_iter.cu` (K3 propose and K4 commit), of
+`csrc/sfm_scan.cu` (K5; `--general`: its general form, at the crowd shapes
+below), of `csrc/rollout_sample.cu` (K6's rollout with K1's sample) or of
+`csrc/spd_solve.cu` (K7), exporting the same C entry points; the kind is
+told by those entry points. `--threads`: with `--general`, K5's shipped
+source is timed again at each of these threads a scenario (variants
+`shipped@T`; the wrapper's choice is models/sfm.py:
+general_threads_per_scenario), and the variants list may be empty.
+`--bits-against NAME`: each variant's output elements whose bits differ
+from variant NAME's on the same inputs (`bits_differ_from`). A K7 variant may
 lack the damped-step entry (as the parent's file does): its damped step is
 then timed as the plain composition around its solve, damped_system, the
 solve, the map-back and project_step. The source in the checkout is added as `shipped` (a parent's source
@@ -33,6 +41,24 @@ K2 and K6 at six shapes:
   omni6_all_valid       six agents, B = 1024, likewise
   stress36_all_valid    stress horizon (D = 12, S = 39), B = 1024, likewise
   stress36_people_free  stress horizon, B = 1024, no person
+
+K2's general form at the configs that run it (chip_smoke.py: step_configs),
+every third robot near its goal:
+
+  social_bl2_main       horizon 18 in blocks of 2 (NB = 9, D = 18), B = 4096,
+                        3 valid people (the main path's shape)
+  social_bl2_people_free  likewise without people
+  stress36_bl3          the H = 36 stress horizon in blocks of 3 (NB = 12,
+                        D = 24, S = 39), B = 1024, 3 valid people
+  social_bl1            blocks of 1 (NB = 18, D = 36), B = 1024
+  nb118                 the limit, NB = 118 (S = 123), B = 16
+
+K5's general form (`--general`): social_n64_main (the crowd config's main
+path, B = 4096, N = 64, the FOV-filtered people of a real tick); N = 33 and
+64 at B = 1024 with every agent valid (the generator's density); N = 128
+and 256 at B = 256, spread to one person every two square metres. Its
+error is taken over the scenarios whose plain version another order of its
+sums moves by at most 1e-5 (chip_smoke.py: sfm_order_sensitivity).
 
 K3 and K4 (both timed in each turn), K5, the rollout sample and K7 (its
 damped step without and with the Jacobi scale, and its standalone solve of
@@ -64,6 +90,7 @@ its kernel's tolerance.
 import collections
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import types
@@ -76,6 +103,7 @@ import chip_smoke as cs  # noqa: E402
 # kind (the csrc/ file a variant replaces) -> the C entry points it exports
 KINDS = {
     "fused_iter": ("social_mpc_fused_iter_f32",),
+    "fused_general": ("social_mpc_fused_iter_general_f32",),
     "rollout_prep": ("social_mpc_rollout_prep_f32",),
     "tr_iter": ("social_mpc_propose_f32", "social_mpc_commit_f32"),
     "sfm_scan": ("social_mpc_sfm_scan_f32",),
@@ -83,7 +111,8 @@ KINDS = {
     "spd_solve": ("social_mpc_spd_solve_f32",),
 }
 # entry points a variant of the kind may lack (timed otherwise, see kernels())
-OPTIONAL = {"spd_solve": ("social_mpc_damped_step_f32",)}
+OPTIONAL = {"spd_solve": ("social_mpc_damped_step_f32",),
+            "sfm_scan": ("social_mpc_sfm_scan_general_f32",)}
 ROUNDS = 4
 REPS = 200
 
@@ -91,6 +120,13 @@ REPS = 200
 def parse_args(argv):
     from nav2_social_mpc_controller_tpu_torch import _build
 
+    general, threads, against = False, (), None
+    if argv[:1] == ["--general"]:
+        general, argv = True, argv[1:]
+    if argv[:1] == ["--threads"] and len(argv) > 1:
+        threads, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
+    if argv[:1] == ["--bits-against"] and len(argv) > 1:
+        against, argv = argv[1], argv[2:]
     variants = {}
     for arg in argv:
         name, sep, path = arg.partition("=")
@@ -99,16 +135,25 @@ def parse_args(argv):
         variants[name] = path
     kinds = set()
     for path in variants.values():
-        text = open(path).read()
-        found = [k for k, entries in KINDS.items() if all(e in text for e in entries)]
+        defined = set(re.findall(r'extern "C" int (social_mpc_\w+)\(', open(path).read()))
+        found = [k for k, entries in KINDS.items() if set(entries) <= defined]
         if len(found) != 1:
             cs.fail(f"{path} exports the entry points of none or several of {sorted(KINDS)}")
         kinds.add(found[0])
+    if general:
+        kinds.add("sfm_scan")
     if len(kinds) != 1:
         cs.fail("all variants must be of one kind")
     kind = kinds.pop()
-    variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kind}.cu")
-    return kind, variants
+    if kind == "sfm_scan" and general:
+        kind = "sfm_scan_general"
+    elif threads:
+        cs.fail("--threads times K5's general form: give --general first")
+    variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kind.replace('_general', '')}.cu"
+                                       if kind == "sfm_scan_general" else f"{kind}.cu")
+    if against is not None and against not in variants and against != "shipped":
+        cs.fail(f"--bits-against {against}: no such variant")
+    return kind, variants, threads, against
 
 
 def build_all(kind, variants):
@@ -131,8 +176,9 @@ def build_all(kind, variants):
         usage[name] = cs.ptxas_usage(log)
         lib = ctypes.CDLL(so)
         fns = {}
-        for entry in KINDS[kind] + OPTIONAL.get(kind, ()):
-            if entry not in KINDS[kind] and not hasattr(lib, entry):
+        base = "sfm_scan" if kind == "sfm_scan_general" else kind
+        for entry in KINDS[base] + OPTIONAL.get(base, ()):
+            if entry not in KINDS[base] and not hasattr(lib, entry):
                 continue
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
@@ -152,8 +198,36 @@ def captures(kind):
         c = cs.capture_iteration(cfg, cs.with_pose(sc, pose), make_carry(cfg, batch, device="cuda"))
         return {**c, "cfg": cfg}
 
+    def crowd(n, batch):
+        """K5's inputs with every one of N agents valid (chip_smoke.py:
+        check_sfm_general_shapes), spread past 64."""
+        from nav2_social_mpc_controller_tpu_torch.controller.controller import step_pre
+
+        cfg = cs.agents_config(n)
+        sc, poses = cs.make_batch(cfg, batch, "cuda", n_valid_people=n)
+        sc = cs.with_pose(sc, poses[0])
+        prep = step_pre(cfg, sc, make_carry(cfg, batch, device="cuda")).prep
+        people = sc.people.state if n <= 64 else cs.spread_crowd(sc.people.state)
+        return {"sfm": cs.sfm_inputs(sc, people, prep), "cfg": cfg}
+
     social, obstacle = C.benchmark_social_config(), C.benchmark_obstacle_only_config()
     omni6, stress = C.benchmark_omni_6agents_config(), C.benchmark_stress_h36_config()
+    if kind == "fused_general":
+        return {
+            "social_bl2_main": cap(cs.replace_optimizer(social, parameter_block_length=2),
+                                   cs.B_MAIN, 3),
+            "social_bl2_people_free": cap(cs.replace_optimizer(social, parameter_block_length=2),
+                                          cs.B_MAIN, 0),
+            "stress36_bl3": cap(cs.replace_optimizer(stress, parameter_block_length=3),
+                                cs.B_WIDE, 3, True),
+            "social_bl1": cap(cs.replace_optimizer(social, parameter_block_length=1),
+                              cs.B_WIDE, 3, True),
+            "nb118": cap(cs.general_blocks_config(118), 16, 3, True),
+        }
+    if kind == "sfm_scan_general":
+        return {"social_n64_main": cap(cs.agents_config(64), cs.B_MAIN, 64),
+                **{f"n{n}_all_valid": crowd(n, b) for n, b in ((33, cs.B_WIDE), (64, cs.B_WIDE),
+                                                             (128, 256), (256, 256))}}
     if kind in ("tr_iter", "sfm_scan", "rollout_sample", "spd_solve"):
         return {
             "social_main": cap(social, cs.B_MAIN, 3),
@@ -197,6 +271,13 @@ def kernels(kind):
                  lambda c: K34.damped_step_plain(c["lm_cfg"], *c["propose"], c["jac_scale"])),
                 ("spd_solve", lambda c: K7.spd_solve(*c["spd_solve"]),
                  lambda c: K7.spd_solve_plain(*c["spd_solve"]))]
+    if kind == "fused_general":
+        return [("fused_iter_general", lambda c: K2.fused_cost_g_jtj(*c["fused"]),
+                 lambda c: K2.fused_cost_g_jtj_plain(*c["fused"]))]
+    if kind == "sfm_scan_general":
+        return [("sfm_scan_general",
+                 lambda c: K5.project_people(*c["sfm"], **cs.sfm_keywords(c["cfg"])),
+                 lambda c: K5.project_people_plain(*c["sfm"], **cs.sfm_keywords(c["cfg"])))]
     if kind == "fused_iter":
         return [("fused_iter", lambda c: K2.fused_cost_g_jtj(*c["fused"]),
                  lambda c: K2.fused_cost_g_jtj_plain(*c["fused"]))]
@@ -215,8 +296,13 @@ def kernels(kind):
              lambda c: K34.commit_plain(c["lm_cfg"], *c["commit"]))]
 
 
-def error(kernel, got, ref):
-    if kernel == "fused_iter":
+def error(kernel, got, ref, cap):
+    if kernel == "sfm_scan_general":
+        if not bool((got[..., 3] == ref[..., 3]).all()):
+            return float("inf")
+        calm = cap["calm"]
+        return cs.norm_err(got[calm], ref[calm])[0]
+    if kernel in ("fused_iter", "fused_iter_general"):
         return max(cs.norm_err(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))[0]
                    for a, b in zip(got, ref))
     if kernel in ("propose", "commit", "damped_step", "damped_step_jacobi"):
@@ -241,9 +327,9 @@ def tolerance(kernel, cap):
     if kernel in ("propose", "commit", "rollout_sample", "damped_step", "damped_step_jacobi",
                   "spd_solve"):
         return 0.0
-    if kernel == "fused_iter" and bool(cap["fused"][18].any()):
+    if kernel in ("fused_iter", "fused_iter_general") and bool(cap["fused"][18].any()):
         return cs.TOL["fused_iter_people"]
-    return cs.TOL[kernel]
+    return cs.TOL[kernel.replace("_general", "")]
 
 
 def main():
@@ -251,36 +337,62 @@ def main():
 
     from nav2_social_mpc_controller_tpu_torch import _build
 
+    from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
+
     _, smi = cs.phase_device()
-    kind, variants = parse_args(sys.argv[1:])
+    kind, variants, threads, against = parse_args(sys.argv[1:])
     cs.phase_build()
     libs, usage = build_all(kind, variants)
     cs.emit({"ptxas": usage})
     cs.emit({"launch_floor_ms": cs.launch_floor_ms(REPS)})
-    times, errs, tols = collections.defaultdict(list), {}, {}
+    times, errs, tols, bits = collections.defaultdict(list), {}, {}, {}
     full = _build.load()  # the checkout's library: every entry point
     order = list(libs)
     if kind == "rollout_sample":  # the two launches it replaces, in turns with it
         libs["k6_then_k1"] = full
         order.append("k6_then_k1")
+    per_scenario = K5.general_threads_per_scenario
+    for t in threads:  # the shipped K5 at other threads a scenario
+        libs[f"shipped@{t}"] = libs["shipped"]
+        order.append(f"shipped@{t}")
+
+    def geometry(name):
+        t = int(name.split("@")[1]) if "@" in name else None
+        K5.general_threads_per_scenario = (lambda n: t) if t else per_scenario
     try:
         for shape, cap in captures(kind).items():
             for kernel, run, plain in kernels(kind):
                 _build._lib = full
                 ref = plain(cap)
+                if kernel == "sfm_scan_general":
+                    cap["calm"] = cs.sfm_order_sensitivity(
+                        cap["sfm"], cs.sfm_keywords(cap["cfg"]), ref)[0]
                 tols[(shape, kernel)] = tolerance(kernel, cap)
+                outs = {}
                 for rnd in range(ROUNDS):
                     for name in (order if rnd % 2 == 0 else order[::-1]):
                         _build._lib = libs[name]
+                        geometry(name)
                         fn = (lambda: plain(cap)) if name == "k6_then_k1" else (lambda: run(cap))
                         if rnd == 0:
-                            errs[(shape, kernel, name)] = error(kernel, fn(), ref)
+                            out = fn()
+                            errs[(shape, kernel, name)] = error(kernel, out, ref, cap)
+                            if against is not None:
+                                outs[name] = ([out] if torch.is_tensor(out) else
+                                              [out[k] for k in sorted(out)]
+                                              if isinstance(out, dict) else list(out))
                         times[(shape, kernel, name)].append(cs.time_cuda(fn, REPS))
+                for name, out in outs.items():
+                    bits[(shape, kernel, name)] = cs.bits_differ(out, outs[against])
+                outs.clear()
     finally:
         _build._lib = full
+        K5.general_threads_per_scenario = per_scenario
     torch.cuda.synchronize()
     table = [{"shape": s, "kernel": k, "variant": n, "ms": v, "min_ms": min(v),
-              "err": errs[(s, k, n)], "tol": tols[(s, k)]} for (s, k, n), v in times.items()]
+              "err": errs[(s, k, n)], "tol": tols[(s, k)],
+              **({"bits_differ_from": {against: bits[(s, k, n)]}} if against else {})}
+             for (s, k, n), v in times.items()]
     cs.emit({"variants": table})
     print(smi, flush=True)
     bad = [r for r in table if not r["err"] <= r["tol"]]

@@ -2,7 +2,7 @@
 """Tick times of the port's make_step_batch on the card, for comparing two
 checkouts of the port in turns.
 
-    python3 tools/torch_tick_turns.py --root DIR --label NAME
+    python3 tools/torch_tick_turns.py --root DIR --label NAME [--groups G,...]
 
 imports ``nav2_social_mpc_controller_tpu_torch`` from checkout DIR (its
 kernels are built there at first use), drives the cells below on one CUDA
@@ -30,7 +30,14 @@ Cells, by group:
   sim        a 40-tick closed-loop campaign of 4,096 social scenarios
              (``make_simulate``): ms per simulated tick and the host's
              operations per simulated tick, the simulator's and its
-             step's.
+             step's;
+  general    the configs whose ticks run the kernels' general forms, at
+             B = 4096: the social horizon of 18 in blocks of 2
+             (``social_bl2``, NB = 9, D = 18: K2's general form 41 times a
+             tick) and the crowd of 64 agents (``social_n64``: K5's general
+             form once a tick).
+
+``--groups`` names the groups to run (all by default).
 
 Scenarios come from ``utils/scenarios.py: make_scenario_batch`` with a
 fixed seed, so every checkout solves the same problems.
@@ -59,7 +66,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, help="checkout whose port is timed")
     ap.add_argument("--label", required=True)
+    ap.add_argument("--groups", default="ticks,one_robot,compacted,sim,general",
+                    help="comma-separated groups of cells")
     args = ap.parse_args()
+    groups = set(args.groups.split(","))
     sys.path.insert(0, args.root)
 
     import torch
@@ -174,19 +184,24 @@ def main():
     latent = replace_opt(social, weights={"pure_angle_weight": 0.5, "curvature_weight": 0.3})
     cells = {}
     with torch.no_grad():
-        for name, cfg, b in [("obstacle", obstacle, 1024), ("obstacle", obstacle, 4096),
-                             ("social", social, 1024), ("social", social, 4096),
-                             ("social debug", replace_opt(social, debug_optimizer=True), 4096),
-                             ("stress36 debug", replace_opt(stress36, debug_optimizer=True),
-                              1024),
-                             ("social latent", latent, 1024)]:
+        tick_cells = [("obstacle", obstacle, 1024), ("obstacle", obstacle, 4096),
+                      ("social", social, 1024), ("social", social, 4096),
+                      ("social debug", replace_opt(social, debug_optimizer=True), 4096),
+                      ("stress36 debug", replace_opt(stress36, debug_optimizer=True), 1024),
+                      ("social latent", latent, 1024)] if "ticks" in groups else []
+        if "general" in groups:
+            tick_cells += [("social_bl2", replace_opt(social, parameter_block_length=2), 4096),
+                           ("social_n64", dataclasses.replace(social, n_agents=64), 4096)]
+        for name, cfg, b in tick_cells:
             sc, poses = batch(cfg, b, cfg.n_agents if name != "obstacle" else 0)
             cells[f"{name} B={b}"] = timed_ticks(make_step_batch(cfg, device=dev), cfg, sc,
                                                   poses, b)
             del sc
-        cells["social one robot B=1"] = one_robot(social, social.n_agents)
-        cells["social latent one robot B=1"] = one_robot(latent, social.n_agents)
-        for name, cfg, b in [("social", social, 4096), ("stress36", stress36, 1024)]:
+        if "one_robot" in groups:
+            cells["social one robot B=1"] = one_robot(social, social.n_agents)
+            cells["social latent one robot B=1"] = one_robot(latent, social.n_agents)
+        for name, cfg, b in ([("social", social, 4096), ("stress36", stress36, 1024)]
+                             if "compacted" in groups else []):
             warm = replace_opt(cfg, warm_start_mode="previous_solution")
             sc, poses = batch(warm, b, cfg.n_agents)
             runs = [("", poses)]
@@ -198,7 +213,8 @@ def main():
                     step = make(warm, device=dev)
                     cells[f"{name} {kind}{suffix} B={b}"] = timed_ticks(step, warm, sc, seq, b)
             del sc
-        cells["social sim B=4096"] = campaign(social, 4096, 40)
+        if "sim" in groups:
+            cells["social sim B=4096"] = campaign(social, 4096, 40)
     print(json.dumps({"label": args.label, "root": args.root, "build_s": build_s,
                       "device": torch.cuda.get_device_name(0), "cells": cells}), flush=True)
 
