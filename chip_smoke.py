@@ -1447,14 +1447,15 @@ COMPACTED_PATH_KERNELS = ("trajectorize", "sfm_scan", "rollout_sample", "fused_i
 # its name with "_general" appended; K5's (N at run time) runs past
 # kernel_shapes.SFM_SHAPES' agent counts.
 GENERAL_FORMS = ("rollout_prep", "rollout_sample", "fused_iter", "propose", "commit", "spd_solve")
-# The kernels' names in a profile, templated form and general form.
+# The kernels' names in a profile, templated form and general form (the
+# general form's a regular expression).
 PROFILE_NAMES = {
     "sfm_scan": ("sfm_scan_kernel<", "sfm_scan_general_kernel"),
     "rollout_sample": ("rollout_sample_kernel<", "rollout_sample_general_kernel"),
     "fused_iter": ("fused_kernel<", "fused_general_kernel"),
-    "propose": ("propose_", "damped_step_general_kernel<false>"),
+    "propose": ("propose_", r"damped_step_general_\w+_kernel<(\d+, )?false>"),
     "commit": ("commit_kernel<", "commit_general_kernel"),
-    "spd_solve": ("damped_step_", "damped_step_general_kernel"),
+    "spd_solve": ("damped_step_", "damped_step_general_"),
 }
 
 
@@ -1486,8 +1487,8 @@ def check_profiled_forms(where, by_name, kernels, nb, n_agents=1):
             continue
         general = counter(k, nb, n_agents) != k
         templated_tag, general_tag = PROFILE_NAMES[k]
-        gen = [n for n in by_name if general_tag in n]
-        tmpl = [n for n in by_name if templated_tag in n and general_tag not in n]
+        gen = [n for n in by_name if re.search(general_tag, n)]
+        tmpl = [n for n in by_name if templated_tag in n and not re.search(general_tag, n)]
         want, other = (gen, tmpl) if general else (tmpl, gen)
         if not want or other:
             fail(f"{where}: the profile shows {tmpl} (templated) and {gen} (general) for "
@@ -2012,6 +2013,29 @@ def general_forms():
             setattr(kernel_shapes, name, value)
 
 
+def general_solve_launch(d, standalone=False):
+    """K7's general form at D: the launch the wrappers pass
+    (kernel_shapes.general_solve_geometry) and the ptxas registers and
+    spills of the kernels that take D (csrc/spd_solve.cu: to D = 32 the warp
+    form unrolled to the ceiling at or above D, 16, 20, 24, 28 or 32; the
+    block form above; the damped step's without and with the scale, or the
+    standalone solve's)."""
+    from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
+
+    threads, systems, shared = kernel_shapes.general_solve_geometry(d)
+    entry = "spd_solve" if standalone else "damped_step"
+    if d <= kernel_shapes.GENERAL_SOLVE_WARP_MAX_D:
+        cap = max(16, -(-d // 4) * 4)
+        names = [f"{entry}_general_warp_kernel<{cap}{'' if standalone else f',{j}'}>"
+                 for j in ((None,) if standalone else (0, 1))]
+    else:
+        names = [f"{entry}_general_block_kernel" + ("" if standalone else f"<{j}>")
+                 for j in ((None,) if standalone else (0, 1))]
+    usage = ptxas_usage(_build.last_build_log)
+    return {"threads_per_system": threads, "systems_per_block": systems,
+            "shared_bytes_per_block": shared, "ptxas": {n: usage.get(n) for n in names}}
+
+
 def check_general_vs_templated(cap):
     """Each general form at a templated shape (general_forms), on a capture's
     inputs: K2 against the templated K2 (its tolerance: the two sum in
@@ -2148,9 +2172,12 @@ def phase_kernel_shapes(dev, reps=20):
             add("rollout_prep_general", what, check_rollout(cap["rollout_prep"], reps_nb))
             add("rollout_sample_general", what,
                 check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"], reps_nb))
-            add("propose_general", what, check_propose(cap["lm_cfg"], cap["propose"], reps_nb))
+            launch = general_solve_launch(2 * nb)
+            add("propose_general", {**what, **launch},
+                check_propose(cap["lm_cfg"], cap["propose"], reps_nb))
             add("commit_general", what, check_commit(cap["lm_cfg"], cap["commit"], reps_nb))
-            add("spd_solve_general", what, check_spd_solve(cap["lm_cfg"], cap, reps_nb))
+            add("spd_solve_general", {**what, **launch},
+                check_spd_solve(cap["lm_cfg"], cap, reps_nb))
             del cap
     for nb in GENERAL_CROSS_CHECK_BLOCKS:
         cfg = blocks_config(nb)
@@ -2171,7 +2198,9 @@ def phase_kernel_shapes(dev, reps=20):
             fail(f"kernel spd_solve on random systems at D={d}: {r['non_finite_systems']} "
                  "non-finite systems")
         name = "spd_solve" if d in kernel_shapes.SPD_SOLVE_DIMS else "spd_solve_general"
-        add(name, {"d": d, "entry": "standalone", "systems": "random SPD, every 97th negated"}, r)
+        launch = {} if name == "spd_solve" else general_solve_launch(d, standalone=True)
+        add(name, {"d": d, "entry": "standalone", "systems": "random SPD, every 97th negated",
+                   **launch}, r)
         del m, a
     for n, steps in [(n, None) for n in K5_AGENT_COUNTS] + [(1, K5_LONG_STEPS)]:
         from nav2_social_mpc_controller_tpu_torch.models.sfm import scan_geometry, scan_shared_bytes

@@ -224,6 +224,11 @@ GENERAL_ENTRIES = tuple(f"social_mpc_{k}_general_f32" for k in (
     "rollout_prep", "rollout_sample", "fused_iter", "commit", "damped_step", "spd_solve",
     "sfm_scan"))
 _SIGNATURES.update({name: _SIGNATURES[name.replace("_general", "")] for name in GENERAL_ENTRIES})
+# K7's general entries take the launch geometry too (kernel_shapes.
+# general_solve_geometry: threads a system, systems a block, shared bytes a
+# block), before the stream.
+GEOMETRY_ENTRIES = ("social_mpc_damped_step_general_f32", "social_mpc_spd_solve_general_f32")
+_SIGNATURES.update({name: _SIGNATURES[name][:-1] + [_I, _I, _I, _P] for name in GEOMETRY_ENTRIES})
 
 def reset_launch_counts() -> None:
     """Every count to 0, launches owed by the device included."""

@@ -1,7 +1,7 @@
 // The unrolled Cholesky solve of K3 and K7 in the thread layout, D <= 6
 // (damped_step.cuh, whose rows layout for larger D repeats this order of
-// operations one row per lane, and whose general form for any D one row per
-// thread in shared memory) and the
+// operations one row per lane, and whose general form for any D repeats it
+// right-looking, a warp or a block a system) and the
 // rounding helpers of K3, K4 and K7: A = L L^T, forward substitution
 // L y = rhs, back substitution L^T x = y, with reciprocal diagonals.
 //

@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "chol.cuh"
+#include "kernel_shapes.h"
 
 namespace social_mpc {
 
@@ -350,40 +351,220 @@ __device__ __forceinline__ void damped_step_rows(const DampedStepArgs& p) {
 // The general form: D at run time, past the templated layouts' lists
 // (kernel_shapes.h: K3 / K4 / K7's damped step at every even D from 14, the
 // standalone solve from 17, both up to SOCIAL_MPC_GENERAL_MAX_DIM). The
-// block of one system keeps it in shared memory: the lower triangle of the
-// damped system, factored in place into L (D rows of D | 1 floats, an odd
-// stride, so a column's entries sit in distinct banks), and six vectors of
-// D. A warp (one 32-thread block) per system up to D = 32, a row per lane;
-// a block of 128 threads above, each thread owning rows r, r + 128, ....
+// launch geometry is the wrapper's (kernel_shapes.general_solve_geometry:
+// threads a system, systems a block, shared bytes a block), which the C
+// entry checks (general_geometry_ok).
 //
-// Every entry is formed in chol.cuh's order: at column j, the owner of row
-// i >= j sums its entry over k < j serially (the pivot row with the same
-// sum), the block meets at a barrier, and every thread takes the pivot's
-// sqrtf and reciprocal itself; forward substitution is row-parallel in
-// ascending k, one barrier a column; back substitution, whose sums run in
-// ascending m over rows whose x is known only one after the other, is one
-// thread's serial chain. The sums are unrolled by four, so that a chain's
-// loads from shared memory are in flight together; no chain is reordered.
-// So the bits equal chol.cuh's and the plain version's at every D, as the
-// templated layouts' do.
+//   D <= 32 (warp): a warp a system, several systems a block, no block
+//       barrier and no shared memory. Lane i holds row i of the damped
+//       system in registers (read straight from device memory), unrolled to
+//       a ceiling CAP (16, 20, 24, 28 or 32) picked from D. Right-looking:
+//       at column k every lane takes the pivot's sqrtf and reciprocal, the
+//       lanes below scale their L_ik, and every lane updates its entries
+//       j > k with L_jk from lane j by shuffle (a lane's entries above its
+//       diagonal take garbage that nothing reads); lane k keeps those L_jk,
+//       its column of L, for the back substitution. The columns run in
+//       groups of four, one test of D a group.
+//   D > 32 (block): a block a system, D rows of D | 1 floats in shared
+//       memory (an odd stride: a column's entries sit in distinct banks) and
+//       six vectors of D (general_solve_shared_bytes), a thread a row
+//       (at least 128 threads).
+//       Left-looking, two barriers a column: at column j each row's thread
+//       sums its entry over k < j in one chain, its loads a chunk ahead of
+//       the arithmetic; every thread takes the pivot; each row's thread
+//       scales its entry and updates its forward-substitution sum. (The
+//       right-looking form, whose every update loads and stores its entry
+//       in shared memory, measured slower at every D past 32:
+//       tools/spd_solve_variants/right_looking.cu.) Back substitution is
+//       warp 0's: one chain on broadcast loads a chunk ahead, the lanes
+//       forming each x_m's products into the unused upper triangle.
+//
+// Both forms keep chol.cuh's order of every operation, so the bits equal
+// the plain version's and the templated layouts' at every D: the
+// right-looking update subtracts L_ik L_jk from entry (i, j) for
+// k = 0, 1, ... in turn, which is the left-looking sum's order, and the
+// forward substitution's running sums, updated column by column, run in
+// ascending k. Back substitution, x_k = (y_k - sum_m>k L_mk x_m) * inv_k
+// with the sum in ascending m over rows whose x is known one after the
+// other, stays one serial chain; its products L_mk x_m are formed as soon
+// as x_m is known (by lane k in registers; by warp 0's lanes at (k, m),
+// above the diagonal, so that row k's products lie contiguous), and the
+// chain only subtracts.
 // ---------------------------------------------------------------------------
+
+// the warp form up to this D, the block form above (kernel_shapes.py)
+constexpr int GENERAL_WARP_MAX_D = SOCIAL_MPC_GENERAL_SOLVE_WARP_MAX_D;
+static_assert(GENERAL_WARP_MAX_D == 32, "the warp form holds a row a lane of one warp");
+constexpr int GENERAL_WARP_MAX_SYSTEMS = 8;  // the warp form's systems a block (256 threads)
 
 __host__ __device__ constexpr int general_ld(int d) { return d | 1; }
 __host__ __device__ constexpr size_t general_solve_shared_bytes(int d) {
     return sizeof(float) * ((size_t)d * general_ld(d) + 6 * (size_t)d);
 }
-// threads of one system's block: a warp up to D = 32, 128 above
-__host__ __device__ constexpr int general_threads(int d) { return d <= 32 ? 32 : 128; }
 
-// One system's shared memory.
+// The wrapper's launch geometry is one the kernels take: a warp a system
+// up to D = 32 (no shared memory; at most GENERAL_WARP_MAX_SYSTEMS a
+// block), a block of whole warps a system above, with
+// general_solve_shared_bytes(D).
+__host__ inline bool general_geometry_ok(int D, int threads, int systems, int shared) {
+    if (systems < 1 || threads < 32 || threads % 32 != 0 || systems * threads > 1024) return false;
+    if (D <= GENERAL_WARP_MAX_D)
+        return threads == 32 && systems <= GENERAL_WARP_MAX_SYSTEMS && shared >= 0;
+    return systems == 1 && shared >= 0 && (size_t)shared >= general_solve_shared_bytes(D);
+}
+
+// Warp form: solve A x = rhs by the calling warp, D <= CAP at run time.
+// Lane r's row index is r (lanes past D mirror row D - 1; their results are
+// not kept); a[j] holds A_rj for j <= r, rhs its right-hand side. Returns
+// x_r.
+template <int CAP>
+__device__ __forceinline__ float warp_chol_solve(float (&a)[CAP], float rhs, int D, int r) {
+    float colL[CAP];  // colL[m] = L_mr (m > r): this lane's column, then L_mr x_m
+    float s = rhs, y = 0.0f, inv = 0.0f;
+#pragma unroll
+    for (int m = 0; m < CAP; ++m) colL[m] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < CAP; ++k) {
+        if (k >= D) break;
+        const float ljj = sqrtf(__shfl_sync(FULL_MASK, a[k], k));
+        const float invk = 1.0f / ljj;
+        if (r == k) inv = invk;
+        if (r > k) a[k] = mul(a[k], invk);  // L_rk
+        // forward substitution: y_k = s_k inv_k, then s_r -= L_rk y_k
+        const float yk = mul(__shfl_sync(FULL_MASK, s, k), invk);
+        if (r == k) y = yk;
+        if (r > k) s = sub(s, mul(a[k], yk));
+        // the trailing rows: a[j] -= L_rk L_jk for every j > k (entry (r, j)
+        // where j <= r; garbage above the diagonal, which nothing reads)
+#pragma unroll
+        for (int j0 = k + 1; j0 < CAP; j0 += 4) {
+            if (j0 >= D) break;
+#pragma unroll
+            for (int j = j0; j < j0 + 4 && j < CAP; ++j) {
+                const float ljk = __shfl_sync(FULL_MASK, a[k], j);
+                if (r == k) colL[j] = ljk;
+                a[j] = sub(a[j], mul(a[k], ljk));
+            }
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < CAP; ++m)
+        if (m >= D) colL[m] = 0.0f;  // the groups' overrun: subtracting +0 changes no sum
+    // Back substitution: every lane runs the chain of row k on its own
+    // products (four at a time past D, the +0s); lane k's is x_k, which every
+    // lane then multiplies into its column's entry of row k.
+    float x = 0.0f;
+#pragma unroll
+    for (int k = CAP - 1; k >= 0; --k) {
+        if (k < D) {
+            float t = y;
+#pragma unroll
+            for (int m0 = k + 1; m0 < CAP; m0 += 4) {
+                if (m0 >= D) break;
+#pragma unroll
+                for (int m = m0; m < m0 + 4 && m < CAP; ++m) t = sub(t, colL[m]);
+            }
+            const float xk = __shfl_sync(FULL_MASK, mul(t, inv), k);
+            if (r == k) x = xk;
+            colL[k] = mul(colL[k], xk);
+        }
+    }
+    return x;
+}
+
+// Warp form: this warp's system (blockDim.x / 32 systems a block), or -1
+// where the batch ends before it.
+__device__ __forceinline__ int general_warp_system(int n_systems) {
+    const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    return b < n_systems ? b : -1;
+}
+
+// Warp form of the whole damped step of the warp's scenario.
+template <int CAP, bool JAC>
+__device__ __forceinline__ void damped_step_warp(const DampedStepArgs& p, int D) {
+    const int b = general_warp_system(p.B);
+    if (b < 0) return;
+    const int lane = threadIdx.x & 31, r = min(lane, D - 1);
+    const size_t o = (size_t)b * D, v = o + r;
+    const float* row = p.jtj + (o + r) * D;  // row r of the undamped, unscaled JtJ
+    const float gi = __ldg(p.g + v), ui = __ldg(p.u + v), lo = __ldg(p.lower + v),
+                hi = __ldg(p.upper + v);
+    const float si = JAC ? __ldg(p.jac_scale + v) : 1.0f;
+    const float inv_radius = 1.0f / p.radius[b];
+
+    float a[CAP];
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) {
+        a[j] = 0.0f;
+        if (j < D) {
+            // every lane, every column
+            const float sj = JAC ? __shfl_sync(FULL_MASK, si, j) : 1.0f;
+            if (j <= r) {
+                float e = __ldg(row + j);
+                if (JAC) e = mul(e, mul(si, sj));
+                if (j == r)
+                    e = add(e, mul(clamp_keep_nan(e, p.min_diagonal, p.max_diagonal), inv_radius));
+                a[j] = e;
+            }
+        }
+    }
+    float x = warp_chol_solve<CAP>(a, JAC ? -mul(si, gi) : -gi, D, r);
+    if (JAC) x = mul(si, x);
+
+    const float un = clamp_keep_nan(add(ui, x), lo, hi);
+    const float delta = sub(un, ui);
+    if (lane < D) {
+        p.u_new[v] = un;
+        p.delta[v] = delta;
+    }
+    // The model change: lane r its row's products, the sums over rows in
+    // row order.
+    float jd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) {
+        if (j < D) {
+            const float q = mul(__ldg(row + j), __shfl_sync(FULL_MASK, delta, j));
+            jd = j == 0 ? q : add(jd, q);
+        }
+    }
+    const float dg_r = mul(delta, gi), dad_r = mul(delta, jd);
+    float dg = __shfl_sync(FULL_MASK, dg_r, 0), dad = 0.0f;
+#pragma unroll
+    for (int k = 1; k < CAP; ++k)
+        if (k < D) dg = add(dg, __shfl_sync(FULL_MASK, dg_r, k));
+#pragma unroll
+    for (int k = 0; k < CAP; ++k)
+        if (k < D) dad = add(dad, __shfl_sync(FULL_MASK, dad_r, k));
+    if (lane == 0) p.model_change[b] = sub(-dg, mul(0.5f, dad));
+}
+
+// Warp form of the standalone solve of the warp's system.
+template <int CAP>
+__device__ __forceinline__ void spd_solve_warp(const float* __restrict__ a_in,
+                                               const float* __restrict__ b_in,
+                                               float* __restrict__ x_out, int N, int D) {
+    const int n = general_warp_system(N);
+    if (n < 0) return;
+    const int lane = threadIdx.x & 31, r = min(lane, D - 1);
+    const size_t o = (size_t)n * D;
+    const float* row = a_in + (o + r) * D;
+    float a[CAP];
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) a[j] = j < D && j <= r ? __ldg(row + j) : 0.0f;
+    const float x = warp_chol_solve<CAP>(a, __ldg(b_in + o + r), D, r);
+    if (lane < D) x_out[o + lane] = x;
+}
+
+// One system's shared memory (block form).
 struct GeneralSystem {
     int D, ld;
-    float* L;     // D x ld: A's lower triangle, then its factor
+    float* L;     // D x ld: A's lower triangle, then its factor; the products
+                  // L_mk x_m of the back substitution at (k, m) above it
     float* inv;   // reciprocal diagonal of L
     float* s;     // right-hand side, then forward substitution's running sums
     float* y;     // L y = rhs
     float* x;     // L^T x = y
-    float* tcol;  // a column's sums before the pivot is known
+    float* tcol;  // a column's sums before the pivot is known; the model change's delta_r g_r
     float* w;     // the caller's own vector (the Jacobi scale)
 
     __device__ __forceinline__ GeneralSystem(float* shared, int d) : D(d), ld(general_ld(d)) {
@@ -397,53 +578,130 @@ struct GeneralSystem {
     }
 };
 
-// Solve A x = rhs by the calling block (every thread calls it). On entry the
-// lower triangle of m.L holds A and m.s the right-hand side, visible to the
-// whole block; on exit m.x holds the solution, visible to the whole block.
-__device__ __forceinline__ void general_chol_solve(const GeneralSystem& m) {
+// Block form: a chain's loads made GENERAL_CHUNK at a time, ahead of its
+// arithmetic; a lane holds GENERAL_LANE_SPAN entries of a row when a warp
+// loads one or forms its products (32 x 8 >= D).
+constexpr int GENERAL_CHUNK = 16;
+constexpr int GENERAL_LANE_SPAN = 8;
+
+// Block form: solve A x = rhs by the calling block (every thread calls it;
+// blockDim.x a multiple of 32). On entry the lower triangle of m.L holds A
+// and m.s the right-hand side, visible to the whole block; on exit m.x
+// holds the solution, visible to the whole block.
+__device__ __forceinline__ void block_chol_solve(const GeneralSystem& m) {
     const int t = threadIdx.x, G = blockDim.x, D = m.D, ld = m.ld;
+    float* L = m.L;
     for (int j = 0; j < D; ++j) {
-        const float* lj = m.L + (size_t)j * ld;
+        // column j: each row i >= j sums its entry over k < j, the pivot row
+        // with the same sum, in chol.cuh's serial order
+        const float* lj = L + (size_t)j * ld;
         for (int i = j + t; i < D; i += G) {
-            const float* li = m.L + (size_t)i * ld;
+            const float* li = L + (size_t)i * ld;
             float v = li[j];
+            int k = 0;
+            for (; k + GENERAL_CHUNK <= j; k += GENERAL_CHUNK) {
+                float a[GENERAL_CHUNK], b[GENERAL_CHUNK];
+#pragma unroll
+                for (int c = 0; c < GENERAL_CHUNK; ++c) {
+                    a[c] = li[k + c];
+                    b[c] = lj[k + c];
+                }
+#pragma unroll
+                for (int c = 0; c < GENERAL_CHUNK; ++c) v = sub(v, mul(a[c], b[c]));
+            }
 #pragma unroll 4
-            for (int k = 0; k < j; ++k) v = sub(v, mul(li[k], lj[k]));
+            for (; k < j; ++k) v = sub(v, mul(li[k], lj[k]));
             m.tcol[i] = v;
         }
         __syncthreads();
+        // the pivot (every thread), the column below it scaled, and the
+        // forward substitution's running sums s_i -= L_ij y_j
         const float ljj = sqrtf(m.tcol[j]);
         const float invj = 1.0f / ljj;
-        for (int i = j + t; i < D; i += G) m.L[(size_t)i * ld + j] = i == j ? ljj : mul(m.tcol[i], invj);
-        if (t == 0) m.inv[j] = invj;
+        const float yj = mul(m.s[j], invj);
+        if (t == 0) {
+            m.inv[j] = invj;
+            m.y[j] = yj;
+        }
+        for (int i = j + 1 + t; i < D; i += G) {
+            const float lij = mul(m.tcol[i], invj);
+            L[(size_t)i * ld + j] = lij;
+            m.s[i] = sub(m.s[i], mul(lij, yj));
+        }
         __syncthreads();
     }
-    // Forward substitution: y[k] = s[k] * inv[k], then every later row
-    // subtracts L[r][k] y[k] from its running sum.
-    for (int k = 0; k < D; ++k) {
-        const float yk = mul(m.s[k], m.inv[k]);
-        if (t == 0) m.y[k] = yk;
-        for (int r = k + 1 + t; r < D; r += G) m.s[r] = sub(m.s[r], mul(m.L[(size_t)r * ld + k], yk));
-        __syncthreads();
-    }
-    // Back substitution, x[k] = (y[k] - sum_m>k L[m][k] x[m]) * inv[k], the
-    // sum in ascending m.
-    if (t == 0) {
+    // Back substitution by warp 0: x_k = (y_k - sum_m>k P_km) * inv_k, the
+    // sum in ascending m, where P_km = L_mk x_m was written at (k, m), above
+    // the diagonal, when x_m became known. Every lane runs the chain on
+    // broadcast loads a chunk ahead; then the lanes form x_k's products.
+    const int lane = t & 31;
+    if (t < 32) {
         for (int k = D - 1; k >= 0; --k) {
+            float* pk = L + (size_t)k * ld;
             float v = m.y[k];
+            int q = k + 1;
+            for (; q + GENERAL_CHUNK <= D; q += GENERAL_CHUNK) {
+                float p[GENERAL_CHUNK];
+#pragma unroll
+                for (int c = 0; c < GENERAL_CHUNK; ++c) p[c] = pk[q + c];
+#pragma unroll
+                for (int c = 0; c < GENERAL_CHUNK; ++c) v = sub(v, p[c]);
+            }
 #pragma unroll 4
-            for (int q = k + 1; q < D; ++q) v = sub(v, mul(m.L[(size_t)q * ld + k], m.x[q]));
-            m.x[k] = mul(v, m.inv[k]);
+            for (; q < D; ++q) v = sub(v, pk[q]);
+            const float xk = mul(v, m.inv[k]);
+            if (lane == 0) m.x[k] = xk;
+            // x_k's products L_kj x_k at (j, k), j < k: row k read, column k written
+#pragma unroll
+            for (int c = 0; c < GENERAL_LANE_SPAN; ++c) {
+                const int j = lane + 32 * c;
+                if (32 * c >= k) break;
+                if (j < k) L[(size_t)j * ld + k] = mul(pk[j], xk);
+            }
+            __syncwarp();
         }
     }
     __syncthreads();
 }
 
-// The whole damped step of scenario blockIdx.x, D at run time, by the
-// calling block (`shared`: general_solve_shared_bytes(D)).
+// Block form: the lower triangle of the D x D matrix at `src` (rows of D
+// floats) into m.L, a row a warp (coalesced), GENERAL_LOAD_ROWS of a warp's
+// rows at once so that their loads are in flight together; `entry(i, j, e)`
+// gives what to keep of entry e at (i, j).
+constexpr int GENERAL_LOAD_ROWS = 4;
+
+template <typename Entry>
+__device__ __forceinline__ void block_load_lower(const GeneralSystem& m,
+                                                 const float* __restrict__ src,
+                                                 const Entry& entry) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W = blockDim.x >> 5, D = m.D;
+    for (int i0 = warp; i0 < D; i0 += GENERAL_LOAD_ROWS * W) {
+        float v[GENERAL_LOAD_ROWS][GENERAL_LANE_SPAN];
+#pragma unroll
+        for (int r = 0; r < GENERAL_LOAD_ROWS; ++r) {
+            const int i = i0 + r * W;
+#pragma unroll
+            for (int c = 0; c < GENERAL_LANE_SPAN; ++c) {
+                const int j = lane + 32 * c;
+                v[r][c] = i < D && j <= i ? __ldg(src + (size_t)i * D + j) : 0.0f;
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < GENERAL_LOAD_ROWS; ++r) {
+            const int i = i0 + r * W;
+#pragma unroll
+            for (int c = 0; c < GENERAL_LANE_SPAN; ++c) {
+                const int j = lane + 32 * c;
+                if (i < D && j <= i) m.L[(size_t)i * m.ld + j] = entry(i, j, v[r][c]);
+            }
+        }
+    }
+}
+
+// Block form of the whole damped step of scenario blockIdx.x (`shared`:
+// general_solve_shared_bytes(D)).
 template <bool JAC>
-__device__ __forceinline__ void damped_step_general(const DampedStepArgs& p, int D,
-                                                    float* shared) {
+__device__ __forceinline__ void damped_step_block(const DampedStepArgs& p, int D, float* shared) {
     const int b = blockIdx.x, t = threadIdx.x, G = blockDim.x;
     const GeneralSystem m(shared, D);
     const size_t o = (size_t)b * D;
@@ -451,21 +709,18 @@ __device__ __forceinline__ void damped_step_general(const DampedStepArgs& p, int
     const float inv_radius = 1.0f / p.radius[b];
     for (int r = t; r < D; r += G) m.w[r] = JAC ? __ldg(p.jac_scale + o + r) : 1.0f;
     __syncthreads();
-    // The damped (scaled) system's lower triangle, read coalesced.
-    for (int k = t; k < D * D; k += G) {
-        const int i = k / D, j = k - i * D;
-        if (j > i) continue;
-        float e = __ldg(jtj + k);
+    // The damped (scaled) system's lower triangle.
+    block_load_lower(m, jtj, [&](int i, int j, float e) {
         if (JAC) e = mul(e, mul(m.w[i], m.w[j]));
         if (i == j) e = add(e, mul(clamp_keep_nan(e, p.min_diagonal, p.max_diagonal), inv_radius));
-        m.L[(size_t)i * m.ld + j] = e;
-    }
+        return e;
+    });
     for (int r = t; r < D; r += G) {
         const float gr = __ldg(p.g + o + r);
         m.s[r] = JAC ? -mul(m.w[r], gr) : -gr;
     }
     __syncthreads();
-    general_chol_solve(m);
+    block_chol_solve(m);
 
     // Map back, project, and keep delta (in y) for the model change.
     for (int r = t; r < D; r += G) {
@@ -484,16 +739,19 @@ __device__ __forceinline__ void damped_step_general(const DampedStepArgs& p, int
     for (int r = t; r < D; r += G) {
         const float* row = jtj + (size_t)r * D;
         float jd = mul(__ldg(row), m.y[0]);
-#pragma unroll 4
+#pragma unroll 8
         for (int j = 1; j < D; ++j) jd = add(jd, mul(__ldg(row + j), m.y[j]));
         m.tcol[r] = mul(m.y[r], __ldg(p.g + o + r));
         m.s[r] = mul(m.y[r], jd);
     }
     __syncthreads();
-    if (t == 0) {
-        float dg = m.tcol[0], dad = 0.0f;
-        for (int k = 1; k < D; ++k) dg = add(dg, m.tcol[k]);
-        for (int k = 0; k < D; ++k) dad = add(dad, m.s[k]);
+    if (t == 0) {  // the two sums' chains side by side (dad from +0, as the plain sum)
+        float dg = m.tcol[0], dad = add(0.0f, m.s[0]);
+#pragma unroll 8
+        for (int k = 1; k < D; ++k) {
+            dg = add(dg, m.tcol[k]);
+            dad = add(dad, m.s[k]);
+        }
         p.model_change[b] = sub(-dg, mul(0.5f, dad));
     }
 }

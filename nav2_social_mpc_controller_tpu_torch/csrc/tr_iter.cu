@@ -38,8 +38,8 @@
 // takes D at run time (every even D up to SOCIAL_MPC_GENERAL_MAX_DIM, the
 // D = 2 NB of a config in more blocks): propose's is K7's general damped
 // step without the scale (spd_solve.cu's social_mpc_damped_step_general_f32,
-// damped_step.cuh's general body, one system a block with the factor in
-// shared memory); commit's is the same decide-then-copy, its staged vectors
+// damped_step.cuh's general body: a warp a system up to D = 32, a block a
+// system above, right-looking); commit's is the same decide-then-copy, its staged vectors
 // in dynamic shared memory and its loops over D at run time.
 //
 // Numerics: every product, sum and difference is written with the

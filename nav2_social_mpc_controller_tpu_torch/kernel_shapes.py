@@ -28,7 +28,8 @@ segment; the general forms keep their sums in shared memory instead, and
 what bounds them is one block's shared memory (227 KB on an H100): the
 general solve holds one system's Cholesky factor there, D x (D | 1) floats
 and six vectors of D (``general_solve_shared_bytes``), which fits up to
-D = 237. A config of NB blocks solves D = 2 NB, so NB stops at 118. K2's
+D = 237 (a block a system; up to D = 32 a warp a system, in registers,
+and several systems a block: ``general_solve_geometry``). A config of NB blocks solves D = 2 NB, so NB stops at 118. K2's
 general form holds 15 floats a step there beside a tile of steps' staged
 columns (``fused_general_shared_bytes``), which at D = 236 and a one-step
 tile leaves room for S = 3748 (GENERAL_MAX_STEPS).
@@ -58,6 +59,27 @@ def general_solve_shared_bytes(d: int) -> int:
     (csrc/damped_step.cuh): the factor, D rows of D | 1 floats (an odd row
     stride, free of bank conflicts), and six vectors of D floats."""
     return 4 * (d * (d | 1) + 6 * d)
+
+
+# K7's general solve (csrc/damped_step.cuh): a warp a system up to
+# GENERAL_SOLVE_WARP_MAX_D, GENERAL_SOLVE_SYSTEMS of them a block, the
+# system in registers; a block a system above, a thread a row (at least
+# GENERAL_SOLVE_MIN_THREADS threads).
+GENERAL_SOLVE_WARP_MAX_D = 32
+GENERAL_SOLVE_SYSTEMS = 4
+GENERAL_SOLVE_MIN_THREADS = 128
+
+
+def general_solve_geometry(d: int):
+    """The launch of K7's general solve (the damped step, scaled or not,
+    and the standalone solve) at D, as the wrappers pass it to the C entry:
+    (threads a system, systems a block, shared bytes a block). Up to D = 32
+    a warp a system, no shared memory; above, a thread a row in whole warps,
+    at least GENERAL_SOLVE_MIN_THREADS, and general_solve_shared_bytes(d).
+    The C entry refuses a geometry its kernels do not take."""
+    if d <= GENERAL_SOLVE_WARP_MAX_D:
+        return 32, GENERAL_SOLVE_SYSTEMS, 0
+    return max(GENERAL_SOLVE_MIN_THREADS, 32 * -(-d // 32)), 1, general_solve_shared_bytes(d)
 
 
 # K2's general form (csrc/fused_general.cu): blocks of FUSED_GENERAL_BLOCK
@@ -195,7 +217,8 @@ LISTS = {
 }
 
 # macro name -> value, in kernel_shapes.h: the general forms' limits (and K5's
-# general block size, K2's general step tile, one block's shared memory)
+# general block size, K2's general step tile, the general solve's last D a
+# warp a system, one block's shared memory)
 LIMITS = {
     "SOCIAL_MPC_GENERAL_MAX_BLOCKS": GENERAL_MAX_BLOCKS,
     "SOCIAL_MPC_GENERAL_MAX_DIM": GENERAL_MAX_DIM,
@@ -203,6 +226,7 @@ LIMITS = {
     "SOCIAL_MPC_SFM_GENERAL_MAX_AGENTS": GENERAL_MAX_AGENTS,
     "SOCIAL_MPC_SFM_GENERAL_THREADS": SFM_GENERAL_THREADS,
     "SOCIAL_MPC_FUSED_GENERAL_STEP_TILE": FUSED_GENERAL_STEP_TILE,
+    "SOCIAL_MPC_GENERAL_SOLVE_WARP_MAX_D": GENERAL_SOLVE_WARP_MAX_D,
     "SOCIAL_MPC_SHARED_BYTES_PER_BLOCK": SHARED_BYTES_PER_BLOCK,
 }
 

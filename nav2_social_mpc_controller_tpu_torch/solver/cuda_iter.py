@@ -38,6 +38,7 @@ from nav2_social_mpc_controller_tpu_torch import _build
 from nav2_social_mpc_controller_tpu_torch.solver.cuda_solve import (
     check_dims,
     chol_solve,
+    geometry,
     spd_solve_plain,
 )
 
@@ -132,7 +133,7 @@ def damped_step(cfg, u, g, jtj, radius, lower, upper, jac_scale=None):
             lower.data_ptr(), upper.data_ptr(),
             None if jac_scale is None else jac_scale.data_ptr(),
             u_new.data_ptr(), delta.data_ptr(), model_change.data_ptr(),
-            b, d, cfg.min_diagonal, cfg.max_diagonal,
+            b, d, cfg.min_diagonal, cfg.max_diagonal, *geometry(entry, d),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, entry)
@@ -267,7 +268,7 @@ def propose(cfg, u, g, jtj, radius, lower, upper):
             u.data_ptr(), g.data_ptr(), jtj.data_ptr(), radius.data_ptr(),
             lower.data_ptr(), upper.data_ptr(), *((None,) if general else ()),
             u_new.data_ptr(), delta.data_ptr(), model_change.data_ptr(),
-            b, d, cfg.min_diagonal, cfg.max_diagonal,
+            b, d, cfg.min_diagonal, cfg.max_diagonal, *geometry(entry, d),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, kernel)

@@ -20,7 +20,8 @@ iteration rejects as a non-finite step. A library Cholesky is not a stand-in
 silently). CUDA tensors launch the kernel (float32): templated for the standalone solve
 at D = 1..16 and for the damped step, K3 and K4 at every even D from 2 to 12,
 general above, up to kernel_shapes.GENERAL_MAX_DIM (the general forms count
-under their own names, ``spd_solve_general`` for both of K7's entries);
+under their own names, ``spd_solve_general`` for both of K7's entries;
+a warp a system up to D = 32, a block a system above);
 CPU tensors take the plain version, at any D and dtype.
 """
 
@@ -39,6 +40,13 @@ def check_dims(fn: str, d: int, dims=KERNEL_DIMS) -> str:
     why (kernel_shapes.form)."""
     kind = "spd_solve" if dims == SPD_SOLVE_DIMS else "solve"
     return kernel_shapes.form(fn, kind, d)
+
+
+def geometry(kernel: str, d: int) -> tuple:
+    """The launch geometry a K7 entry takes after its shapes: the general
+    form's (kernel_shapes.general_solve_geometry: threads a system, systems
+    a block, shared bytes a block), none for the templated form."""
+    return kernel_shapes.general_solve_geometry(d) if kernel.endswith("_general") else ()
 
 
 def chol_solve(a, rhs):
@@ -94,7 +102,7 @@ def spd_solve(a, b):
     lib = _build.load()
     with torch.cuda.device(a.device):
         err = getattr(lib, f"social_mpc_{kernel}_f32")(
-            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, d,
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, d, *geometry(kernel, d),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, kernel)

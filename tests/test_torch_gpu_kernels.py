@@ -1163,11 +1163,14 @@ def test_general_solve_forms_at_templated_shapes_equal_plain(card, d):
 
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "jacobi"])
-@pytest.mark.parametrize("d", [14, 18, 36, 128, 236])
+@pytest.mark.parametrize("d", [14, 18, 32, 34, 36, 64, 128, 130, 236])
 def test_damped_step_general_form_matches_plain(card, d, scaled):
     """K7's damped step past D = 12 bit for bit against damped_step_plain,
-    counted under spd_solve_general; without the scale it is K3's general
-    form's function, bit for bit."""
+    counted under spd_solve_general, on both sides of each form's edges (a
+    warp a system to D = 32 at the registers' ceilings 16, 24 and 32, a
+    block a system above, its lanes' column groups of 32 and its four
+    warps' rows); without the scale it is K3's general form's function, bit
+    for bit."""
     prop_in, jac = _damped_case(card, 33, d, scaled)
     before = _build.launch_counts["spd_solve_general"]
     got = K34.damped_step(LM_CFG, *prop_in, jac)
@@ -1182,13 +1185,13 @@ def test_damped_step_general_form_matches_plain(card, d, scaled):
             assert _same_bits(x, y)
 
 
-@pytest.mark.parametrize("n", [1, 33, 301])
-@pytest.mark.parametrize("d", [17, 24, 32, 33, 64, 128, 237])
+@pytest.mark.parametrize("n", [1, 5, 33, 301])
+@pytest.mark.parametrize("d", [17, 24, 31, 32, 33, 64, 65, 128, 129, 237])
 def test_spd_solve_general_form_bits(card, d, n):
-    """K7's standalone solve past D = 16 (a warp a system to D = 32, a block
-    of 128 above) bit for bit against spd_solve_plain, NaN for the systems
-    that are not positive definite, the same bits from views 4 bytes into
-    their storage."""
+    """K7's standalone solve past D = 16 (a warp a system to D = 32, several
+    systems a block; a block a system above) bit for bit against
+    spd_solve_plain, NaN for the systems that are not positive definite,
+    the same bits from views 4 bytes into their storage."""
     rng = np.random.default_rng(10 * n + d)
     m = rng.standard_normal((n, d, d))
     a = np.einsum("bij,bkj->bik", m, m) + 0.5 * np.eye(d)
@@ -1208,6 +1211,63 @@ def test_spd_solve_general_form_bits(card, d, n):
     assert _build.launch_counts["spd_solve_general"] == before + 2
     assert _same_bits(got, ref) and _same_bits(shifted, ref)
     assert torch.isnan(got[0]).all()
+
+
+@pytest.mark.parametrize("n", [1, 5, 301, 4097])
+@pytest.mark.parametrize("d", [18, 32])
+def test_general_solve_warp_form_ragged_batches(card, d, n):
+    """The warp form (a warp a system, kernel_shapes.general_solve_geometry's
+    systems a block) at batches that leave the last block partly empty: the
+    damped step, scaled and not, and the standalone solve, bit for bit
+    against the plain versions."""
+    threads, systems, _ = kernel_shapes.general_solve_geometry(d)
+    assert threads == 32 and systems > 1 and (n == 1 or n % systems != 0)
+    prop_in, _, _ = _trust_region_case(card, n, d)
+    jac = lm.jacobi_scale(prop_in[2])
+    before = _build.launch_counts["spd_solve_general"]
+    for scale in (None, jac):
+        got = K34.damped_step(LM_CFG, *prop_in, scale)
+        ref = K34.damped_step_plain(LM_CFG, *prop_in, scale)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            assert _same_bits(x, y)
+    a, rhs = K34.damped_system(LM_CFG, prop_in[1], prop_in[2], prop_in[3])
+    a, rhs = a.contiguous(), rhs.contiguous()
+    got = K7.spd_solve(a, rhs)
+    torch.cuda.synchronize()
+    assert _same_bits(got, K7.spd_solve_plain(a, rhs))
+    assert _build.launch_counts["spd_solve_general"] == before + 3
+    if n > 1:
+        assert torch.isnan(got[1]).all()
+
+
+@pytest.mark.parametrize("d", [18, 64])
+def test_general_solve_captured_equals_eager(card, d):
+    """The general damped step (scaled and not) and the standalone solve
+    captured in a CUDA graph (after an eager launch, which opts in to the
+    shared memory it needs) and replayed give the eager launch's bits."""
+    prop_in, _, _ = _trust_region_case(card, 301, d)
+    jac = lm.jacobi_scale(prop_in[2])
+    a, rhs = K34.damped_system(LM_CFG, prop_in[1], prop_in[2], prop_in[3])
+    a, rhs = a.contiguous(), rhs.contiguous()
+
+    def run():
+        return (*K34.damped_step(LM_CFG, *prop_in), *K34.damped_step(LM_CFG, *prop_in, jac),
+                K7.spd_solve(a, rhs))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(captured, eager):
+        assert _same_bits(x, y)
 
 
 def test_debug_and_compacted_steps_equal_the_plain_step_on_the_card(card):

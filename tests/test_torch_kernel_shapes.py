@@ -5,6 +5,7 @@ the wrappers refuse, with messages that name them; and the header in the
 include path of every compile. No card and no nvcc: the sources are read as
 text and the compiler is a stand-in."""
 
+import ctypes
 import os
 import re
 import subprocess
@@ -196,7 +197,9 @@ def test_form_reads_the_lists_at_each_call(monkeypatch):
 def test_every_general_entry_checks_its_generated_limit(entry, limit):
     """A general form's C entry refuses past the limit kernel_shapes.h
     carries, names no shape of its own and expands no list; _build declares
-    it with its templated form's arguments."""
+    it with its templated form's arguments, K7's two with the launch
+    geometry the wrapper passes (kernel_shapes.general_solve_geometry:
+    three ints) before the stream, which the entry checks."""
     source = next(f for f in sorted(os.listdir(_build.CSRC_DIR)) if f.endswith(".cu")
                   and f'extern "C" int {entry}(' in open(os.path.join(_build.CSRC_DIR, f)).read())
     body = _entry_body(source, entry)
@@ -204,7 +207,12 @@ def test_every_general_entry_checks_its_generated_limit(entry, limit):
     for name in kernel_shapes.LISTS:
         assert f"{name}(" not in body
     assert entry in _build.GENERAL_ENTRIES
-    assert _build._SIGNATURES[entry] == _build._SIGNATURES[entry.replace("_general", "")]
+    templated = _build._SIGNATURES[entry.replace("_general", "")]
+    if entry in _build.GEOMETRY_ENTRIES:
+        assert _build._SIGNATURES[entry] == templated[:-1] + [ctypes.c_int] * 3 + templated[-1:]
+        assert "general_geometry_ok(D, threads, systems, shared)" in body
+    else:
+        assert _build._SIGNATURES[entry] == templated
 
 
 def test_general_entries_are_the_sources_own():

@@ -61,10 +61,9 @@ namespace {
 
 using fused::FusedArgs;
 
-// A scenario's threads, as the general solve's (damped_step.cuh:
-// general_threads): one warp up to D = 32 (one round of phase 1 at S <= 32,
-// more blocks resident for the people stages), 128 above (phase 2's
-// D(D+1)/2 entries).
+// A scenario's threads, as the first general solve's: one warp up to
+// D = 32 (one round of phase 1 at S <= 32, more blocks resident for the
+// people stages), 128 above (phase 2's D(D+1)/2 entries).
 constexpr int GENERAL_THREADS = 128;  // the most threads a scenario's block has
 constexpr int SUMS = 15;  // per step: M (10), q (4), cost
 // M_s's entries in shared memory, rows x, y, th, v of the symmetric 4 x 4
@@ -260,6 +259,6 @@ extern "C" int social_mpc_fused_iter_general_f32(
     static int opted = 0;  // past 48 KB the opt-in of damped_step.cuh
     const int err = social_mpc::general_opt_in(fused_general_kernel, shared, opted);
     if (err != 0) return err;
-    fused_general_kernel<<<B, social_mpc::general_threads(2 * NB), shared, stream>>>(a, NB);
+    fused_general_kernel<<<B, 2 * NB <= 32 ? 32 : 128, shared, stream>>>(a, NB);
     return (int)cudaGetLastError();
 }

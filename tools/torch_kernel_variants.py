@@ -2,7 +2,8 @@
 """Time variants of the PyTorch/CUDA port's kernel sources against each
 other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds them at.
 
-    python3 tools/torch_kernel_variants.py [--general] [--threads T,...] [--bits-against NAME]
+    python3 tools/torch_kernel_variants.py [--general | --general-solve] [--threads T,...]
+                                           [--systems S,...] [--bits-against NAME]
                                            NAME=PATH.cu [...]
 
 Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
@@ -10,11 +11,16 @@ Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
 (K6), of `csrc/tr_iter.cu` (K3 propose and K4 commit), of
 `csrc/sfm_scan.cu` (K5; `--general`: its general form, at the crowd shapes
 below), of `csrc/rollout_sample.cu` (K6's rollout with K1's sample) or of
-`csrc/spd_solve.cu` (K7), exporting the same C entry points; the kind is
+`csrc/spd_solve.cu` (K7; `--general-solve`: its general form, at the
+general shapes below), exporting the same C entry points; the kind is
 told by those entry points. `--threads`: with `--general`, K5's shipped
 source is timed again at each of these threads a scenario (variants
 `shipped@T`; the wrapper's choice is models/sfm.py:
-general_threads_per_scenario), and the variants list may be empty.
+general_threads_per_scenario), and the variants list may be empty; with
+`--general-solve`, K7's at each of these threads a system past D = 32
+(`shipped@tT`), and `--systems` at each of these systems a block up to
+D = 32 (`shipped@sS`; the wrapper's choice of both is
+kernel_shapes.general_solve_geometry, which every variant is launched with).
 `--bits-against NAME`: each variant's output elements whose bits differ
 from variant NAME's on the same inputs (`bits_differ_from`). A K7 variant may
 lack the damped-step entry (as the parent's file does): its damped step is
@@ -59,6 +65,23 @@ path, B = 4096, N = 64, the FOV-filtered people of a real tick); N = 33 and
 and 256 at B = 256, spread to one person every two square metres. Its
 error is taken over the scenarios whose plain version another order of its
 sums moves by at most 1e-5 (chip_smoke.py: sfm_order_sensitivity).
+
+K7's general form (`--general-solve`: the damped step without and with
+the Jacobi scale and the standalone solve of its system, at the configs
+that run it, every third robot near its goal; the standalone solve alone
+on random SPD systems, every 97th negated), with one library call that
+solves the same systems (torch.linalg.cholesky_ex then
+torch.cholesky_solve; variant `library`, timed as a yardstick and not
+gated) beside each:
+
+  social_bl2_main       horizon 18 in blocks of 2 (D = 18), B = 4096, 3 valid
+                        people (the main path's shape)
+  stress36_bl3          the H = 36 stress horizon in blocks of 3 (D = 24),
+                        B = 1024
+  social_bl1            blocks of 1 (D = 36), B = 1024
+  nb118_b16             D = 236 at B = 16: one block's latency
+  spd_d64, spd_d128, spd_d237   random SPD systems at B = 1024 (standalone
+                        solve only)
 
 K3 and K4 (both timed in each turn), K5, the rollout sample and K7 (its
 damped step without and with the Jacobi scale, and its standalone solve of
@@ -111,7 +134,8 @@ KINDS = {
     "spd_solve": ("social_mpc_spd_solve_f32",),
 }
 # entry points a variant of the kind may lack (timed otherwise, see kernels())
-OPTIONAL = {"spd_solve": ("social_mpc_damped_step_f32",),
+OPTIONAL = {"spd_solve": ("social_mpc_damped_step_f32", "social_mpc_damped_step_general_f32",
+                          "social_mpc_spd_solve_general_f32"),
             "sfm_scan": ("social_mpc_sfm_scan_general_f32",)}
 ROUNDS = 4
 REPS = 200
@@ -120,11 +144,15 @@ REPS = 200
 def parse_args(argv):
     from nav2_social_mpc_controller_tpu_torch import _build
 
-    general, threads, against = False, (), None
+    general, solve, threads, systems, against = False, False, (), (), None
     if argv[:1] == ["--general"]:
         general, argv = True, argv[1:]
+    elif argv[:1] == ["--general-solve"]:
+        solve, argv = True, argv[1:]
     if argv[:1] == ["--threads"] and len(argv) > 1:
         threads, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
+    if argv[:1] == ["--systems"] and len(argv) > 1:
+        systems, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
     if argv[:1] == ["--bits-against"] and len(argv) > 1:
         against, argv = argv[1], argv[2:]
     variants = {}
@@ -142,18 +170,23 @@ def parse_args(argv):
         kinds.add(found[0])
     if general:
         kinds.add("sfm_scan")
+    if solve:
+        kinds.add("spd_solve")
     if len(kinds) != 1:
         cs.fail("all variants must be of one kind")
     kind = kinds.pop()
     if kind == "sfm_scan" and general:
         kind = "sfm_scan_general"
+    elif kind == "spd_solve" and solve:
+        kind = "spd_solve_general"
     elif threads:
-        cs.fail("--threads times K5's general form: give --general first")
-    variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kind.replace('_general', '')}.cu"
-                                       if kind == "sfm_scan_general" else f"{kind}.cu")
+        cs.fail("--threads times a general form: give --general or --general-solve first")
+    if systems and kind != "spd_solve_general":
+        cs.fail("--systems times K7's general form: give --general-solve first")
+    variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kind.replace('_general', '')}.cu")
     if against is not None and against not in variants and against != "shipped":
         cs.fail(f"--bits-against {against}: no such variant")
-    return kind, variants, threads, against
+    return kind, variants, threads, systems, against
 
 
 def build_all(kind, variants):
@@ -176,7 +209,7 @@ def build_all(kind, variants):
         usage[name] = cs.ptxas_usage(log)
         lib = ctypes.CDLL(so)
         fns = {}
-        base = "sfm_scan" if kind == "sfm_scan_general" else kind
+        base = kind.replace("_general", "")
         for entry in KINDS[base] + OPTIONAL.get(base, ()):
             if entry not in KINDS[base] and not hasattr(lib, entry):
                 continue
@@ -224,6 +257,27 @@ def captures(kind):
                               cs.B_WIDE, 3, True),
             "nb118": cap(cs.general_blocks_config(118), 16, 3, True),
         }
+    if kind == "spd_solve_general":
+        import torch
+
+        rng = torch.Generator(device="cuda").manual_seed(1)
+
+        def random_spd(d, n=cs.B_WIDE):
+            m = torch.randn((n, d, d), device="cuda", generator=rng)
+            a = m @ m.transpose(1, 2) + 0.5 * torch.eye(d, device="cuda")
+            a[::97] = -a[::97]
+            return {"spd_solve": (a.contiguous(), torch.randn((n, d), device="cuda", generator=rng))}
+
+        return {
+            "social_bl2_main": cap(cs.replace_optimizer(social, parameter_block_length=2),
+                                   cs.B_MAIN, 3),
+            "stress36_bl3": cap(cs.replace_optimizer(stress, parameter_block_length=3),
+                                cs.B_WIDE, 3, True),
+            "social_bl1": cap(cs.replace_optimizer(social, parameter_block_length=1),
+                              cs.B_WIDE, 3, True),
+            "nb118_b16": cap(cs.general_blocks_config(118), 16, 3, True),
+            **{f"spd_d{d}": random_spd(d) for d in (64, 128, 237)},
+        }
     if kind == "sfm_scan_general":
         return {"social_n64_main": cap(cs.agents_config(64), cs.B_MAIN, 64),
                 **{f"n{n}_all_valid": crowd(n, b) for n, b in ((33, cs.B_WIDE), (64, cs.B_WIDE),
@@ -256,6 +310,14 @@ def kernels(kind):
     from nav2_social_mpc_controller_tpu_torch.solver import cuda_iter as K34
     from nav2_social_mpc_controller_tpu_torch.solver import cuda_solve as K7
 
+    if kind == "spd_solve_general":
+        return [("damped_step", lambda c: K34.damped_step(c["lm_cfg"], *c["propose"]),
+                 lambda c: K34.damped_step_plain(c["lm_cfg"], *c["propose"])),
+                ("damped_step_jacobi",
+                 lambda c: K34.damped_step(c["lm_cfg"], *c["propose"], c["jac_scale"]),
+                 lambda c: K34.damped_step_plain(c["lm_cfg"], *c["propose"], c["jac_scale"])),
+                ("spd_solve", lambda c: K7.spd_solve(*c["spd_solve"]),
+                 lambda c: K7.spd_solve_plain(*c["spd_solve"]))]
     if kind == "spd_solve":
         def step(c, jac):
             if hasattr(_build._lib, "social_mpc_damped_step_f32"):
@@ -294,6 +356,16 @@ def kernels(kind):
              lambda c: K34.propose_plain(c["lm_cfg"], *c["propose"])),
             ("commit", lambda c: K34.commit(c["lm_cfg"], *c["commit"]),
              lambda c: K34.commit_plain(c["lm_cfg"], *c["commit"]))]
+
+
+def library_solve(cap):
+    """One library factorisation and solve of a capture's standalone
+    systems (a yardstick; the port never calls it)."""
+    import torch
+
+    a, b = cap["spd_solve"]
+    chol, _ = torch.linalg.cholesky_ex(a)
+    return torch.cholesky_solve(b[:, :, None], chol)[..., 0]
 
 
 def error(kernel, got, ref, cap):
@@ -339,8 +411,10 @@ def main():
 
     from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
 
+    from nav2_social_mpc_controller_tpu_torch import kernel_shapes
+
     _, smi = cs.phase_device()
-    kind, variants, threads, against = parse_args(sys.argv[1:])
+    kind, variants, threads, systems, against = parse_args(sys.argv[1:])
     cs.phase_build()
     libs, usage = build_all(kind, variants)
     cs.emit({"ptxas": usage})
@@ -351,17 +425,43 @@ def main():
     if kind == "rollout_sample":  # the two launches it replaces, in turns with it
         libs["k6_then_k1"] = full
         order.append("k6_then_k1")
+    if kind == "spd_solve_general":  # the library's solve, in turns with the kernels
+        libs["library"] = full
+        order.append("library")
     per_scenario = K5.general_threads_per_scenario
-    for t in threads:  # the shipped K5 at other threads a scenario
-        libs[f"shipped@{t}"] = libs["shipped"]
-        order.append(f"shipped@{t}")
+    solve_geometry = kernel_shapes.general_solve_geometry
+    at = ([f"t{t}" for t in threads] + [f"s{n}" for n in systems]
+          if kind == "spd_solve_general" else [str(t) for t in threads])
+    for a in at:  # the shipped K5 at other threads a scenario; K7 at other geometries
+        libs[f"shipped@{a}"] = libs["shipped"]
+        order.append(f"shipped@{a}")
 
     def geometry(name):
-        t = int(name.split("@")[1]) if "@" in name else None
-        K5.general_threads_per_scenario = (lambda n: t) if t else per_scenario
+        a = name.split("@")[1] if "@" in name else ""
+        if kind != "spd_solve_general":
+            K5.general_threads_per_scenario = (lambda n: int(a)) if a else per_scenario
+            return
+        if not a:
+            kernel_shapes.general_solve_geometry = solve_geometry
+            return
+
+        def at_geometry(d, n=int(a[1:]), what=a[0]):
+            threads_, systems_, _ = solve_geometry(d)
+            if what == "t" and d > kernel_shapes.GENERAL_SOLVE_WARP_MAX_D:
+                threads_ = n
+            if what == "s" and d <= kernel_shapes.GENERAL_SOLVE_WARP_MAX_D:
+                systems_ = n
+            return threads_, systems_, systems_ * kernel_shapes.general_solve_shared_bytes(d)
+        kernel_shapes.general_solve_geometry = at_geometry
     try:
         for shape, cap in captures(kind).items():
             for kernel, run, plain in kernels(kind):
+                if kernel.startswith("damped_step") and "propose" not in cap:
+                    continue  # random systems: the standalone solve only
+                if kernel != "spd_solve" and "library" in order:
+                    names = [n for n in order if n != "library"]
+                else:
+                    names = order
                 _build._lib = full
                 ref = plain(cap)
                 if kernel == "sfm_scan_general":
@@ -369,33 +469,39 @@ def main():
                         cap["sfm"], cs.sfm_keywords(cap["cfg"]), ref)[0]
                 tols[(shape, kernel)] = tolerance(kernel, cap)
                 outs = {}
+                big = "spd_solve" in cap and cap["spd_solve"][1].shape[1] > 64
+                reps = REPS // 10 if big else REPS
                 for rnd in range(ROUNDS):
-                    for name in (order if rnd % 2 == 0 else order[::-1]):
+                    for name in (names if rnd % 2 == 0 else names[::-1]):
                         _build._lib = libs[name]
                         geometry(name)
-                        fn = (lambda: plain(cap)) if name == "k6_then_k1" else (lambda: run(cap))
+                        fn = ((lambda: plain(cap)) if name == "k6_then_k1" else
+                              (lambda: library_solve(cap)) if name == "library" else
+                              (lambda: run(cap)))
                         if rnd == 0:
                             out = fn()
-                            errs[(shape, kernel, name)] = error(kernel, out, ref, cap)
+                            errs[(shape, kernel, name)] = (
+                                None if name == "library" else error(kernel, out, ref, cap))
                             if against is not None:
                                 outs[name] = ([out] if torch.is_tensor(out) else
                                               [out[k] for k in sorted(out)]
                                               if isinstance(out, dict) else list(out))
-                        times[(shape, kernel, name)].append(cs.time_cuda(fn, REPS))
+                        times[(shape, kernel, name)].append(cs.time_cuda(fn, reps))
                 for name, out in outs.items():
                     bits[(shape, kernel, name)] = cs.bits_differ(out, outs[against])
                 outs.clear()
     finally:
         _build._lib = full
         K5.general_threads_per_scenario = per_scenario
+        kernel_shapes.general_solve_geometry = solve_geometry
     torch.cuda.synchronize()
     table = [{"shape": s, "kernel": k, "variant": n, "ms": v, "min_ms": min(v),
-              "err": errs[(s, k, n)], "tol": tols[(s, k)],
+              "err": errs[(s, k, n)], "tol": None if n == "library" else tols[(s, k)],
               **({"bits_differ_from": {against: bits[(s, k, n)]}} if against else {})}
              for (s, k, n), v in times.items()]
     cs.emit({"variants": table})
     print(smi, flush=True)
-    bad = [r for r in table if not r["err"] <= r["tol"]]
+    bad = [r for r in table if r["tol"] is not None and not r["err"] <= r["tol"]]
     if bad:
         cs.fail(f"variants beyond their tolerance: {bad}")
 

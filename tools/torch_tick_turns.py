@@ -31,11 +31,14 @@ Cells, by group:
              (``make_simulate``): ms per simulated tick and the host's
              operations per simulated tick, the simulator's and its
              step's;
-  general    the configs whose ticks run the kernels' general forms, at
-             B = 4096: the social horizon of 18 in blocks of 2
+  general    the configs whose ticks run the kernels' general forms: at
+             B = 4096 the social horizon of 18 in blocks of 2
              (``social_bl2``, NB = 9, D = 18: K2's general form 41 times a
-             tick) and the crowd of 64 agents (``social_n64``: K5's general
-             form once a tick).
+             tick, K7's general damped step 40), at B = 1024 the stress
+             horizon of 36 in blocks of 3 (``stress36_bl3``, D = 24) and
+             the social horizon in blocks of 1 (``social_bl1``, D = 36), and
+             at B = 4096 the crowd of 64 agents (``social_n64``: K5's
+             general form once a tick).
 
 ``--groups`` names the groups to run (all by default).
 
@@ -191,6 +194,8 @@ def main():
                       ("social latent", latent, 1024)] if "ticks" in groups else []
         if "general" in groups:
             tick_cells += [("social_bl2", replace_opt(social, parameter_block_length=2), 4096),
+                           ("stress36_bl3", replace_opt(stress36, parameter_block_length=3), 1024),
+                           ("social_bl1", replace_opt(social, parameter_block_length=1), 1024),
                            ("social_n64", dataclasses.replace(social, n_agents=64), 4096)]
         for name, cfg, b in tick_cells:
             sc, poses = batch(cfg, b, cfg.n_agents if name != "obstacle" else 0)
