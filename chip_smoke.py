@@ -1317,6 +1317,7 @@ def check_trajectorize(tr, path, pose, reps):
     graph = plain_graph(lambda: K.trajectorize_plain(tr, path, pose))
     return {
         "shape": f"B={b} P={p} S={s}" + (" omnidirectional" if tr.omnidirectional else ""),
+        **trajectorize_launch(b, p),
         "steps_executed": int(ref.n_steps.sum()),
         "max_err": bits_differ(got, ref), "max_abs_err": float(max(
             (x.double() - y.double()).abs().max() for x, y in zip(got[:2], ref[:2]))),
@@ -1328,6 +1329,37 @@ def check_trajectorize(tr, path, pose, reps):
         "plain_graph_ms": time_cuda(graph.replay, 10),
         "bound_ms": bnd, "bound_by": by, "bound_parts": parts, "library_ms": None,
     }
+
+
+def trajectorize_launch(b, p):
+    """The trajectorizer's launch at B scenarios of P waypoints: lanes a
+    scenario (kernel_shapes.trajectorize_lanes) and the ptxas registers and
+    spills of the kernel that runs (csrc/trajectorize.cu: trajectorize_kernel
+    <L, waypoints in registers>)."""
+    from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
+
+    lanes = kernel_shapes.trajectorize_lanes(b)
+    name = f"trajectorize_kernel<{lanes},{int(p <= 128)}>"
+    return {"lanes_per_scenario": lanes,
+            "ptxas": {name: ptxas_usage(_build.last_build_log).get(name)}}
+
+
+def rollout_general_launch(nb, s, batch):
+    """The general rollouts' launch at NB blocks over S steps and a batch
+    of B, as the wrappers pass it (kernel_shapes.rollout_general_geometry), and the ptxas
+    registers and spills of the kernels that take it (csrc/rollout_sample.cu,
+    csrc/rollout_prep.cu: *_general_kernel<CEIL, ONE>, CEIL the register
+    ceiling at or above the blocks a warp; ONE at S <= 32, one chunk, no
+    carries, CEIL 4)."""
+    from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
+
+    warps, share = kernel_shapes.rollout_general_geometry(nb, batch, s)
+    ceil = next(c for c in kernel_shapes.ROLLOUT_GENERAL_CEILINGS if share <= c)
+    form = "4,1" if s <= 32 else f"{ceil},0"
+    usage = ptxas_usage(_build.last_build_log)
+    names = [f"rollout_{k}_general_kernel<{form}>" for k in ("sample", "prep")]
+    return {"warps_per_scenario": warps, "blocks_per_warp": share,
+            "ptxas": {n: usage.get(n) for n in names}}
 
 
 KERNEL_INFO = {
@@ -1370,13 +1402,13 @@ KERNEL_INFO = {
     "rollout_prep_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_prep.cu",
         "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158",
-        "form": "general (NB at run time)",
+        "form": "general (NB at run time)", "redesigned": "PR 21",
     },
     "rollout_sample_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/rollout_sample.cu",
         "replaces": "nav2_social_mpc_controller_tpu/ops/rollout_pallas.py:158 then "
                     "nav2_social_mpc_controller_tpu/ops/bicubic_pallas.py:288",
-        "form": "general (NB at run time)",
+        "form": "general (NB at run time)", "redesigned": "PR 21",
     },
     "fused_iter_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/fused_general.cu",
@@ -1387,7 +1419,7 @@ KERNEL_INFO = {
         # K7's general damped step without the scale (damped_step.cuh's body)
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
         "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_iter.py:322",
-        "form": "general (D at run time)",
+        "form": "general (D at run time)", "redesigned": "PR 20",
     },
     "commit_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tr_iter.cu",
@@ -1397,7 +1429,7 @@ KERNEL_INFO = {
     "spd_solve_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/spd_solve.cu",
         "replaces": "nav2_social_mpc_controller_tpu/solver/pallas_solve.py:93",
-        "form": "general (D at run time)",
+        "form": "general (D at run time)", "redesigned": "PR 20",
     },
     "sfm_scan_general": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/sfm_scan.cu",
@@ -1408,6 +1440,7 @@ KERNEL_INFO = {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/trajectorize.cu",
         "replaces": "nav2_social_mpc_controller_tpu/controller/trajectorizer.py:123 "
                     "(lax.scan, no Pallas kernel)", "kind": "the port's own kernel",
+        "redesigned": "PR 21",
     },
     "lm_continue": {
         "route": "cuda", "source": "nav2_social_mpc_controller_tpu_torch/csrc/tick_graph.cu",
@@ -1650,10 +1683,11 @@ def check_general_kernels(dev, reps):
     cap = capture_iteration(cfg, with_pose(sc, poses[0]), make_carry(cfg, batch, device=dev))
     if cap["propose"][0].shape[1] != 18:
         fail(f"general kernels: {BLOCKS_CELL} solves D = {cap['propose'][0].shape[1]}")
+    launch = rollout_general_launch(cap["rollout_prep"][7], cap["dims"].s, batch)
     out = {
-        "rollout_prep_general": check_rollout(cap["rollout_prep"], reps),
-        "rollout_sample_general": check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"],
-                                                       reps),
+        "rollout_prep_general": {**check_rollout(cap["rollout_prep"], reps), **launch},
+        "rollout_sample_general": {
+            **check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"], reps), **launch},
         "fused_iter_general": check_fused(cap["fused"], reps),
         "propose_general": check_propose(cap["lm_cfg"], cap["propose"], reps),
         "commit_general": check_commit(cap["lm_cfg"], cap["commit"], reps),
@@ -2169,8 +2203,10 @@ def phase_kernel_shapes(dev, reps=20):
                 check_fused(cap["fused"], reps_nb))
             if not n_valid:
                 continue
-            add("rollout_prep_general", what, check_rollout(cap["rollout_prep"], reps_nb))
-            add("rollout_sample_general", what,
+            launch = rollout_general_launch(nb, what["s"], batch)
+            add("rollout_prep_general", {**what, **launch},
+                check_rollout(cap["rollout_prep"], reps_nb))
+            add("rollout_sample_general", {**what, **launch},
                 check_rollout_sample(cap["bicubic"][0], cap["rollout_prep"], reps_nb))
             launch = general_solve_launch(2 * nb)
             add("propose_general", {**what, **launch},

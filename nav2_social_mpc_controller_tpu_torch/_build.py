@@ -185,8 +185,9 @@ _SIGNATURES = {
     # model_change, B, D, min_diagonal, max_diagonal, stream
     "social_mpc_damped_step_f32": [_P] * 10 + [_I, _I, _F, _F, _P],
     # points, n, pose0, poses, cmds, n_steps, ok, B, P, S, lookahead_dist,
-    # desired_linear_vel, max_angular_vel, time_step, omnidirectional, stream
-    "social_mpc_trajectorize_f32": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    # desired_linear_vel, max_angular_vel, time_step, omnidirectional, lanes
+    # a scenario (kernel_shapes.trajectorize_lanes), stream
+    "social_mpc_trajectorize_f32": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _I, _P],
     # graph_out
     "social_mpc_graph_create": [_P],
     # graph, handle_out
@@ -224,11 +225,16 @@ GENERAL_ENTRIES = tuple(f"social_mpc_{k}_general_f32" for k in (
     "rollout_prep", "rollout_sample", "fused_iter", "commit", "damped_step", "spd_solve",
     "sfm_scan"))
 _SIGNATURES.update({name: _SIGNATURES[name.replace("_general", "")] for name in GENERAL_ENTRIES})
-# K7's general entries take the launch geometry too (kernel_shapes.
-# general_solve_geometry: threads a system, systems a block, shared bytes a
-# block), before the stream.
-GEOMETRY_ENTRIES = ("social_mpc_damped_step_general_f32", "social_mpc_spd_solve_general_f32")
-_SIGNATURES.update({name: _SIGNATURES[name][:-1] + [_I, _I, _I, _P] for name in GEOMETRY_ENTRIES})
+# K7's general entries take the launch geometry too, before the stream
+# (kernel_shapes.general_solve_geometry: threads a system, systems a block,
+# shared bytes a block); so do the general rollouts
+# (kernel_shapes.rollout_general_geometry: warps a scenario, blocks a warp).
+# Entry -> the geometry's ints.
+GEOMETRY_ENTRIES = {"social_mpc_damped_step_general_f32": 3, "social_mpc_spd_solve_general_f32": 3,
+                    "social_mpc_rollout_prep_general_f32": 2,
+                    "social_mpc_rollout_sample_general_f32": 2}
+_SIGNATURES.update({name: _SIGNATURES[name][:-1] + [_I] * n + [_P]
+                    for name, n in GEOMETRY_ENTRIES.items()})
 
 def reset_launch_counts() -> None:
     """Every count to 0, launches owed by the device included."""

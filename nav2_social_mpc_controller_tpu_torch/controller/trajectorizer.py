@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from nav2_social_mpc_controller_tpu_torch import _build
+from nav2_social_mpc_controller_tpu_torch import _build, kernel_shapes
 from nav2_social_mpc_controller_tpu_torch.core.config import TrajectorizerConfig
 from nav2_social_mpc_controller_tpu_torch.core.types import PathInput
 from nav2_social_mpc_controller_tpu_torch.models.motion import integrate_step
@@ -161,7 +161,8 @@ def trajectorize(cfg: TrajectorizerConfig, path: PathInput, robot_pose) -> Traje
             points.data_ptr(), n.data_ptr(), pose.data_ptr(), poses.data_ptr(),
             cmds.data_ptr(), n_steps.data_ptr(), ok.data_ptr(), b, p, s,
             cfg.lookahead_dist, cfg.desired_linear_vel, cfg.max_angular_vel, cfg.time_step,
-            int(cfg.omnidirectional), torch.cuda.current_stream().cuda_stream,
+            int(cfg.omnidirectional), kernel_shapes.trajectorize_lanes(b),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "trajectorize")
     _build.launch_counts["trajectorize"] += 1

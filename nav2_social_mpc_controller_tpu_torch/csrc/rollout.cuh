@@ -29,15 +29,19 @@
 // a product-sum. Lane s stores element s of every output row, so a warp's
 // store of a row covers S contiguous floats.
 //
-// Two forms of the same body. The templated kernels (NB = 1..6) keep each
+// Two forms of the same scans. The templated kernels (NB = 1..6) keep each
 // block's carried sums and its control in registers, every loop over the
-// blocks unrolled. The general kernels take NB at run time (7 up to
-// kernel_shapes.h's SOCIAL_MPC_GENERAL_MAX_BLOCKS): the pose, cos and sin of
-// a chunk's steps stay in the lanes' registers as before, and each block's
-// four scans run in turn with its own carry, which the warp keeps in its
-// slice of shared memory (5 NB floats). The scans, their operands and their
-// order are the same, so the two forms compute the same bits wherever the
-// compiler contracts the same products.
+// blocks unrolled, one warp a scenario. The general kernels take NB at run
+// time (7 up to kernel_shapes.h's SOCIAL_MPC_GENERAL_MAX_BLOCKS) and spread
+// a scenario's blocks over W warps (rollout_general_warp): warp w takes
+// blocks w, w + W, ... and runs the chunk's pose, cos and sin scans itself,
+// so the warps of a scenario never wait on each other. A warp's carries sit
+// in registers, unrolled to a ceiling of 4, 8 or 16 blocks a warp
+// (GeneralCarries; eight warps take every NB up to the limit). A (block,
+// chunk) pair with no step of the block adds exact zeros and skips its scans
+// (see rollout_general_warp). The scans, their operands and their order are
+// the same, so both forms compute the same bits wherever the compiler
+// contracts the same products.
 //
 // The scans add in a tree order, the plain version's torch.cumsum serially:
 // the two differ by that rounding, by FMA contraction and by CUDA's sincosf.
@@ -47,6 +51,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "kernel_shapes.h"
 
 namespace rollout {
 
@@ -68,12 +74,8 @@ __device__ __forceinline__ float last_lane(float x) {
 }
 
 // The per-block sums a warp carries from one chunk of 32 steps to the next,
-// and each block's controls. RegisterBlocks<NB> (the templated kernels, NB
-// known) holds them in registers, every loop over the blocks unrolled;
-// SharedBlocks (the general kernels, NB at run time) holds the sums in the
-// warp's slice of shared memory, which lane 0 writes and every lane reads
-// after __syncwarp, and reads a step's control straight from u. Both give
-// the scans the same operands in the same order.
+// and each block's controls, of the templated kernels (NB known): in
+// registers, every loop over the blocks unrolled.
 template <int NB>
 struct RegisterBlocks {
     float uv[NB], uw[NB];
@@ -121,53 +123,10 @@ struct RegisterBlocks {
     }
 };
 
-// Shared memory of one warp's SharedBlocks: 4 sums and a count per block.
-__host__ __device__ constexpr size_t shared_blocks_bytes(int nb) {
-    return (size_t)5 * nb * sizeof(float);
-}
-
-struct SharedBlocks {
-    static constexpr int kNB = 0;  // NB at run time
-    const float* ub;  // u of the scenario
-    float* sum;                    // (4, NB) sums, then NB counts
-    int nb;
-    __device__ __forceinline__ SharedBlocks(const float* __restrict__ u, int b, int nb_,
-                                            float* slice, int lane)
-        : ub(u + (size_t)b * 2 * nb_), sum(slice), nb(nb_) {
-        for (int k = lane; k < 4 * nb; k += 32) sum[k] = 0.0f;
-        for (int k = lane; k < nb; k += 32) reinterpret_cast<int*>(sum + 4 * nb)[k] = 0;
-        __syncwarp();
-    }
-    __device__ __forceinline__ int n() const { return nb; }
-    __device__ __forceinline__ void control(int blk, bool on, float& v, float& w) const {
-        v = on ? ub[2 * blk] : 0.0f;
-        w = on ? ub[2 * blk + 1] : 0.0f;
-    }
-    __device__ __forceinline__ void sums(int k, float& dxdv, float& dydv, float& dxdw,
-                                         float& dydw, int& count) const {
-        dxdv = sum[k];
-        dydv = sum[nb + k];
-        dxdw = sum[2 * nb + k];
-        dydw = sum[3 * nb + k];
-        count = reinterpret_cast<const int*>(sum + 4 * nb)[k];
-    }
-    __device__ __forceinline__ void carry(int k, float dxdv, float dydv, float dxdw, float dydw,
-                                          int count, int lane) {
-        if (lane == 0) {
-            sum[k] = dxdv;
-            sum[nb + k] = dydv;
-            sum[2 * nb + k] = dxdw;
-            sum[3 * nb + k] = dydw;
-            reinterpret_cast<int*>(sum + 4 * nb)[k] = count;
-        }
-        __syncwarp();
-    }
-};
-
 // The rollout of scenario b by the calling warp (every lane calls it), its
-// blocks' controls and sums in `blocks` (RegisterBlocks<NB> or
-// SharedBlocks). The lane on step s < S writes the step's sensitivities and
-// calls emit(s, px, py, theta, v, row, col) once.
+// blocks' controls and sums in `blocks` (RegisterBlocks<NB>). The lane on
+// step s < S writes the step's sensitivities and calls emit(s, px, py,
+// theta, v, row, col) once.
 template <typename Blocks, typename Emit>
 __device__ __forceinline__ void rollout_warp(
     Blocks& blocks, const float* __restrict__ pose0,
@@ -253,6 +212,211 @@ __device__ __forceinline__ void rollout_warp(
     RegisterBlocks<NB> blocks(u, b);
     rollout_warp(blocks, pose0, block_idx, win_origin, resolution, sens, b, lane, S, dt, front,
                  emit);
+}
+
+
+// ---- The general form: NB at run time, a scenario's blocks over W warps ----
+
+// The most blocks a warp takes (kernel_shapes.py: ROLLOUT_GENERAL_CEILINGS),
+// its carries in registers.
+constexpr int GENERAL_MAX_REGISTER_BLOCKS = SOCIAL_MPC_ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS;
+// The most warps a scenario and threads a block (kernel_shapes.py:
+// ROLLOUT_GENERAL_WARPS): a block holds four warps, or one scenario's eight.
+constexpr int GENERAL_MAX_THREADS = 256;
+static_assert(SOCIAL_MPC_GENERAL_MAX_BLOCKS <=
+                  GENERAL_MAX_THREADS / 32 * GENERAL_MAX_REGISTER_BLOCKS,
+              "the most warps a scenario must hold every NB in registers");
+
+__host__ __device__ constexpr int general_threads(int warps) {
+    return 32 * (warps > WARPS ? warps : WARPS);
+}
+
+// Is (warps a scenario, blocks a warp) the launch
+// kernel_shapes.rollout_general_geometry gives for NB blocks?
+inline bool general_geometry_ok(int nb, int warps, int share) {
+    if (warps != 1 && warps != 2 && warps != 4 && warps != 8) return false;
+    return share == (nb + warps - 1) / warps && share <= GENERAL_MAX_REGISTER_BLOCKS;
+}
+
+// The sums a warp carries from one chunk of 32 steps to the next for its
+// blocks j = 0, 1, ... (block w + j W), in registers, every loop over j
+// unrolled to CEIL; the values are uniform across the warp.
+template <int CEIL>
+struct GeneralCarries {
+    float dxdv[CEIL], dydv[CEIL], dxdw[CEIL], dydw[CEIL];
+    int count[CEIL];
+    __device__ __forceinline__ GeneralCarries() {
+#pragma unroll
+        for (int j = 0; j < CEIL; ++j) {
+            dxdv[j] = dydv[j] = dxdw[j] = dydw[j] = 0.0f;
+            count[j] = 0;
+        }
+    }
+    __device__ __forceinline__ void get(int j, float& a, float& b, float& c, float& d,
+                                        int& n) const {
+        a = dxdv[j];
+        b = dydv[j];
+        c = dxdw[j];
+        d = dydw[j];
+        n = count[j];
+    }
+    __device__ __forceinline__ void set(int j, float a, float b, float c, float d, int n) {
+        dxdv[j] = a;
+        dydv[j] = b;
+        dxdw[j] = c;
+        dydw[j] = d;
+        count[j] = n;
+    }
+};
+
+// Warp w of the W that roll out scenario b (every lane calls it): the
+// chunk's pose, cos and sin scans as rollout_warp runs them, then the
+// sensitivities of blocks w, w + W, ... below NB (at most CEIL of them,
+// carries in `carries`). ONE: S <= 32, one chunk, whose sums start from
+// +0.0 and carry nothing out (no carry is read or written, no scan
+// skipped). Chunk c's poses are this warp's to emit when
+// c % W == W - 1 - w (the last warp, which holds the fewest blocks, emits
+// the first chunk), after the chunk's pose scans and before its blocks'
+// scans; the lane on step s < S of such a chunk calls emit(s, px, py,
+// theta, v, row, col) once.
+//
+// The scans of block k in a chunk with no step of block k add exact zeros,
+// so they are skipped with the same bits: the dx/dv and dy/dv integrands are
+// a selected +0.0, and +0.0 added to a carry gives the carry, which is never
+// -0.0 (it starts at +0.0, and x + (-x) and (+0.0) + (-0.0) round to +0.0);
+// the rows are then dt * carry. Before block k's first step (its count 0)
+// the dx/dw and dy/dw integrands are -/+ v sin/cos times dt * 0: signed zeros
+// too, and skipped alike, but only where every lane's v cos and v sin is
+// finite (a non-finite one times 0 is NaN, which the scans carry). The test
+// is the chunk's ballot of blk == k and the carried count, uniform across
+// the warp; it does not assume that a block's steps are contiguous.
+template <int CEIL, bool ONE, typename Emit>
+__device__ __forceinline__ void rollout_general_warp(
+    GeneralCarries<CEIL>& carries, const float* __restrict__ u, const float* __restrict__ pose0,
+    const int* __restrict__ block_idx, const float* __restrict__ win_origin,
+    const float* __restrict__ resolution, float* __restrict__ sens, int b, int lane, int S,
+    int NB, int w, int W, float dt, float front, Emit emit) {
+    const float* ub = u + (size_t)b * 2 * NB;
+    const float x0 = pose0[3 * b + 0], y0 = pose0[3 * b + 1], th0 = pose0[3 * b + 2];
+    const float ox = win_origin[2 * b + 0], oy = win_origin[2 * b + 1];
+    const float res = resolution[b];
+    const int* bi = block_idx + (size_t)b * S;
+    float* sb = sens + (size_t)b * 4 * NB * S;
+    const unsigned below = (1u << lane) - 1u;
+    // This warp's chunks are c = own, own + W, ...; the positions are summed
+    // up to the last of them.
+    const int chunks = ONE ? 1 : (S + 31) >> 5;
+    const int mine_n = (NB - w + W - 1) / W;  // this warp's blocks, at most CEIL
+    const int own = W - 1 - w;
+    const int last_own = chunks - 1 < own ? -1 : chunks - 1 - (chunks - 1 - own) % W;
+
+    float sum_w = 0.0f, sum_x = 0.0f, sum_y = 0.0f;
+    float cos_last, sin_last;  // heading before the chunk's first step
+    sincosf(th0, &sin_last, &cos_last);
+
+    for (int c = 0; c < chunks; ++c) {
+        const int s0 = c << 5;
+        const int s = s0 + lane;
+        const bool on = s < S;
+        const bool more = !ONE && c + 1 < chunks;  // a later chunk reads the carries
+        const int blk = on ? bi[s] : -1;
+        const float v = on ? ub[2 * blk] : 0.0f;
+        const float wv = on ? ub[2 * blk + 1] : 0.0f;
+        const float cum_w = sum_w + warp_scan(wv, lane);
+        const float th = th0 + dt * cum_w;
+        float sin_th, cos_th;
+        sincosf(th, &sin_th, &cos_th);
+        float cosp = __shfl_up_sync(FULL_MASK, cos_th, 1);
+        float sinp = __shfl_up_sync(FULL_MASK, sin_th, 1);
+        if (lane == 0) {
+            cosp = cos_last;
+            sinp = sin_last;
+        }
+        const float vc = v * cosp;
+        const float vs = v * sinp;
+        const bool xy = c <= last_own;
+        float cum_x = 0.0f, cum_y = 0.0f;
+        if (xy) {
+            cum_x = sum_x + warp_scan(vc, lane);
+            cum_y = sum_y + warp_scan(vs, lane);
+        }
+        if (c % W == own) {
+            const float px = x0 + dt * cum_x;
+            const float py = y0 + dt * cum_y;
+            if (on) {
+                const float fx = px + front * cos_th;
+                const float fy = py + front * sin_th;
+                emit(s, px, py, th, v, (fy - oy) / res, (fx - ox) / res);
+            }
+        }
+        if constexpr (ONE) {
+            // One chunk: every sum starts from +0.0 and nothing is carried.
+            for (int k = w; k < NB; k += W) {
+                const bool mine = blk == k;
+                const unsigned in_k = __ballot_sync(FULL_MASK, mine);
+                const float dth_prev = dt * (float)__popc(in_k & below);
+                const float c_dxdv = 0.0f + warp_scan(mine ? cosp : 0.0f, lane);
+                const float c_dydv = 0.0f + warp_scan(mine ? sinp : 0.0f, lane);
+                const float c_dxdw = 0.0f + warp_scan((-vs) * dth_prev, lane);
+                const float c_dydw = 0.0f + warp_scan(vc * dth_prev, lane);
+                if (on) {
+                    sb[(size_t)(0 * NB + k) * S + s] = dt * c_dxdv;
+                    sb[(size_t)(1 * NB + k) * S + s] = dt * c_dydv;
+                    sb[(size_t)(2 * NB + k) * S + s] = dt * c_dxdw;
+                    sb[(size_t)(3 * NB + k) * S + s] = dt * c_dydw;
+                }
+            }
+        } else {
+            const bool finite = __all_sync(FULL_MASK, isfinite(vc) && isfinite(vs));
+#pragma unroll
+            for (int j = 0; j < CEIL; ++j) {
+                if (j >= mine_n) continue;  // uniform across the warp
+                const int k = w + j * W;
+                float c_dxdv, c_dydv, c_dxdw, c_dydw;
+                int count;
+                carries.get(j, c_dxdv, c_dydv, c_dxdw, c_dydw, count);
+                const bool mine = blk == k;
+                const unsigned in_k = __ballot_sync(FULL_MASK, mine);
+                const bool v_scans = in_k != 0u;
+                const bool w_scans = v_scans || count != 0 || !finite;
+                if (v_scans) {
+                    c_dxdv = c_dxdv + warp_scan(mine ? cosp : 0.0f, lane);
+                    c_dydv = c_dydv + warp_scan(mine ? sinp : 0.0f, lane);
+                }
+                if (w_scans) {
+                    const float dth_prev = dt * (float)(count + __popc(in_k & below));
+                    c_dxdw = c_dxdw + warp_scan((-vs) * dth_prev, lane);
+                    c_dydw = c_dydw + warp_scan(vc * dth_prev, lane);
+                }
+                if (on) {
+                    sb[(size_t)(0 * NB + k) * S + s] = dt * c_dxdv;
+                    sb[(size_t)(1 * NB + k) * S + s] = dt * c_dydv;
+                    sb[(size_t)(2 * NB + k) * S + s] = dt * c_dxdw;
+                    sb[(size_t)(3 * NB + k) * S + s] = dt * c_dydw;
+                }
+                if (more) {
+                    if (v_scans) {
+                        c_dxdv = last_lane(c_dxdv);
+                        c_dydv = last_lane(c_dydv);
+                    }
+                    if (w_scans) {
+                        c_dxdw = last_lane(c_dxdw);
+                        c_dydw = last_lane(c_dydw);
+                    }
+                    carries.set(j, c_dxdv, c_dydv, c_dxdw, c_dydw, count + __popc(in_k));
+                }
+            }
+        }
+        if (more) {
+            sum_w = last_lane(cum_w);
+            if (xy) {
+                sum_x = last_lane(cum_x);
+                sum_y = last_lane(cum_y);
+            }
+            cos_last = last_lane(cos_th);
+            sin_last = last_lane(sin_th);
+        }
+    }
 }
 
 }  // namespace rollout

@@ -82,6 +82,68 @@ def general_solve_geometry(d: int):
     return max(GENERAL_SOLVE_MIN_THREADS, 32 * -(-d // 32)), 1, general_solve_shared_bytes(d)
 
 
+# The general rollout (rollout_sample's and K6's general forms,
+# csrc/rollout.cuh: rollout_general_warp): W warps a scenario, warp w taking
+# blocks w, w + W, ...; a warp's carries in registers, unrolled to the
+# ceiling at or above its share (one of ROLLOUT_GENERAL_CEILINGS). Eight
+# warps hold every NB the general forms take.
+ROLLOUT_GENERAL_WARPS = (1, 2, 4, 8)
+ROLLOUT_GENERAL_CEILINGS = (4, 8, 16)
+ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS = ROLLOUT_GENERAL_CEILINGS[-1]
+# Warps of a launch from which one warp a scenario fills the card: W rises
+# as the batch falls below it.
+ROLLOUT_GENERAL_FULL_WARPS = 2048
+# The most blocks a warp the default geometry gives past one chunk of 32
+# steps where eight warps a scenario allow it: past the ceiling of 8 a
+# warp's carries take 151 registers and cost occupancy. At one chunk there
+# are no carries, and the register ceilings bound the share.
+ROLLOUT_GENERAL_BLOCKS_A_WARP = ROLLOUT_GENERAL_CEILINGS[-2]
+
+
+def rollout_general_warps(nb: int, batch: int, steps: int) -> int:
+    """Warps a scenario of the general rollout at NB blocks, a batch of B
+    and S steps: the fewest of ROLLOUT_GENERAL_WARPS that give the launch
+    ROLLOUT_GENERAL_FULL_WARPS warps and each warp at most
+    ROLLOUT_GENERAL_BLOCKS_A_WARP blocks (S > 32; the register ceiling at
+    S <= 32); eight where none does. Measured on an H100
+    (tools/torch_kernel_variants.py --general --warps): at B = 4096 and one
+    chunk one warp a scenario was the fastest (the added warps repeat the
+    pose scans), at B = 1024 two or four, at B = 256 and 16 eight."""
+    cap = ROLLOUT_GENERAL_BLOCKS_A_WARP if steps > 32 else ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS
+    for w in ROLLOUT_GENERAL_WARPS:
+        if -(-nb // w) <= cap and w * batch >= ROLLOUT_GENERAL_FULL_WARPS:
+            return w
+    return ROLLOUT_GENERAL_WARPS[-1]
+
+
+def rollout_general_geometry(nb: int, batch: int, steps: int):
+    """The launch of the general rollout at NB blocks, a batch of B and S
+    steps, as the wrappers pass it to the C entries: (warps a scenario from
+    rollout_general_warps, blocks a warp). A block holds four warps (one
+    scenario's eight at W = 8). The C entries refuse a geometry their
+    kernels do not take; so does this, past the register ceilings."""
+    w = rollout_general_warps(nb, batch, steps)
+    share = -(-nb // w)
+    if w not in ROLLOUT_GENERAL_WARPS or share > ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS:
+        raise ValueError(f"rollout general form: {w} warps a scenario at NB = {nb} give "
+                         f"{share} blocks a warp; the kernels take one of "
+                         f"{ROLLOUT_GENERAL_WARPS} warps and at most "
+                         f"{ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS} blocks a warp")
+    return w, share
+
+
+# The trajectorizer (csrc/trajectorize.cu): L lanes a scenario.
+TRAJECTORIZE_LANES = (16, 32)
+
+
+def trajectorize_lanes(b: int) -> int:
+    """Lanes a scenario of the trajectorizer at a batch of B: a whole warp
+    searches one plan up to B = 1024, half a warp above (measured on an
+    H100, tools/torch_kernel_variants.py --lanes: at B = 4096 16 lanes were
+    the fastest, at B = 1024 and 1 32; 8 lanes were slower at every B)."""
+    return 32 if b <= 1024 else 16
+
+
 # K2's general form (csrc/fused_general.cu): blocks of FUSED_GENERAL_BLOCK
 # threads, and the most steps a tile of its second phase stages.
 FUSED_GENERAL_BLOCK = 128
@@ -135,6 +197,7 @@ def sfm_general_shared_bytes(n: int, threads: int = SFM_GENERAL_THREADS) -> int:
 GENERAL_MAX_DIM = max(
     d for d in range(1, 1024) if general_solve_shared_bytes(d) <= SHARED_BYTES_PER_BLOCK)
 GENERAL_MAX_BLOCKS = GENERAL_MAX_DIM // 2
+assert GENERAL_MAX_BLOCKS <= ROLLOUT_GENERAL_WARPS[-1] * ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS
 GENERAL_MAX_STEPS = max(
     s for s in range(1, SHARED_BYTES_PER_BLOCK // 60 + 1)
     if fused_general_shared_bytes(s, 2 * GENERAL_MAX_BLOCKS, 1) <= SHARED_BYTES_PER_BLOCK)
@@ -218,7 +281,8 @@ LISTS = {
 
 # macro name -> value, in kernel_shapes.h: the general forms' limits (and K5's
 # general block size, K2's general step tile, the general solve's last D a
-# warp a system, one block's shared memory)
+# warp a system, one block's shared memory, the general rollout's register
+# ceiling)
 LIMITS = {
     "SOCIAL_MPC_GENERAL_MAX_BLOCKS": GENERAL_MAX_BLOCKS,
     "SOCIAL_MPC_GENERAL_MAX_DIM": GENERAL_MAX_DIM,
@@ -228,6 +292,7 @@ LIMITS = {
     "SOCIAL_MPC_FUSED_GENERAL_STEP_TILE": FUSED_GENERAL_STEP_TILE,
     "SOCIAL_MPC_GENERAL_SOLVE_WARP_MAX_D": GENERAL_SOLVE_WARP_MAX_D,
     "SOCIAL_MPC_SHARED_BYTES_PER_BLOCK": SHARED_BYTES_PER_BLOCK,
+    "SOCIAL_MPC_ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS": ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS,
 }
 
 HEADER_NAME = "kernel_shapes.h"

@@ -21,7 +21,9 @@ costmap sample at (row, col) in the same launch (``csrc/rollout_sample.cu``),
 returning (val, d_row, d_col) in place of (row, col). ``rollout_prep`` alone
 (K6, ``csrc/rollout_prep.cu``) is the reference it is held to on the card.
 Both kernels are templated for NB = 1..6 and have a general form that takes
-NB at run time up to kernel_shapes.GENERAL_MAX_BLOCKS (``check_blocks``).
+NB at run time up to kernel_shapes.GENERAL_MAX_BLOCKS (``check_blocks``), a
+scenario's blocks spread over the warps kernel_shapes.rollout_general_geometry
+gives.
 """
 
 import torch
@@ -37,6 +39,15 @@ def check_blocks(fn: str, nb: int) -> str:
     kernel_shapes.GENERAL_MAX_BLOCKS; raises past it, naming the limit and
     why (kernel_shapes.form)."""
     return kernel_shapes.form(fn, "blocks", nb)
+
+
+def _geometry(kernel: str, nb: int, batch: int, steps: int) -> tuple:
+    """The launch geometry a general form's C entry takes after its other
+    arguments (kernel_shapes.rollout_general_geometry); none for the
+    templated forms."""
+    if not kernel.endswith("_general"):
+        return ()
+    return kernel_shapes.rollout_general_geometry(nb, batch, steps)
 
 
 def rollout_prep_plain(u, pose0, block_idx, win_origin, resolution, dt, front_offset, n_blocks):
@@ -124,7 +135,7 @@ def rollout_prep(u, pose0, block_idx, win_origin, resolution, dt, front_offset, 
         err = getattr(lib, f"social_mpc_{kernel}_f32")(
             u.data_ptr(), pose0.data_ptr(), block_idx.data_ptr(), win_origin.data_ptr(),
             resolution.data_ptr(), planes.data_ptr(), sens.data_ptr(),
-            b, s, nb, float(dt), float(front_offset),
+            b, s, nb, float(dt), float(front_offset), *_geometry(kernel, nb, b, s),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, kernel)
@@ -184,7 +195,7 @@ def rollout_sample(win, u, pose0, block_idx, win_origin, resolution, dt, front_o
         err = getattr(lib, f"social_mpc_{kernel}_f32")(
             u.data_ptr(), pose0.data_ptr(), block_idx.data_ptr(), win_origin.data_ptr(),
             resolution.data_ptr(), win.data_ptr(), planes.data_ptr(), sens.data_ptr(),
-            b, s, nb, h, w, float(dt), float(front_offset),
+            b, s, nb, h, w, float(dt), float(front_offset), *_geometry(kernel, nb, b, s),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, kernel)

@@ -1107,6 +1107,102 @@ def test_rollout_general_forms_agree_with_the_templated_forms(card, nb, s):
         torch.testing.assert_close(got[name], want[name], rtol=2e-5, atol=2e-4, msg=name)
 
 
+def _general_rollout_case(card, nb, s, b, seed):
+    """K6's arguments and a window for b scenarios at NB blocks over S
+    steps: blocks of 1 with a shrunk horizon in most scenarios, one whose
+    blocks are interleaved in the steps (not contiguous), a -0.0 control,
+    and at b > 5 a NaN and an infinite control."""
+    from nav2_social_mpc_controller_tpu_torch.models.motion import block_index_sequence_dynamic
+
+    rng = np.random.default_rng(seed)
+    h_dyn = rng.integers(1, nb + 1, b)
+    h_dyn[0] = nb
+    block_idx = block_index_sequence_dynamic(
+        s, torch.tensor(h_dyn, device=card), torch.ones(b, dtype=torch.long, device=card)
+    ).to(torch.int32)
+    if b > 1:
+        block_idx[1] = torch.arange(s, device=card) % nb
+    u = rng.uniform(-0.8, 0.8, (b, 2 * nb))
+    u[0, 0::2][:2] = -0.0
+    if b > 5:
+        u[4, 2 * int(block_idx[4, -1])] = np.nan
+        u[5, 0] = np.inf
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=card)
+
+    pose0 = rng.uniform(-5, 5, (b, 3))
+    args = (t(u), t(pose0), block_idx.contiguous(), t(pose0[:, :2] - rng.uniform(0.0, 3.4, (b, 2))),
+            t(np.full((b,), 0.05)), 0.05, 0.25, nb)
+    return t(np.rint(rng.uniform(0, 254, (b, 64, 64)))), args
+
+
+@pytest.mark.parametrize("s", [29, 32, 33, 69, 123])
+@pytest.mark.parametrize("nb", [7, 9, 12, 18, 36, 118])
+def test_rollout_general_forms_at_every_batch(card, nb, s):
+    """The redesigned general forms on ragged batches against the warps a
+    block (B = 1, 5, 301, 4097; 4097 up to NB = 18): rollout_sample's
+    general form bit for bit against K6's general form then K1, K6's within
+    its tolerances of the plain version (NaN and inf where it has them), at
+    the launch kernel_shapes.rollout_general_geometry gives."""
+    for b in (1, 5, 301, 4097) if nb <= 18 else (1, 5, 301):
+        win, args = _general_rollout_case(card, nb, s, b, seed=nb * 1000 + s + b)
+        got = K6.rollout_sample(win, *args)
+        want = _prep_then_sample(win, args)
+        prep = K6.rollout_prep(*args)
+        ref = K6.rollout_prep_plain(*args)
+        torch.cuda.synchronize()
+        for key in want:
+            assert _same_bits(got[key], want[key]), (b, key)
+        for name in ref:
+            atol = 2e-4 if name in ("row", "col") else 1e-5
+            torch.testing.assert_close(prep[name], ref[name], rtol=2e-5, atol=atol, equal_nan=True,
+                                       msg=f"{b} {name}")
+
+
+@pytest.mark.parametrize("nb,s", [(9, 29), (12, 39), (36, 69), (64, 123)])
+def test_rollout_general_bits_do_not_depend_on_the_warps(card, nb, s, monkeypatch):
+    """Every count of warps a scenario (1, 2, 4, 8) whose blocks a warp fit
+    the register ceilings gives the same bits, both general forms, at
+    B = 301."""
+    win, args = _general_rollout_case(card, nb, s, 301, seed=nb + s)
+    want = (K6.rollout_sample(win, *args), K6.rollout_prep(*args))
+    fits = [w for w in kernel_shapes.ROLLOUT_GENERAL_WARPS
+            if -(-nb // w) <= kernel_shapes.ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS]
+    assert len(fits) >= 2
+    for warps in fits:
+        monkeypatch.setattr(kernel_shapes, "rollout_general_warps", lambda *_, w=warps: w)
+        got = (K6.rollout_sample(win, *args), K6.rollout_prep(*args))
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            for key in r:
+                assert _same_bits(g[key], r[key]), (warps, key)
+
+
+def test_rollout_general_forms_captured_equal_eager(card):
+    """Both general forms captured in a CUDA graph and replayed give the
+    eager launches' bits (NB = 12, S = 39, B = 301)."""
+    win, args = _general_rollout_case(card, 12, 39, 301, seed=3)
+
+    def run():
+        return K6.rollout_sample(win, *args), K6.rollout_prep(*args)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, r in zip(captured, eager):
+        for key in r:
+            assert _same_bits(g[key], r[key]), key
+
+
 @pytest.mark.parametrize("b", [1, 33, 301])
 @pytest.mark.parametrize("d", [14, 18, 24, 36, 64, 128, 236])
 def test_propose_and_commit_general_forms_match_plain(card, d, b):

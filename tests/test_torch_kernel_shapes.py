@@ -197,9 +197,11 @@ def test_form_reads_the_lists_at_each_call(monkeypatch):
 def test_every_general_entry_checks_its_generated_limit(entry, limit):
     """A general form's C entry refuses past the limit kernel_shapes.h
     carries, names no shape of its own and expands no list; _build declares
-    it with its templated form's arguments, K7's two with the launch
-    geometry the wrapper passes (kernel_shapes.general_solve_geometry:
-    three ints) before the stream, which the entry checks."""
+    it with its templated form's arguments, K7's two and the general
+    rollouts with the launch geometry the wrapper passes
+    (kernel_shapes.general_solve_geometry: three ints;
+    rollout_general_geometry: two) before the stream, which the entry
+    checks."""
     source = next(f for f in sorted(os.listdir(_build.CSRC_DIR)) if f.endswith(".cu")
                   and f'extern "C" int {entry}(' in open(os.path.join(_build.CSRC_DIR, f)).read())
     body = _entry_body(source, entry)
@@ -209,8 +211,11 @@ def test_every_general_entry_checks_its_generated_limit(entry, limit):
     assert entry in _build.GENERAL_ENTRIES
     templated = _build._SIGNATURES[entry.replace("_general", "")]
     if entry in _build.GEOMETRY_ENTRIES:
-        assert _build._SIGNATURES[entry] == templated[:-1] + [ctypes.c_int] * 3 + templated[-1:]
-        assert "general_geometry_ok(D, threads, systems, shared)" in body
+        ints = 2 if "rollout" in entry else 3
+        assert _build.GEOMETRY_ENTRIES[entry] == ints
+        assert _build._SIGNATURES[entry] == templated[:-1] + [ctypes.c_int] * ints + templated[-1:]
+        assert ("general_geometry_ok(NB, warps, share)" if "rollout" in entry else
+                "general_geometry_ok(D, threads, systems, shared)") in body
     else:
         assert _build._SIGNATURES[entry] == templated
 
@@ -352,3 +357,63 @@ def test_every_compile_includes_the_generated_header(tmp_path):
     assert out.returncode == 0, out.stderr
     with open(out.stdout.strip()) as f:
         assert f.read() == 2 * kernel_shapes.header()
+
+
+@pytest.mark.parametrize("warps", kernel_shapes.ROLLOUT_GENERAL_WARPS)
+def test_rollout_general_geometry_at_every_block_count(warps, monkeypatch):
+    """The general rollout's launch at every NB the general forms take, at
+    each warps a scenario: ceil(NB / W) blocks a warp, taken where it fits
+    the last register ceiling and refused past it, as the C entries refuse
+    it (eight warps take every NB); the kernels read the ceiling from the
+    generated header."""
+    monkeypatch.setattr(kernel_shapes, "rollout_general_warps", lambda *_: warps)
+    for nb in range(1, kernel_shapes.GENERAL_MAX_BLOCKS + 1):
+        share = -(-nb // warps)
+        if share > kernel_shapes.ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS:
+            assert warps < kernel_shapes.ROLLOUT_GENERAL_WARPS[-1]
+            with pytest.raises(ValueError):
+                kernel_shapes.rollout_general_geometry(nb, 1, 33)
+            continue
+        assert kernel_shapes.rollout_general_geometry(nb, 1, 33) == (warps, share)
+    assert (f"#define SOCIAL_MPC_ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS "
+            f"{kernel_shapes.ROLLOUT_GENERAL_CEILINGS[-1]}\n") in kernel_shapes.header()
+    with open(os.path.join(_build.CSRC_DIR, "rollout.cuh")) as f:
+        source = f.read()
+    assert "= SOCIAL_MPC_ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS;" in source
+    assert "share <= GENERAL_MAX_REGISTER_BLOCKS" in source
+    monkeypatch.setattr(kernel_shapes, "rollout_general_warps", lambda *_: 3)
+    with pytest.raises(ValueError):
+        kernel_shapes.rollout_general_geometry(9, 1, 33)
+
+
+@pytest.mark.parametrize("steps", [29, 69])
+@pytest.mark.parametrize("batch", [1, 16, 256, 1024, 4096, 4101])
+def test_rollout_general_default_warps(batch, steps):
+    """The wrappers' warps a scenario: one of ROLLOUT_GENERAL_WARPS at every
+    NB, never more blocks a warp than the register ceilings hold and past
+    one chunk at most 8 where eight warps allow it, more warps as the batch
+    falls (at NB = 9 one at B = 4096 and one chunk, two past it and at
+    B = 1024; eight at B <= 256)."""
+    cap = (kernel_shapes.ROLLOUT_GENERAL_BLOCKS_A_WARP if steps > 32
+           else kernel_shapes.ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS)
+    for nb in range(1, kernel_shapes.GENERAL_MAX_BLOCKS + 1):
+        w, share = kernel_shapes.rollout_general_geometry(nb, batch, steps)
+        assert w in kernel_shapes.ROLLOUT_GENERAL_WARPS
+        assert share <= kernel_shapes.ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS
+        assert w == 8 or (w * batch >= kernel_shapes.ROLLOUT_GENERAL_FULL_WARPS
+                          and share <= cap)
+    assert kernel_shapes.rollout_general_warps(9, 4096, 29) == 1
+    assert kernel_shapes.rollout_general_warps(9, 4096, 69) == 2
+    assert kernel_shapes.rollout_general_warps(12, 1024, 39) == 2
+    assert kernel_shapes.rollout_general_warps(18, 1024, 29) == 2
+    assert kernel_shapes.rollout_general_warps(18, 1024, 69) == 4
+    assert kernel_shapes.rollout_general_warps(36, 256, 69) == 8
+
+
+@pytest.mark.parametrize("b", [1, 3, 1024, 1025, 4096, 4101])
+def test_trajectorize_lanes(b):
+    """The trajectorizer's lanes a scenario divide a warp, one of the two
+    its entry takes."""
+    assert kernel_shapes.trajectorize_lanes(b) in kernel_shapes.TRAJECTORIZE_LANES
+    with open(os.path.join(_build.CSRC_DIR, "trajectorize.cu")) as f:
+        assert "if (lanes != 16 && lanes != 32)" in f.read()

@@ -147,3 +147,81 @@ def test_kernel_equals_plain_version_on_the_card(card, name):
     with pytest.raises(ValueError):
         ttraj.trajectorize(tr, PathInput(*(x.double() if x.is_floating_point() else x
                                            for x in path)), pose.double())
+
+
+def _plan_windows(card, batch):
+    """The plan windows a first tick hands the trajectorizer (plan cursor
+    0), for `batch` generated social scenarios, and the robot poses."""
+    from nav2_social_mpc_controller_tpu_torch.controller.path_handler import transform_global_plan
+    from nav2_social_mpc_controller_tpu_torch.core.types import scenario_from_numpy
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import make_scenario_batch
+
+    cfg = C.benchmark_social_config()
+    sc = scenario_from_numpy(make_scenario_batch(cfg, batch, base_seed=0, n_valid_people=3),
+                             device=card)
+    pose = sc.robot.pose.contiguous()
+    h, w = sc.costmap.data.shape[-2:]
+    thr = torch.maximum(w * sc.costmap.resolution, h * sc.costmap.resolution) / 2.0
+    win = transform_global_plan(sc.path, pose, cfg.max_robot_pose_search_dist, thr).path
+    return cfg.trajectorizer, PathInput(*(x.contiguous() for x in win)), pose
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [33, 128])
+@pytest.mark.parametrize("b", [1, 3, 4101])
+def test_kernel_at_every_lane_count(card, b, p, monkeypatch):
+    """At the edges of the lanes a scenario (B = 1, 3, 4101; P = 33 and 128
+    waypoints, 1 to 16 a lane in registers): every case of
+    TRAJECTORIZER_CASES bit for bit against the plain version at the lanes
+    kernel_shapes.trajectorize_lanes gives and at 16 and 32."""
+    from nav2_social_mpc_controller_tpu_torch import kernel_shapes
+
+    tr = CONFIGS["social"]()
+    path, pose, _ = make_trajectorizer_cases(tr, b, p, seed=b + p)
+    path = PathInput(*(torch.as_tensor(x, device=card) for x in path))
+    pose = torch.as_tensor(pose, device=card)
+    want = ttraj.trajectorize_plain(tr, path, pose)
+    _assert_same_bits(ttraj.trajectorize(tr, path, pose), want)
+    for lanes in kernel_shapes.TRAJECTORIZE_LANES:
+        monkeypatch.setattr(kernel_shapes, "trajectorize_lanes", lambda _b, n=lanes: n)
+        _assert_same_bits(ttraj.trajectorize(tr, path, pose), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 1024])
+def test_kernel_on_plan_windows(card, b):
+    """The plan windows of a first social tick, bit for bit."""
+    tr, path, pose = _plan_windows(card, b)
+    _assert_same_bits(ttraj.trajectorize(tr, path, pose), ttraj.trajectorize_plain(tr, path, pose))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [200, 2000])
+def test_kernel_past_128_waypoints(card, p):
+    """Past 128 waypoints a plan is searched from shared memory where a
+    block's plans fit 48 KB (P = 200) and from device memory past that
+    (P = 2000): bit for bit, every case, B = 301."""
+    tr = CONFIGS["default"]()
+    path, pose, _ = make_trajectorizer_cases(tr, 301, p, seed=p)
+    path = PathInput(*(torch.as_tensor(x, device=card) for x in path))
+    pose = torch.as_tensor(pose, device=card)
+    _assert_same_bits(ttraj.trajectorize(tr, path, pose), ttraj.trajectorize_plain(tr, path, pose))
+
+
+@pytest.mark.gpu
+def test_kernel_captured_equals_eager(card):
+    """The trajectorizer captured in a CUDA graph and replayed gives the
+    eager launch's bits (every case, B = 4101)."""
+    tr, _, _, _, path, pose = _cases("social", 4101, np.float32, device=card, seed=2)
+    eager = ttraj.trajectorize(tr, path, pose)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ttraj.trajectorize(tr, path, pose)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ttraj.trajectorize(tr, path, pose)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_same_bits(captured, eager)

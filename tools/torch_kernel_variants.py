@@ -3,8 +3,8 @@
 other on one NVIDIA GPU, in turns, at the shapes chip_smoke.py holds them at.
 
     python3 tools/torch_kernel_variants.py [--general | --general-solve] [--threads T,...]
-                                           [--systems S,...] [--bits-against NAME]
-                                           NAME=PATH.cu [...]
+                                           [--systems S,...] [--warps W,...] [--lanes L,...]
+                                           [--bits-against NAME] NAME=PATH.cu [...]
 
 Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
 `csrc/fused_general.cu` (K2's general form), of `csrc/rollout_prep.cu`
@@ -12,8 +12,15 @@ Each PATH is a complete variant of `csrc/fused_iter.cu` (K2), of
 `csrc/sfm_scan.cu` (K5; `--general`: its general form, at the crowd shapes
 below), of `csrc/rollout_sample.cu` (K6's rollout with K1's sample) or of
 `csrc/spd_solve.cu` (K7; `--general-solve`: its general form, at the
-general shapes below), exporting the same C entry points; the kind is
-told by those entry points. `--threads`: with `--general`, K5's shipped
+general shapes below) or of `csrc/trajectorize.cu` (the trajectorizer),
+exporting the same C entry points; the kind is told by those entry points.
+`--general` with variants of `csrc/rollout_sample.cu` or
+`csrc/rollout_prep.cu` times their general forms at the general rollout
+shapes below. A variant whose general rollout entry, or trajectorize entry,
+takes fewer arguments than the checkout's (a parent's, before the launch
+geometry) is called without the geometry. A variant named in its first
+lines "a diagnostic, not a design" is timed and its error reported, not
+gated. `--threads`: with `--general`, K5's shipped
 source is timed again at each of these threads a scenario (variants
 `shipped@T`; the wrapper's choice is models/sfm.py:
 general_threads_per_scenario), and the variants list may be empty; with
@@ -21,6 +28,12 @@ general_threads_per_scenario), and the variants list may be empty; with
 (`shipped@tT`), and `--systems` at each of these systems a block up to
 D = 32 (`shipped@sS`; the wrapper's choice of both is
 kernel_shapes.general_solve_geometry, which every variant is launched with).
+`--warps`: with `--general` and rollout variants, the shipped source again
+at each of these warps a scenario whose blocks a warp fit the register
+ceilings (`shipped@wW`; the wrapper's choice is
+kernel_shapes.rollout_general_warps); `--lanes`: with trajectorize
+variants, at each of these lanes a scenario (`shipped@lL`; the wrapper's
+choice is kernel_shapes.trajectorize_lanes).
 `--bits-against NAME`: each variant's output elements whose bits differ
 from variant NAME's on the same inputs (`bits_differ_from`). A K7 variant may
 lack the damped-step entry (as the parent's file does): its damped step is
@@ -32,7 +45,8 @@ variants against which `csrc/tr_iter.cu`'s and `csrc/sfm_scan.cu`'s designs
 were chosen are kept in `tools/tr_iter_variants/` and
 `tools/sfm_scan_variants/` (those of `csrc/rollout_sample.cu` in
 `tools/rollout_sample_variants/`, those of `csrc/spd_solve.cu` in
-`tools/spd_solve_variants/`), each named in its first line. Every
+`tools/spd_solve_variants/`, those of `csrc/trajectorize.cu` in
+`tools/trajectorize_variants/`), each named in its first line. Every
 variant is built with `_build.NVCC_FLAGS` into its own library (all nvcc runs
 started together), the wrappers are pointed at each in turn, and every
 kernel of every variant is timed with `chip_smoke.time_cuda` over 4 rounds,
@@ -65,6 +79,28 @@ path, B = 4096, N = 64, the FOV-filtered people of a real tick); N = 33 and
 and 256 at B = 256, spread to one person every two square metres. Its
 error is taken over the scenarios whose plain version another order of its
 sums moves by at most 1e-5 (chip_smoke.py: sfm_order_sensitivity).
+
+The general rollouts (`--general` with variants of `csrc/rollout_sample.cu`,
+K6's general form then K1 timed beside it as `k6_then_k1`; or of
+`csrc/rollout_prep.cu`), at the configs that run them and the limit:
+
+  social_bl2_main       horizon 18 in blocks of 2 (NB = 9, S = 29), B = 4096,
+                        3 valid people (the main path's shape)
+  stress36_bl3          NB = 12, S = 39, B = 1024
+  social_bl1            NB = 18, S = 29, B = 1024
+  nb9_s69, nb18_s69     NB = 9 and 18 in blocks of 1, S = 69, B = 1024
+                        (chip_smoke.py's kernel_shapes)
+  nb36                  NB = 36 in blocks of 1, S = 69, B = 256
+  nb118                 the limit, NB = 118, S = 123, B = 16 (one warp's
+                        latency)
+
+The trajectorizer (its error the output elements whose bits differ from
+trajectorize_plain, tolerance 0): the plan windows of a first tick of the
+social config at B = 4096 (`social_windows`) and of its first scenario
+alone (`social_b1`), of omni6 and stress36 at B = 1024; the plans of
+utils/scenarios.py's TRAJECTORIZER_CASES at B = 4096 + 5 (`cases`) and
+those of its cases whose waypoints all lie beyond the lookahead
+(`cases_beyond`: all_beyond_lookahead, tied_minimisers; B = 1024).
 
 K7's general form (`--general-solve`: the damped step without and with
 the Jacobi scale and the standalone solve of its system, at the configs
@@ -132,11 +168,20 @@ KINDS = {
     "sfm_scan": ("social_mpc_sfm_scan_f32",),
     "rollout_sample": ("social_mpc_rollout_sample_f32",),
     "spd_solve": ("social_mpc_spd_solve_f32",),
+    "trajectorize": ("social_mpc_trajectorize_f32",),
 }
 # entry points a variant of the kind may lack (timed otherwise, see kernels())
 OPTIONAL = {"spd_solve": ("social_mpc_damped_step_f32", "social_mpc_damped_step_general_f32",
                           "social_mpc_spd_solve_general_f32"),
-            "sfm_scan": ("social_mpc_sfm_scan_general_f32",)}
+            "sfm_scan": ("social_mpc_sfm_scan_general_f32",),
+            "rollout_sample": ("social_mpc_rollout_sample_general_f32",),
+            "rollout_prep": ("social_mpc_rollout_prep_general_f32",)}
+# entry -> the trailing arguments before the stream that a parent's source
+# may lack (the launch geometry), dropped when calling such a variant
+TRAILING = {"social_mpc_rollout_sample_general_f32": 2,
+            "social_mpc_rollout_prep_general_f32": 2,
+            "social_mpc_trajectorize_f32": 1}
+DIAGNOSTIC = "a diagnostic, not a design"
 ROUNDS = 4
 REPS = 200
 
@@ -145,6 +190,7 @@ def parse_args(argv):
     from nav2_social_mpc_controller_tpu_torch import _build
 
     general, solve, threads, systems, against = False, False, (), (), None
+    warps, lanes = (), ()
     if argv[:1] == ["--general"]:
         general, argv = True, argv[1:]
     elif argv[:1] == ["--general-solve"]:
@@ -153,6 +199,10 @@ def parse_args(argv):
         threads, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
     if argv[:1] == ["--systems"] and len(argv) > 1:
         systems, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
+    if argv[:1] == ["--warps"] and len(argv) > 1:
+        warps, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
+    if argv[:1] == ["--lanes"] and len(argv) > 1:
+        lanes, argv = tuple(int(t) for t in argv[1].split(",")), argv[2:]
     if argv[:1] == ["--bits-against"] and len(argv) > 1:
         against, argv = argv[1], argv[2:]
     variants = {}
@@ -168,25 +218,42 @@ def parse_args(argv):
         if len(found) != 1:
             cs.fail(f"{path} exports the entry points of none or several of {sorted(KINDS)}")
         kinds.add(found[0])
-    if general:
+    if general and not kinds:
         kinds.add("sfm_scan")
     if solve:
         kinds.add("spd_solve")
     if len(kinds) != 1:
         cs.fail("all variants must be of one kind")
     kind = kinds.pop()
-    if kind == "sfm_scan" and general:
-        kind = "sfm_scan_general"
+    if kind in ("sfm_scan", "rollout_sample", "rollout_prep") and general:
+        kind += "_general"
     elif kind == "spd_solve" and solve:
         kind = "spd_solve_general"
     elif threads:
         cs.fail("--threads times a general form: give --general or --general-solve first")
     if systems and kind != "spd_solve_general":
         cs.fail("--systems times K7's general form: give --general-solve first")
+    if warps and kind not in ("rollout_sample_general", "rollout_prep_general"):
+        cs.fail("--warps times the general rollout: give --general and rollout variants")
+    if lanes and kind != "trajectorize":
+        cs.fail("--lanes times the trajectorizer: give trajectorize variants")
     variants["shipped"] = os.path.join(_build.CSRC_DIR, f"{kind.replace('_general', '')}.cu")
     if against is not None and against not in variants and against != "shipped":
         cs.fail(f"--bits-against {against}: no such variant")
-    return kind, variants, threads, systems, against
+    return kind, variants, threads, systems, warps, lanes, against
+
+
+def declared_args(path, entry):
+    """The number of parameters of C entry `entry` in source `path`."""
+    text = open(path).read()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    return len(m.group(1).split(",")) if m else None
+
+
+def diagnostics(variants):
+    """The variants named in their first lines as diagnostics."""
+    return {name for name, path in variants.items()
+            if DIAGNOSTIC in "".join(open(path).readlines()[:4]).replace("\n// ", " ")}
 
 
 def build_all(kind, variants):
@@ -203,6 +270,7 @@ def build_all(kind, variants):
                                             text=True))
     libs, usage = {}, {}
     for name, (so, proc) in procs.items():
+        path = variants[name]
         log, _ = proc.communicate()
         if proc.returncode != 0:
             cs.fail(f"variant {name} does not build:\n{log[-3000:]}")
@@ -214,7 +282,14 @@ def build_all(kind, variants):
             if entry not in KINDS[base] and not hasattr(lib, entry):
                 continue
             fn = getattr(lib, entry)
-            fn.argtypes = _build._SIGNATURES[entry]
+            sig = _build._SIGNATURES[entry]
+            drop = TRAILING.get(entry, 0)
+            if drop and declared_args(path, entry) == len(sig) - drop:
+                fn.argtypes = sig[:-1 - drop] + sig[-1:]
+                fn.restype = ctypes.c_int
+                fns[entry] = (lambda f, d: lambda *a: f(*a[:-1 - d], a[-1]))(fn, drop)
+                continue
+            fn.argtypes = sig
             fn.restype = ctypes.c_int
             fns[entry] = fn
         libs[name] = types.SimpleNamespace(**fns)
@@ -245,6 +320,21 @@ def captures(kind):
 
     social, obstacle = C.benchmark_social_config(), C.benchmark_obstacle_only_config()
     omni6, stress = C.benchmark_omni_6agents_config(), C.benchmark_stress_h36_config()
+    if kind in ("rollout_sample_general", "rollout_prep_general"):
+        return {
+            "social_bl2_main": cap(cs.replace_optimizer(social, parameter_block_length=2),
+                                   cs.B_MAIN, 3),
+            "stress36_bl3": cap(cs.replace_optimizer(stress, parameter_block_length=3),
+                                cs.B_WIDE, 3, True),
+            "social_bl1": cap(cs.replace_optimizer(social, parameter_block_length=1),
+                              cs.B_WIDE, 3, True),
+            **{f"nb{nb}_s69": cap(cs.general_blocks_config(nb), cs.B_WIDE, 3, True)
+               for nb in (9, 18)},
+            "nb36": cap(cs.general_blocks_config(36), 256, 3, True),
+            "nb118": cap(cs.general_blocks_config(118), 16, 3, True),
+        }
+    if kind == "trajectorize":
+        return trajectorize_captures()
     if kind == "fused_general":
         return {
             "social_bl2_main": cap(cs.replace_optimizer(social, parameter_block_length=2),
@@ -301,6 +391,42 @@ def captures(kind):
     }
 
 
+def trajectorize_captures():
+    """The trajectorizer's inputs: (TrajectorizerConfig, plan, robot pose)."""
+    import torch
+
+    from nav2_social_mpc_controller_tpu_torch.core import config as C
+    from nav2_social_mpc_controller_tpu_torch.core.types import PathInput
+    from nav2_social_mpc_controller_tpu_torch.utils.scenarios import (
+        TRAJECTORIZER_CASES, make_trajectorizer_cases,
+    )
+
+    out = {}
+    for name, cfg, batch in (("social_windows", C.benchmark_social_config(), cs.B_MAIN),
+                             ("omni6_windows", C.benchmark_omni_6agents_config(), cs.B_WIDE),
+                             ("stress36_windows", C.benchmark_stress_h36_config(), cs.B_WIDE)):
+        sc, poses = cs.make_batch(cfg, batch, "cuda", n_valid_people=cfg.n_agents)
+        win = cs.windowed_plan(cfg, sc, poses[0])
+        out[name] = {"trajectorize": (cfg.trajectorizer, win, poses[0])}
+        if name == "social_windows":
+            out["social_b1"] = {"trajectorize": (
+                cfg.trajectorizer, PathInput(*(x[:1].contiguous() for x in win)),
+                poses[0][:1].contiguous())}
+    cfg = C.benchmark_social_config()
+    tr = cfg.trajectorizer
+    path, pose, case = make_trajectorizer_cases(tr, cs.B_MAIN + 5, cfg.max_path_points, seed=1)
+    out["cases"] = {"trajectorize": (
+        tr, PathInput(*(torch.as_tensor(x, device="cuda") for x in path)),
+        torch.as_tensor(pose, device="cuda"))}
+    beyond = [TRAJECTORIZER_CASES.index(c) for c in ("all_beyond_lookahead", "tied_minimisers")]
+    path, pose, case = make_trajectorizer_cases(tr, 6 * cs.B_WIDE, cfg.max_path_points, seed=2)
+    keep = [i for i in range(len(case)) if case[i] in beyond][:cs.B_WIDE]
+    out["cases_beyond"] = {"trajectorize": (
+        tr, PathInput(*(torch.as_tensor(x[keep], device="cuda") for x in path)),
+        torch.as_tensor(pose[keep], device="cuda"))}
+    return out
+
+
 def kernels(kind):
     """[(kernel, its wrapper on a capture, its plain version on a capture)]"""
     from nav2_social_mpc_controller_tpu_torch.models import sfm as K5
@@ -349,9 +475,17 @@ def kernels(kind):
     if kind == "sfm_scan":
         return [("sfm_scan", lambda c: K5.project_people(*c["sfm"], **cs.sfm_keywords(c["cfg"])),
                  lambda c: K5.project_people_plain(*c["sfm"], **cs.sfm_keywords(c["cfg"])))]
-    if kind == "rollout_sample":
+    if kind in ("rollout_sample", "rollout_sample_general"):
         return [("rollout_sample", lambda c: K6.rollout_sample(c["bicubic"][0], *c["rollout_prep"]),
                  lambda c: cs.prep_then_sample(c["bicubic"][0], c["rollout_prep"]))]
+    if kind == "rollout_prep_general":
+        return [("rollout_prep", lambda c: K6.rollout_prep(*c["rollout_prep"]),
+                 lambda c: K6.rollout_prep_plain(*c["rollout_prep"]))]
+    if kind == "trajectorize":
+        from nav2_social_mpc_controller_tpu_torch.controller import trajectorizer as KT
+
+        return [("trajectorize", lambda c: KT.trajectorize(*c["trajectorize"]),
+                 lambda c: KT.trajectorize_plain(*c["trajectorize"]))]
     return [("propose", lambda c: K34.propose(c["lm_cfg"], *c["propose"]),
              lambda c: K34.propose_plain(c["lm_cfg"], *c["propose"])),
             ("commit", lambda c: K34.commit(c["lm_cfg"], *c["commit"]),
@@ -381,6 +515,8 @@ def error(kernel, got, ref, cap):
         return cs.bits_differ(got, ref)
     if kernel == "spd_solve":
         return cs.bits_differ([got], [ref])
+    if kernel == "trajectorize":
+        return cs.bits_differ(got, ref)
     if kernel == "rollout_sample":
         return cs.bits_differ([got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)])
     if kernel == "sfm_scan":
@@ -397,7 +533,7 @@ def error(kernel, got, ref, cap):
 
 def tolerance(kernel, cap):
     if kernel in ("propose", "commit", "rollout_sample", "damped_step", "damped_step_jacobi",
-                  "spd_solve"):
+                  "spd_solve", "trajectorize"):
         return 0.0
     if kernel in ("fused_iter", "fused_iter_general") and bool(cap["fused"][18].any()):
         return cs.TOL["fused_iter_people"]
@@ -414,7 +550,8 @@ def main():
     from nav2_social_mpc_controller_tpu_torch import kernel_shapes
 
     _, smi = cs.phase_device()
-    kind, variants, threads, systems, against = parse_args(sys.argv[1:])
+    kind, variants, threads, systems, warps, lanes, against = parse_args(sys.argv[1:])
+    diag = diagnostics(variants)
     cs.phase_build()
     libs, usage = build_all(kind, variants)
     cs.emit({"ptxas": usage})
@@ -422,7 +559,7 @@ def main():
     times, errs, tols, bits = collections.defaultdict(list), {}, {}, {}
     full = _build.load()  # the checkout's library: every entry point
     order = list(libs)
-    if kind == "rollout_sample":  # the two launches it replaces, in turns with it
+    if kind in ("rollout_sample", "rollout_sample_general"):  # the two launches it replaces
         libs["k6_then_k1"] = full
         order.append("k6_then_k1")
     if kind == "spd_solve_general":  # the library's solve, in turns with the kernels
@@ -430,20 +567,34 @@ def main():
         order.append("library")
     per_scenario = K5.general_threads_per_scenario
     solve_geometry = kernel_shapes.general_solve_geometry
+    rollout_warps = kernel_shapes.rollout_general_warps
+    lanes_of = kernel_shapes.trajectorize_lanes
     at = ([f"t{t}" for t in threads] + [f"s{n}" for n in systems]
           if kind == "spd_solve_general" else [str(t) for t in threads])
+    at += [f"w{w}" for w in warps] + [f"l{n}" for n in lanes]
     for a in at:  # the shipped K5 at other threads a scenario; K7 at other geometries
         libs[f"shipped@{a}"] = libs["shipped"]
         order.append(f"shipped@{a}")
 
-    def geometry(name):
+    def geometry(name, cap):
+        """Point the wrappers at variant `name`'s geometry; False where it
+        does not fit the shape (more blocks a warp than the ceilings)."""
         a = name.split("@")[1] if "@" in name else ""
+        kernel_shapes.rollout_general_warps = rollout_warps
+        kernel_shapes.trajectorize_lanes = lanes_of
+        if a[:1] == "w":
+            nb = cap["rollout_prep"][7]
+            kernel_shapes.rollout_general_warps = lambda *_, w=int(a[1:]): w
+            return -(-nb // int(a[1:])) <= kernel_shapes.ROLLOUT_GENERAL_MAX_REGISTER_BLOCKS
+        if a[:1] == "l":
+            kernel_shapes.trajectorize_lanes = lambda b, n=int(a[1:]): n
+            return True
         if kind != "spd_solve_general":
             K5.general_threads_per_scenario = (lambda n: int(a)) if a else per_scenario
-            return
+            return True
         if not a:
             kernel_shapes.general_solve_geometry = solve_geometry
-            return
+            return True
 
         def at_geometry(d, n=int(a[1:]), what=a[0]):
             threads_, systems_, _ = solve_geometry(d)
@@ -453,6 +604,7 @@ def main():
                 systems_ = n
             return threads_, systems_, systems_ * kernel_shapes.general_solve_shared_bytes(d)
         kernel_shapes.general_solve_geometry = at_geometry
+        return True
     try:
         for shape, cap in captures(kind).items():
             for kernel, run, plain in kernels(kind):
@@ -474,7 +626,8 @@ def main():
                 for rnd in range(ROUNDS):
                     for name in (names if rnd % 2 == 0 else names[::-1]):
                         _build._lib = libs[name]
-                        geometry(name)
+                        if not geometry(name, cap):
+                            continue
                         fn = ((lambda: plain(cap)) if name == "k6_then_k1" else
                               (lambda: library_solve(cap)) if name == "library" else
                               (lambda: run(cap)))
@@ -494,9 +647,12 @@ def main():
         _build._lib = full
         K5.general_threads_per_scenario = per_scenario
         kernel_shapes.general_solve_geometry = solve_geometry
+        kernel_shapes.rollout_general_warps = rollout_warps
+        kernel_shapes.trajectorize_lanes = lanes_of
     torch.cuda.synchronize()
     table = [{"shape": s, "kernel": k, "variant": n, "ms": v, "min_ms": min(v),
-              "err": errs[(s, k, n)], "tol": None if n == "library" else tols[(s, k)],
+              "err": errs[(s, k, n)],
+              "tol": None if n == "library" or n in diag else tols[(s, k)],
               **({"bits_differ_from": {against: bits[(s, k, n)]}} if against else {})}
              for (s, k, n), v in times.items()]
     cs.emit({"variants": table})
